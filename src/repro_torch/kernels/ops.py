@@ -1,0 +1,57 @@
+"""Kernel dispatch by the tensors' device.
+
+CUDA tensors go to the hand-written kernel (``plant_block``,
+``episode_block``), CPU tensors to its plain PyTorch version
+(``kernels.ref``), which is the only CPU path. Any other device raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import episode_block as _episode
+from repro_torch.kernels import plant_block as _plant
+from repro_torch.kernels import ref
+
+#: every kernel launcher, by kernel name (each counts its own launches)
+LAUNCHERS = {"plant_block": _plant.plant_tick_block_cuda,
+             "episode_block": _episode.episode_block_cuda}
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel or plain path for device {t.device}")
+    return t.device.type
+
+
+def plant_tick_block(ready, pipeline, queue, wait_sum, util_ema, cooldown,
+                     pipe_sum, arrivals, *, n_ticks: int,
+                     rps_per_replica: float = 20.0,
+                     service_sec: float = 0.1, slo_sec: float = 0.5,
+                     resp_cap_sec: float = 600.0,
+                     metric_tau_sec: float = 60.0):
+    """Advance [B] plant lanes a whole decision-free control period.
+    Contract of ``cluster.plant_block_ref``: (state tuple, [B, T] ticks)."""
+    fn = (_plant.plant_tick_block_cuda if _route(ready) == "cuda"
+          else ref.plant_block_ref)
+    return fn(ready, pipeline, queue, wait_sum, util_ema, cooldown,
+              pipe_sum, arrivals, n_ticks=n_ticks,
+              rps_per_replica=rps_per_replica, service_sec=service_sec,
+              slo_sec=slo_sec, resp_cap_sec=resp_cap_sec,
+              metric_tau_sec=metric_tau_sec)
+
+
+def episode_block(rates, controller, cfg):
+    """Whole episodes: rates [B, M] -> MinuteOut of [B, M], plant ticks
+    and `controller.decide` inside one kernel launch on the card."""
+    fn = (_episode.episode_block_cuda if _route(rates) == "cuda"
+          else ref.episode_block_ref)
+    return fn(rates, controller, cfg)
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in LAUNCHERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in LAUNCHERS.values():
+        fn.launches = 0

@@ -17,6 +17,10 @@ def pytest_configure(config):
         "markers",
         "requires_tpu: compiled-mode (interpret=False) kernel parity "
         "pins; auto-skipped unless jax.default_backend() == 'tpu'")
+    config.addinivalue_line(
+        "markers",
+        "requires_cuda: CUDA kernel vs plain-version checks of the "
+        "PyTorch port; skipped in-test when torch.cuda is unavailable")
 
 
 def pytest_collection_modifyitems(config, items):
