@@ -1,8 +1,11 @@
 """The port stands alone: no file of ``src/repro_torch`` or
 ``chip_smoke.py`` imports JAX or the JAX package, and none imports the
 CUDA extension builder or Triton at module level (importing the port on
-a machine without nvcc must not build anything)."""
+a machine without nvcc must not build anything). ``chip_smoke.py``
+refuses to run without a card."""
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -43,3 +46,17 @@ def test_build_tools_import_lazily():
                if node in tree.body]
         assert not [n for n in top if n.startswith(
             ("torch.utils.cpp_extension", "triton"))], path
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without CUDA the smoke script exits non-zero and prints no
+    result on its standard output."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=tmp_path)
+    assert res.returncode != 0
+    assert res.stdout == ""
+    assert "CUDA is not available" in res.stderr
