@@ -22,7 +22,10 @@ and prints no result line):
    over ``burst_storm(n_workloads=100_000, minutes=1440, seed=0)``,
    default SimConfig (ci=15), ``make_simulator(w_chunk=25_000)`` on the
    episode kernel, then ``metrics.pooled`` and ``evals.rei.rei``.
-6. Per-kernel times at the shapes their path gives them (CUDA events;
+6. Each kernel against its plain version once more at the shapes its
+   path gives it (``episode_block`` on one 25,000 x 1440 chunk of the
+   fleet, ``plant_block`` at 1024 lanes x S=30 x 14 ticks), with the
+   tolerances above, and per-kernel times at those shapes (CUDA events;
    ``plant_block`` and its plain version replayed from a CUDA graph, so
    the host's per-launch overhead is not counted), against the card's
    bound.
@@ -71,9 +74,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int, warmup: bool = True) -> float:
-    """Mean device time of `fn` over `iters` calls, bracketed by CUDA
-    events (after one warm-up call unless the caller already ran it)."""
+def cuda_ms(fn, iters: int, warmup: bool = True):
+    """(mean device time of `fn` over `iters` calls bracketed by CUDA
+    events, the last call's result); one warm-up call first unless the
+    caller already ran it."""
     if warmup:
         fn()
     torch.cuda.synchronize()
@@ -81,10 +85,10 @@ def cuda_ms(fn, iters: int, warmup: bool = True) -> float:
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
-        fn()
+        result = fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, result
 
 
 def graph_ms(fn, iters: int) -> float:
@@ -275,12 +279,21 @@ def main() -> int:
         f" p95_ms={float(pool.p95_response_ms)}"
         f" rei={float(score.rei)} served={served} arrivals={arrivals}")
 
-    # ---- 6. kernel times at their paths' shapes
+    # ---- 6. kernels vs plain at their paths' shapes, and their times
     chunk = fleet_rates[:w_chunk]
-    ep_ms = cuda_ms(lambda: ops.episode_block(chunk, ctrl, cfg), iters=3)
+    ep_ms, got = cuda_ms(lambda: ops.episode_block(chunk, ctrl, cfg),
+                         iters=3)
     # one plain run (~3.5M eager launches); phases 3-4 warmed its path
-    ep_plain_ms = cuda_ms(lambda: ref.episode_block_ref(chunk, ctrl, cfg),
-                          iters=1, warmup=False)
+    ep_plain_ms, want = cuda_ms(
+        lambda: ref.episode_block_ref(chunk, ctrl, cfg), iters=1,
+        warmup=False)
+    ep_main_err = max_abs_err(got, want, EPISODE_TOL,
+                              f"episode {w_chunk}x{M}")
+    episode_err = max(episode_err, ep_main_err)
+    del got, want
+    log(f"[episode_block] fleet chunk {w_chunk}x{M} ci="
+        f"{cfg.control_interval_sec} matches the plain version, "
+        f"max_abs_err={ep_main_err}")
     buf_len = int(ctrl.hyper["buf_len"])
     ci, n_full, rem = cluster._ci_blocks(cfg)
     heads = n_full + (rem > 0)
@@ -290,17 +303,26 @@ def main() -> int:
               + downs * cfg.startup_sec)
     ep_bound, ep_by = bound_ms(13.0 * 4 * w_chunk * M, ep_ops)
 
-    pb = plant_inputs(np.random.default_rng(1), mix.shape[0],
-                      cfg.startup_sec, dev)
+    Bu = mix.shape[0]
+    pb = plant_inputs(np.random.default_rng(1), Bu, cfg.startup_sec, dev)
     T = ci - 1
+    pb_k = ops.plant_tick_block(*pb, n_ticks=T)
+    pb_r = ref.plant_block_ref(*pb, n_ticks=T)
+    pb_main_err = max(
+        max_abs_err(pb_k[0], pb_r[0], PLANT_TOL, f"state B={Bu} T={T}"),
+        max_abs_err(pb_k[1], pb_r[1], PLANT_TOL, f"ticks B={Bu} T={T}"))
+    plant_err = max(plant_err, pb_main_err)
+    del pb_k, pb_r
+    log(f"[plant_block] B={Bu} S={cfg.startup_sec} n_ticks={T} "
+        f"matches the plain version, max_abs_err={pb_main_err}")
     pb_ms = graph_ms(lambda: ops.plant_tick_block(*pb, n_ticks=T),
                      iters=20)
     pb_plain_ms = graph_ms(lambda: ref.plant_block_ref(*pb, n_ticks=T),
                            iters=3)
-    pb_host_ms = cuda_ms(lambda: ops.plant_tick_block(*pb, n_ticks=T),
-                         iters=20)
-    pb_bound, pb_by = bound_ms(plant_bytes(mix.shape[0], cfg.startup_sec, T),
-                               mix.shape[0] * T * PLANT_OPS_PER_TICK)
+    pb_host_ms, _ = cuda_ms(lambda: ops.plant_tick_block(*pb, n_ticks=T),
+                            iters=20)
+    pb_bound, pb_by = bound_ms(plant_bytes(Bu, cfg.startup_sec, T),
+                               Bu * T * PLANT_OPS_PER_TICK)
     big = plant_inputs(np.random.default_rng(2), B, S, dev)
     big_ms = graph_ms(lambda: ops.plant_tick_block(*big, n_ticks=T),
                       iters=20)
@@ -310,7 +332,7 @@ def main() -> int:
                                  B * T * PLANT_OPS_PER_TICK)
     log(f"[timing] episode_block {w_chunk}x{M}: {ep_ms} ms, plain "
         f"{ep_plain_ms} ms, bound {ep_bound} ms ({ep_by})")
-    log(f"[timing] plant_block B={mix.shape[0]} S={S} T={T}: {pb_ms} ms "
+    log(f"[timing] plant_block B={Bu} S={S} T={T}: {pb_ms} ms "
         f"(eager back-to-back calls: {pb_host_ms} ms each), plain "
         f"{pb_plain_ms} ms, bound {pb_bound} ms ({pb_by})")
     log(f"[timing] plant_block B={B} S={S} T={T}: {big_ms} ms, plain "

@@ -43,7 +43,7 @@ def _infer_device(device, *xs) -> torch.device:
     for x in xs:
         if isinstance(x, torch.Tensor):
             return x.device
-    return torch.device("cpu")
+    return _device.resolve("cuda")
 
 
 def scenario_baselines(minutes, n_workloads=1.0, *, device=None):
@@ -61,7 +61,8 @@ def rei(violation_rate, pod_minutes, scaling_actions, *,
         baseline_pod_minutes=None, baseline_actions=None,
         weights=DEFAULT_WEIGHTS, device=None) -> REIBreakdown:
     """Batched REI; all inputs broadcast. `device` defaults to that of the
-    first tensor input (the CPU for plain numbers)."""
+    first tensor input, and to CUDA (raising without it) when no input is
+    a tensor."""
     dev = _infer_device(device, violation_rate, pod_minutes,
                         scaling_actions)
     bpm, bact = scenario_baselines(minutes, n_workloads, device=dev)

@@ -27,7 +27,7 @@ def _launch_hpa(ext, rates, out, cfg, hyper, ci):
     ext.episode_block_hpa(
         rates, out, pipe, buf, ci, cfg.rps_per_replica, cfg.service_sec,
         cfg.slo_sec, cfg.resp_cap_sec, recip(cfg.metric_tau_sec),
-        cfg.max_replicas, cfg.initial_replicas, recip(hyper["target"]),
+        cfg.max_replicas, cfg.initial_replicas, hyper["inv_target"],
         hyper["tolerance"], hyper["cooldown_sec"])
 
 

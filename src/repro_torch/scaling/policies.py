@@ -29,15 +29,20 @@ def hpa_controller(cfg, *, target: float = 0.70,
                    stabilization_min: float = 5.0,
                    cooldown_min: float = 5.0,
                    tolerance: float = 0.10) -> Controller:
-    buf_len = max(int(stabilization_min * 60 / cfg.control_interval_sec), 1)
-    inv_target = float(np.float32(1.0) / np.float32(target))
-    cool_req = float(np.float32(cooldown_min * 60.0))
+    # the one source of the hyperparameters: `decide` reads them here and
+    # the episode kernel's launcher passes the same values to the card
+    hyper = dict(
+        target=target, tolerance=tolerance,
+        inv_target=float(np.float32(1.0) / np.float32(target)),
+        cooldown_sec=float(np.float32(cooldown_min * 60.0)),
+        buf_len=max(int(stabilization_min * 60 / cfg.control_interval_sec),
+                    1))
 
     def init(lanes: tuple[int, ...] = (), device="cuda"):
         dev = _device.resolve(device)
         init_r = float(cfg.initial_replicas)
         return HPAState(
-            desired_buf=torch.full((*lanes, buf_len), init_r,
+            desired_buf=torch.full((*lanes, hyper["buf_len"]), init_r,
                                    dtype=torch.float32, device=dev),
             last_total=torch.full(lanes, init_r, dtype=torch.float32,
                                   device=dev))
@@ -46,8 +51,8 @@ def hpa_controller(cfg, *, target: float = 0.70,
         return state
 
     def decide(state: HPAState, obs: Obs):
-        ratio = obs.util_ema * inv_target
-        in_band = (ratio - 1.0).abs() <= tolerance
+        ratio = obs.util_ema * hyper["inv_target"]
+        in_band = (ratio - 1.0).abs() <= hyper["tolerance"]
         raw = torch.ceil(obs.ready_total * ratio)
         raw = torch.where(in_band, obs.ready_total, raw)
         # serverless scale-to-zero on sustained idle (Knative-style KPA);
@@ -62,8 +67,6 @@ def hpa_controller(cfg, *, target: float = 0.70,
         stabilized = torch.maximum(raw, buf.amax(-1))
         desired = torch.where(raw >= obs.ready_total, raw, stabilized)
         return (HPAState(buf, desired), desired,
-                torch.full_like(desired, cool_req))
+                torch.full_like(desired, hyper["cooldown_sec"]))
 
-    return Controller("hpa", init, on_minute, decide,
-                      hyper=dict(target=target, tolerance=tolerance,
-                                 cooldown_sec=cool_req, buf_len=buf_len))
+    return Controller("hpa", init, on_minute, decide, hyper=hyper)

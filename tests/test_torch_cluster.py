@@ -17,6 +17,7 @@ from repro.scaling import registry as ref_registry
 from repro.sim import cluster as ref_cluster
 from repro_torch import interop
 from repro_torch.evals import metrics as t_metrics
+from repro_torch.evals import rei as t_rei
 from repro_torch.scaling import api as t_api
 from repro_torch.scaling import registry as t_registry
 from repro_torch.sim import cluster as t_cluster
@@ -188,7 +189,29 @@ def test_cuda_entry_points_raise_without_cuda():
              lambda: ctrl.init((2,), "cuda"),
              lambda: t_metrics.make_metrics_simulator(ctrl, cfg),
              lambda: t_metrics.compute(t_cluster.MinuteOut(
-                 *(np.ones((2, 3), np.float32),) * 12))]
+                 *(np.ones((2, 3), np.float32),) * 12)),
+             lambda: t_rei.rei(0.05, 2000.0, 30.0),
+             lambda: t_rei.sensitivity(0.05, 2000.0, 30.0),
+             lambda: t_rei.scenario_baselines(1440, 8)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_hpa_hyper_is_the_single_source():
+    """`decide` reads the hyperparameters the episode kernel is launched
+    with, so the two paths cannot drift apart."""
+    cfg, ctrl = _port(15)
+    assert ctrl.hyper["inv_target"] == float(np.float32(1.0)
+                                            / np.float32(0.70))
+    obs = t_api.Obs(*(torch.tensor([4.0, 4.0]),) * 2,
+                    util_ema=torch.tensor([0.9, 0.2]),
+                    queue=torch.zeros(2), rate_rps=torch.ones(2),
+                    rate_history=torch.zeros(2, 60), minute_idx=0)
+    state = ctrl.init((2,), "cpu")
+    _, desired, cool = ctrl.decide(state, obs)
+    np.testing.assert_array_equal(desired.numpy(), [6.0, 2.0])
+    ctrl.hyper.update(tolerance=10.0, cooldown_sec=7.0)
+    _, desired, cool = ctrl.decide(state, obs)
+    np.testing.assert_array_equal(desired.numpy(), [4.0, 4.0])
+    np.testing.assert_array_equal(cool.numpy(), [7.0, 7.0])
