@@ -31,10 +31,30 @@ and prints no result line):
    bound.
 7. One more fleet run under ``torch.profiler``: device time by kernel and
    the device's busy share of the wall time.
+8. The classification path at AAPAset scale (the ``aapaset_300k``
+   recipe: ``generate_traces(n_functions=150, n_days=14, seed=0)``,
+   60-minute windows at stride 10): ``window_features`` against its
+   plain version (quantized features exact, the rest at rtol/atol 5e-4),
+   a seeded GBDT at the paper's size (60 rounds x 4 classes, depth 4, 64
+   bins, 38 features; bin edges are quantiles of the port's own
+   features over these windows) through ``gbdt_tables`` against its
+   plain version (argmax exact, logits within 4 ulp of the largest),
+   then the whole path (features -> logits -> softmax -> beta
+   calibration -> archetype) timed, with its archetype histogram, and
+   each kernel's time.
+9. The ``episode_block`` kernel's AAPA policy (that classifier inside)
+   against its plain version: ``archetype_mix`` 1024 x 120 at ci 7
+   (remainder block) with stride 10 and 2, and one 25,000 x 1440 chunk
+   of the AAPA fleet; all 12 MinuteOut fields at the episode tolerance
+   and the archetype of every lane after every minute exactly.
+10. The AAPA fleet: the same 100,000 x 1440 ``burst_storm`` rates as the
+    HPA row through ``make_simulator(w_chunk=25_000)``, pooled metrics
+    and REI, timed, then once more under ``torch.profiler``.
 
-Phases 4 and 5 each reset the kernels' launch counts just before they
-run and read them just after; a path whose kernel was never launched
-fails. Kernel-vs-plain comparisons and timing launches are not counted.
+Phases 4, 5, 8 and 10 each reset the kernels' launch counts just before
+they run and read them just after; a path whose kernel was never
+launched fails. Kernel-vs-plain comparisons and timing launches are not
+counted.
 
 Output: progress lines, then a JSON line of per-kernel numbers, then the
 ``nvidia-smi`` line, then the result line
@@ -68,6 +88,45 @@ EPISODE_OPS_PER_HEAD = 52
 
 PLANT_TOL = dict(rtol=1e-5, atol=1e-5)
 EPISODE_TOL = dict(rtol=3e-6, atol=1e-4)
+FEATURE_TOL = dict(rtol=5e-4, atol=5e-4)
+
+# The AAPA policy's operations, counted from episode_block.cu and
+# features.cuh / gbdt.cuh (integer compares count as operations; an f64
+# exp or log counts as one): decide per control-period head, on_minute
+# per minute (Holt-Winters update, the horizon's peak forecast, the
+# 30-minute trend and the 15-minute mean), calibration per reclassification.
+AAPA_OPS_PER_HEAD = 26
+AAPA_OPS_PER_MINUTE = 20 + 4 * 15 + 157 + 17   # HW + residual, 15-min peak,
+#                                               trend, mean
+AAPA_CAL_OPS = 60
+
+
+def stat_feature_ops(w: int) -> int:
+    """Operations of the 28 stat/time features of one window of `w`
+    (features.cuh::stat_time_features), with the sort counted as the
+    w*log2(w) comparisons a comparison sort needs at least."""
+    acf = sum(4 * (w - lag) for lag in range(1, 31))        # lags 1..30
+    acf += sum(4 * (w - lag) for lag in (1, 2, 3, 6, 12))   # named again
+    return (w + 1 + 3 * w + 1 + 2 * w + int(w * np.log2(w)) + 12
+            + 3 * (4 * w + 1) + 3 * w + (w + 2) + acf + 4 * (w - 1)
+            + 4 * (w - 2) + 30)
+
+
+def freq_feature_ops(w: int) -> int:
+    """Operations of the 10 frequency features of one window
+    (features.cuh::freq_features): the DFT (w subtractions, 2 products
+    and 2 sums per bin and sample) and the spectral statistics."""
+    nb = w // 2
+    return w + 1 + nb * w * 5 + nb * 3 + nb * 20 + 10
+
+
+def gbdt_ops(n_features: int, n_edges: int, n_trees: int,
+             depth: int) -> int:
+    """Operations of one row's logits (gbdt.cuh::gbdt_logits): the binary
+    searches, one compare and two index ops per tree level, one add per
+    tree."""
+    return (n_features * int(np.ceil(np.log2(n_edges + 1)))
+            + n_trees * (3 * depth + 1))
 
 
 def log(msg: str) -> None:
@@ -144,13 +203,145 @@ def plant_inputs(rng, B: int, S: int, dev):
             for c in cols]
 
 
+def seeded_classifier(feats: np.ndarray, dev, seed: int = 0):
+    """A seeded GBDT + beta calibration at the paper's classifier size
+    (``GBDTConfig`` defaults: 60 rounds x 4 classes, depth 4, 64 bins),
+    its bin edges quantiles of `feats` [N, 38]."""
+    from repro_torch.core import calibration, gbdt
+    from repro_torch.core.pipeline import Classify
+    c = gbdt.GBDTConfig()
+    rng = np.random.default_rng(seed)
+    n_int = 2 ** c.depth - 1
+    shape = (c.n_rounds, c.n_classes)
+    params = gbdt.from_arrays(
+        rng.integers(0, feats.shape[1], shape + (n_int,)),
+        rng.integers(0, c.n_bins - 1, shape + (n_int,)),
+        rng.normal(0.0, 0.15, shape + (n_int + 1,)),
+        gbdt.compute_bin_edges(feats, c.n_bins),
+        np.log(np.float32([0.55, 0.15, 0.15, 0.15])), device=dev)
+    cal = calibration.from_arrays(rng.normal(0.55, 0.1, c.n_classes),
+                                  rng.normal(0.55, 0.1, c.n_classes),
+                                  rng.normal(0.0, 0.1, c.n_classes),
+                                  device=dev)
+    return Classify(params, cal)
+
+
+def aapa_episode_ops(B: int, M: int, heads: int, stride: int, downs: float,
+                     cls, S: int) -> float:
+    """Operations of one AAPA episode launch: the plant as for HPA, the
+    AAPA decide per head, on_minute per minute, and per reclassification
+    the 38 features, the trees and the calibration."""
+    t = cls.params.tables
+    n_edges = cls.params.bin_edges.shape[1]
+    reclass = (stat_feature_ops(60) + freq_feature_ops(60)
+               + gbdt_ops(38, n_edges, t.feat.shape[0], cls.params.depth)
+               + AAPA_CAL_OPS)
+    return (B * M * (60 * EPISODE_OPS_PER_TICK
+                     + heads * (EPISODE_OPS_PER_HEAD + AAPA_OPS_PER_HEAD)
+                     + AAPA_OPS_PER_MINUTE)
+            + B * (M // stride) * reclass + downs * S)
+
+
+def assert_episode(got, want, what: str) -> float:
+    """MinuteOut at the episode tolerance and archetypes exactly; returns
+    the largest MinuteOut difference."""
+    (out_k, arch_k), (out_p, arch_p) = got, want
+    err = max_abs_err(out_k, out_p, EPISODE_TOL, what)
+    if not torch.equal(arch_k, arch_p):
+        bad = (arch_k != arch_p).nonzero()[:5].tolist()
+        raise RuntimeError(f"{what}: archetype sequences differ at "
+                           f"(lane, minute) {bad}")
+    return err
+
+
+def profile_row(run, label: str):
+    """`run()` under torch.profiler: prints device time by kernel and the
+    busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        prof_s = time.perf_counter() - t0
+    by_kernel = sorted(((e.self_device_time_total, e.count, e.key)
+                        for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and e.self_device_time_total > 0), reverse=True)
+    device_ms = sum(t for t, _, _ in by_kernel) / 1e3
+    log(f"[profile] {label}: wall {prof_s:.4f} s under the profiler, device"
+        f" busy {device_ms:.3f} ms ({device_ms / (prof_s * 1e3):.4f} of "
+        f"wall)")
+    for t, n, key in by_kernel[:10]:
+        log(f"[profile]   {t / 1e3:10.3f} ms  x{n:<6d} {key[:90]}")
+
+
+def fleet_row(controller, cfg, rates, w_chunk: int, label: str):
+    """The Table IV row on the card: a `make_simulator(w_chunk=...)`
+    episode over `rates`, pooled metrics and REI, timed after a warm-up
+    run with the launch counts reset just before it. Checks that the
+    episode kernel ran and that the result is sound, prints it, and
+    returns (launch counts, the row as a function, the first chunk's
+    scale-downs)."""
+    from repro_torch.evals import metrics, rei
+    from repro_torch.kernels import ops
+    from repro_torch.sim import cluster
+    W, M = rates.shape
+    sim = cluster.make_simulator(controller, cfg, w_chunk=w_chunk)
+
+    def row():
+        """Episode, then pooled metrics and REI: (out, wall of the
+        episode, pool, score)."""
+        t0 = time.perf_counter()
+        out = sim(rates)
+        torch.cuda.synchronize()
+        episode_s = time.perf_counter() - t0
+        pool = metrics.pooled(out)
+        score = rei.rei(pool.slo_violation_rate, pool.replica_minutes,
+                        pool.scaling_actions, minutes=M, n_workloads=W)
+        torch.cuda.synchronize()
+        return out, episode_s, pool, score
+
+    row()                                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, episode_s, pool, score = row()
+    row_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if counts["episode_block"] == 0:
+        raise RuntimeError(f"{label} launched no episode_block kernel: "
+                           f"{counts}")
+    if tuple(out.served.shape) != (W, M):
+        raise RuntimeError(f"MinuteOut shape {tuple(out.served.shape)}")
+    for name, v in (*pool._asdict().items(), *score._asdict().items()):
+        if not torch.isfinite(v).all():
+            raise RuntimeError(f"non-finite {name}: {v}")
+    if not all(bool(torch.isfinite(f).all()) for f in out):
+        raise RuntimeError("non-finite MinuteOut values")
+    served = float(out.served.double().sum())
+    arrivals = float(rates.double().sum())
+    if served > arrivals + 1e-3 * arrivals:
+        raise RuntimeError(f"served {served} exceeds arrivals {arrivals}")
+    log(f"[{label}] episode wall {episode_s:.4f} s "
+        f"({W * M / episode_s:.6g} lane-minutes/s), episode + metrics + "
+        f"REI {row_s:.4f} s, peak device memory {peak} bytes, "
+        f"launches {counts}")
+    log(f"[{label}] pooled slo_violation_rate="
+        f"{float(pool.slo_violation_rate)} replica_minutes="
+        f"{float(pool.replica_minutes)} scaling_actions="
+        f"{float(pool.scaling_actions)} p95_ms={float(pool.p95_response_ms)}"
+        f" rei={float(score.rei)} served={served} arrivals={arrivals}")
+    return counts, row, float(out.downs[:w_chunk].double().sum())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.evals import metrics, rei
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.scaling import registry, scenarios
     from repro_torch.sim import cluster
@@ -231,53 +422,8 @@ def main() -> int:
     log(f"[fleet] burst_storm {W}x{M} generated in "
         f"{time.perf_counter() - t0:.1f} s "
         f"({fleet_rates.numel() * 4 / 1e6:.0f} MB of rates on the card)")
-    sim = cluster.make_simulator(ctrl, cfg, w_chunk=w_chunk)
-
-    def main_path():
-        """Episode, then pooled metrics and REI: (out, wall of the
-        episode, pool, score)."""
-        t0 = time.perf_counter()
-        out = sim(fleet_rates)
-        torch.cuda.synchronize()
-        episode_s = time.perf_counter() - t0
-        pool = metrics.pooled(out)
-        score = rei.rei(pool.slo_violation_rate, pool.replica_minutes,
-                        pool.scaling_actions, minutes=M, n_workloads=W)
-        torch.cuda.synchronize()
-        return out, episode_s, pool, score
-
-    main_path()                               # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    out, episode_s, pool, score = main_path()
-    main_s = time.perf_counter() - t0
-    main_counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    if main_counts["episode_block"] == 0:
-        raise RuntimeError(f"main path launched no episode_block kernel: "
-                           f"{main_counts}")
-    if tuple(out.served.shape) != (W, M):
-        raise RuntimeError(f"MinuteOut shape {tuple(out.served.shape)}")
-    for name, v in (*pool._asdict().items(), *score._asdict().items()):
-        if not torch.isfinite(v).all():
-            raise RuntimeError(f"non-finite {name}: {v}")
-    if not all(bool(torch.isfinite(f).all()) for f in out):
-        raise RuntimeError("non-finite MinuteOut values")
-    served = float(out.served.double().sum())
-    arrivals = float(fleet_rates.double().sum())
-    if served > arrivals + 1e-3 * arrivals:
-        raise RuntimeError(f"served {served} exceeds arrivals {arrivals}")
-    log(f"[fleet] episode wall {episode_s:.4f} s "
-        f"({W * M / episode_s:.6g} lane-minutes/s), episode + metrics + "
-        f"REI {main_s:.4f} s, peak device memory {peak} bytes, "
-        f"launches {main_counts}")
-    log(f"[fleet] pooled slo_violation_rate={float(pool.slo_violation_rate)}"
-        f" replica_minutes={float(pool.replica_minutes)}"
-        f" scaling_actions={float(pool.scaling_actions)}"
-        f" p95_ms={float(pool.p95_response_ms)}"
-        f" rei={float(score.rei)} served={served} arrivals={arrivals}")
+    main_counts, main_path, downs = fleet_row(ctrl, cfg, fleet_rates,
+                                              w_chunk, "fleet")
 
     # ---- 6. kernels vs plain at their paths' shapes, and their times
     chunk = fleet_rates[:w_chunk]
@@ -297,7 +443,6 @@ def main() -> int:
     buf_len = int(ctrl.hyper["buf_len"])
     ci, n_full, rem = cluster._ci_blocks(cfg)
     heads = n_full + (rem > 0)
-    downs = float(out.downs[:w_chunk].double().sum())
     ep_ops = (w_chunk * M * (60 * EPISODE_OPS_PER_TICK
                              + heads * (EPISODE_OPS_PER_HEAD + buf_len))
               + downs * cfg.startup_sec)
@@ -339,23 +484,136 @@ def main() -> int:
         f"{big_plain_ms} ms, bound {big_bound} ms ({big_by})")
 
     # ---- 7. where the fleet run's device time goes
-    del out, pool, score
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        main_path()
-        prof_s = time.perf_counter() - t0
-    by_kernel = sorted(((e.self_device_time_total, e.count, e.key)
-                        for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        and e.self_device_time_total > 0), reverse=True)
-    device_ms = sum(t for t, _, _ in by_kernel) / 1e3
-    log(f"[profile] fleet episode + metrics + REI: wall {prof_s:.4f} s "
-        f"under the profiler, device busy {device_ms:.3f} ms "
-        f"({device_ms / (prof_s * 1e3):.4f} of wall)")
-    for t, n, key in by_kernel[:10]:
-        log(f"[profile]   {t / 1e3:10.3f} ms  x{n:<6d} {key[:90]}")
+    profile_row(main_path, "HPA fleet episode + metrics + REI")
+
+    # ---- 8. classification path at AAPAset scale
+    from repro_torch.core import features
+    from repro_torch.data import azure_synth, windows
+    t0 = time.perf_counter()
+    ds = windows.make_windows(azure_synth.generate_traces(
+        n_functions=150, n_days=14, seed=0))
+    wins = torch.as_tensor(ds.windows, device=dev)
+    N = wins.shape[0]
+    log(f"[classify] {N} windows x 60 ({wins.numel() * 4 / 1e6:.1f} MB) "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    wf_k = ops.window_features(wins)
+    wf_p = ref.window_features_ref(wins)
+    quant = [features.FEATURE_NAMES.index(n) for n in features.QUANTIZED
+             if n in features.STAT_TIME_NAMES]
+    if not torch.equal(wf_k[:, quant], wf_p[:, quant]):
+        raise RuntimeError("window_features: quantized features differ from "
+                           "the plain version")
+    wf_err = max_abs_err([wf_k], [wf_p], FEATURE_TOL, "window_features")
+    log(f"[window_features] {N} x 60 matches the plain version (quantized "
+        f"features exact), max_abs_err={wf_err}, bitwise "
+        f"{bool(torch.equal(wf_k, wf_p))}")
+    feats = torch.cat([wf_k, features.freq_features(wins)], -1)
+    cls = seeded_classifier(feats.cpu().numpy(), dev)
+    lg_k = ops.gbdt_logits(cls.params, feats)
+    lg_p = ref.gbdt_logits_ref(cls.params, feats)
+    if not torch.equal(lg_k.argmax(-1), lg_p.argmax(-1)):
+        raise RuntimeError("gbdt_tables: argmax differs from the plain "
+                           "version")
+    ulp4 = 4 * float(np.spacing(np.float32(lg_p.abs().max().item())))
+    gb_err = float((lg_k - lg_p).abs().max())
+    if gb_err > ulp4:
+        raise RuntimeError(f"gbdt_tables: logits differ by {gb_err} > "
+                           f"4 ulp ({ulp4})")
+    log(f"[gbdt_tables] {N} x 38, 240 trees of depth 4 match the plain "
+        f"version (argmax exact), max_abs_err={gb_err}")
+    del wf_k, wf_p, lg_k, lg_p
+
+    def classify_path():
+        feats = ops.extract_features_fused(wins)
+        return cls(feats)
+
+    classify_path()                                   # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    arch, conf = classify_path()
+    torch.cuda.synchronize()
+    classify_s = time.perf_counter() - t0
+    classify_counts = ops.launch_counts()
+    for k in ("window_features", "gbdt_tables"):
+        if classify_counts[k] == 0:
+            raise RuntimeError(f"classification path launched no {k} "
+                               f"kernel: {classify_counts}")
+    if not bool(torch.isfinite(conf).all()) or not (
+            (arch >= 0) & (arch < 4)).all():
+        raise RuntimeError("classification path: bad archetype or "
+                           "confidence")
+    hist = torch.bincount(arch.long(), minlength=4).tolist()
+    log(f"[classify] features -> logits -> calibrated archetype for {N} "
+        f"windows: {classify_s:.4f} s ({N / classify_s:.6g} windows/s), "
+        f"archetype histogram {hist}, mean confidence "
+        f"{float(conf.mean())}, launches {classify_counts}")
+    wf_ms = cuda_ms(lambda: ops.window_features(wins), iters=10)[0]
+    wf_plain_ms = cuda_ms(lambda: ref.window_features_ref(wins), iters=2)[0]
+    centred = wins - wins.mean(-1, keepdim=True)
+    rfft_ms = cuda_ms(lambda: torch.fft.rfft(centred, dim=-1), iters=10)[0]
+    wf_bound, wf_by = bound_ms(4.0 * N * (60 + 28),
+                               float(N) * stat_feature_ops(60))
+    gb_ms = cuda_ms(lambda: ops.gbdt_logits(cls.params, feats), iters=10)[0]
+    gb_plain_ms = cuda_ms(
+        lambda: ref.gbdt_logits_ref(cls.params, feats), iters=2)[0]
+    n_edges = cls.params.bin_edges.shape[1]
+    table_bytes = sum(t.numel() * 4 for t in (
+        cls.params.bin_edges, *cls.params.tables, cls.params.base))
+    gb_bound, gb_by = bound_ms(4.0 * N * (38 + 4) + table_bytes,
+                               float(N) * gbdt_ops(38, n_edges, 240, 4))
+    log(f"[timing] window_features {N} x 60: {wf_ms} ms, plain "
+        f"{wf_plain_ms} ms, bound {wf_bound} ms ({wf_by}); torch.fft.rfft "
+        f"for the 10 frequency features: {rfft_ms} ms")
+    log(f"[timing] gbdt_tables {N} x 38: {gb_ms} ms, plain {gb_plain_ms} "
+        f"ms, bound {gb_bound} ms ({gb_by})")
+    del feats, centred, arch, conf
+
+    # ---- 9. the AAPA episode kernel against its plain version
+    from repro_torch.kernels import episode_block
+    aapa_err = 0.0
+    for stride in (10, 2):
+        cfg7 = cluster.SimConfig(control_interval_sec=7)
+        actrl = registry.make("aapa", cfg7, classify=cls, stride_min=stride)
+        aapa_err = max(aapa_err, assert_episode(
+            episode_block.aapa_episode_cuda(mix, actrl, cfg7),
+            ref.aapa_episode_ref(mix, actrl, cfg7),
+            f"aapa archetype_mix ci=7 stride={stride}"))
+    torch.cuda.synchronize()
+    log(f"[episode_block<AAPA>] archetype_mix 1024x120 ci=7 stride 10/2 "
+        f"matches the plain version (archetypes exact), "
+        f"max_abs_err={aapa_err}")
+    actrl = registry.make("aapa", cfg, classify=cls)
+    got = episode_block.aapa_episode_cuda(chunk, actrl, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ref.aapa_episode_ref(chunk, actrl, cfg)
+    torch.cuda.synchronize()
+    aapa_plain_s = time.perf_counter() - t0
+    chunk_err = assert_episode(got, want, f"aapa {w_chunk}x{M}")
+    aapa_err = max(aapa_err, chunk_err)
+    arch_hist = torch.bincount(got[1].reshape(-1).long(),
+                               minlength=4).tolist()
+    log(f"[episode_block<AAPA>] fleet chunk {w_chunk}x{M} ci=15 stride 10 "
+        f"matches the plain version (archetypes exact), "
+        f"max_abs_err={chunk_err}; lane-minutes by archetype {arch_hist}")
+    aapa_downs = float(got[0].downs.double().sum())
+    del got, want
+    aapa_ms = cuda_ms(lambda: ops.episode_block(chunk, actrl, cfg),
+                      iters=3)[0]
+    stride = int(actrl.hyper["stride_min"])
+    aapa_bound, aapa_by = bound_ms(
+        13.0 * 4 * w_chunk * M,
+        aapa_episode_ops(w_chunk, M, heads, stride, aapa_downs, cls,
+                         cfg.startup_sec))
+    log(f"[timing] episode_block<AAPA> {w_chunk}x{M}: {aapa_ms} ms, plain "
+        f"{aapa_plain_s * 1e3} ms (one run, host clock), bound "
+        f"{aapa_bound} ms ({aapa_by})")
+
+    # ---- 10. the AAPA fleet: Table IV row
+    aapa_counts, aapa_path, _ = fleet_row(actrl, cfg, fleet_rates, w_chunk,
+                                          "aapa fleet")
+    profile_row(aapa_path, "AAPA fleet episode + metrics + REI")
 
     kernels = [
         dict(name="plant_block", route="cuda",
@@ -364,12 +622,30 @@ def main() -> int:
              launches=unfused_counts["plant_block"], max_abs_err=plant_err,
              ms=pb_ms, plain_ms=pb_plain_ms, bound_ms=pb_bound,
              bound_by=pb_by, library_ms=None),
-        dict(name="episode_block", route="cuda",
+        dict(name="episode_block", policy="hpa", route="cuda",
              source="src/repro_torch/kernels/csrc/episode_block.cu",
              replaces="src/repro/kernels/episode_block.py:210",
              launches=main_counts["episode_block"],
              max_abs_err=episode_err, ms=ep_ms, plain_ms=ep_plain_ms,
              bound_ms=ep_bound, bound_by=ep_by, library_ms=None),
+        dict(name="episode_block<AAPA>", policy="aapa", route="cuda",
+             source="src/repro_torch/kernels/csrc/episode_block.cu",
+             replaces="src/repro/kernels/episode_block.py:210",
+             launches=aapa_counts["episode_block"], max_abs_err=aapa_err,
+             ms=aapa_ms, plain_ms=aapa_plain_s * 1e3, bound_ms=aapa_bound,
+             bound_by=aapa_by, library_ms=None),
+        dict(name="window_features", route="cuda",
+             source="src/repro_torch/kernels/csrc/window_features.cu",
+             replaces="src/repro/kernels/window_features.py:163",
+             launches=classify_counts["window_features"],
+             max_abs_err=wf_err, ms=wf_ms, plain_ms=wf_plain_ms,
+             bound_ms=wf_bound, bound_by=wf_by, library_ms=rfft_ms),
+        dict(name="gbdt_tables", route="cuda",
+             source="src/repro_torch/kernels/csrc/gbdt_tables.cu",
+             replaces="src/repro/kernels/gbdt_tables.py:53",
+             launches=classify_counts["gbdt_tables"], max_abs_err=gb_err,
+             ms=gb_ms, plain_ms=gb_plain_ms, bound_ms=gb_bound,
+             bound_by=gb_by, library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -26,3 +26,4 @@ def const(value: float, device: torch.device) -> torch.Tensor:
     ``tensor / cpu_scalar`` into a multiply by the scalar's reciprocal,
     neither of which is the IEEE quotient the kernels compute."""
     return torch.tensor(value, dtype=torch.float32, device=device)
+

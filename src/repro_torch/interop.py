@@ -1,30 +1,39 @@
 """Carry state across from the JAX reference and back, as NumPy arrays.
 
 `from_reference` takes a reference ``SimState`` (with its
-``LimiterState`` and ``HPAState``), ``MinuteOut`` or ``EpisodeMetrics``
-whose leaves are NumPy arrays (``jax.tree.map(np.asarray,
+``LimiterState`` and an ``HPAState`` or ``AAPAState``, whose forecaster
+carry is an ``FState`` over an ``HWState``), ``MinuteOut`` or
+``EpisodeMetrics`` whose leaves are NumPy arrays (``jax.tree.map(np.asarray,
 tree)``), or tuples and lists of them, and returns the port's NamedTuple
 of the same name with tensors on `device`. `to_numpy` goes the other
 way: the same NamedTuple types with NumPy leaves, whose fields line up
 with the reference's so ``RefType(*fields)`` rebuilds it. Python numbers
 (such as a minute index) pass through unchanged.
 
-HPA has no trained weights: this slice's state is plant and controller
-state.
+`trained_from_reference` carries a trained AAPA classifier across: a
+reference ``TrainedAAPA`` (its arrays as NumPy, or JAX arrays that NumPy
+can read) or the npz its ``save`` writes.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from repro_torch import _device
+from repro_torch.core import calibration, gbdt
+from repro_torch.core.forecasting import HWState
+from repro_torch.core.pipeline import TrainedAAPA
 from repro_torch.evals.metrics import EpisodeMetrics
+from repro_torch.forecast.api import FState
 from repro_torch.scaling.api import LimiterState
-from repro_torch.scaling.policies import HPAState
+from repro_torch.scaling.policies import AAPAState, HPAState
 from repro_torch.sim.cluster import MinuteOut, SimState
 
 _TYPES = {t.__name__: t for t in (SimState, LimiterState, HPAState,
-                                  MinuteOut, EpisodeMetrics)}
+                                  AAPAState, FState, HWState, MinuteOut,
+                                  EpisodeMetrics)}
 
 
 def _is_namedtuple(x) -> bool:
@@ -65,3 +74,21 @@ def to_numpy(tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(to_numpy(v) for v in tree)
     return tree
+
+
+def trained_from_reference(trained, device="cuda") -> TrainedAAPA:
+    """A reference ``TrainedAAPA``, or the path of the npz its ``save``
+    writes, -> the port's ``TrainedAAPA`` with tensors on `device`."""
+    if isinstance(trained, (str, os.PathLike)):
+        return TrainedAAPA.load(trained, device=device)
+    p, c = trained.params, trained.cal
+    return TrainedAAPA(
+        params=gbdt.from_arrays(p.feat, p.thresh, p.leaf, p.bin_edges,
+                                p.base, device=device),
+        cal=calibration.from_arrays(c.a_raw, c.b_raw, c.c, device=device),
+        train_acc=float(trained.train_acc), val_acc=float(trained.val_acc),
+        test_acc=float(trained.test_acc),
+        label_dist=np.asarray(trained.label_dist),
+        n_windows=int(trained.n_windows),
+        fit_seconds=float(trained.fit_seconds),
+        dataset_id=str(trained.dataset_id))

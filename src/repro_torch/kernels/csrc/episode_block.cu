@@ -18,18 +18,33 @@
 //     the slot behind the head (the logical tail), a scale-down rescales
 //     the slots (skipped when the factor is exactly 1, where it is an
 //     identity);
-//   * HPA's stabilization window is a ring too; its max is order-free.
+//   * HPA's stabilization window is a ring too; its max is order-free;
+//   * AAPA's 60-minute rate history is a ring (oldest at the head) and
+//     the Holt-Winters season is indexed by its phase.
 // decide and on_minute are device functions of a Policy type chosen at
-// compile time (HPA here; kpa/predictive/aapa add their own Policy and the
-// rate-history ring that those read). Hyperparameters, ci, S, M and the
-// SimConfig floats are run-time arguments, so a sweep never rebuilds.
-// Minute 0 starts from cluster.initial_state. A control interval that does
-// not divide 60 (e.g. 7) ends each minute with a shorter remainder block.
+// compile time (HPA, AAPA). Hyperparameters, ci, S, M and the SimConfig
+// floats are run-time arguments, so a sweep never rebuilds. Minute 0
+// starts from cluster.initial_state. A control interval that does not
+// divide 60 (e.g. 7) ends each minute with a shorter remainder block.
+//
+// AAPA reclassifies inside the kernel, as the TPU kernel did: at every
+// stride-th minute boundary a lane copies its history ring, oldest first,
+// into local memory and runs the window-feature and GBDT device functions
+// (features.cuh, gbdt.cuh) the standalone kernels run, then softmax, beta
+// calibration and Algorithm 1. The 10 frequency features, which the TPU
+// kernel could not lower (jnp.fft.rfft), are a real DFT against an f32
+// cos/sin table. Everything decide reads that changes only at a minute
+// boundary (the forecaster's peak, the 30-minute trend, the 15-minute
+// mean) is computed once there.
 //
 // Bound on the H100: operations. Per lane-minute the kernel moves 52
 // bytes (one rate in, 12 aggregates out) against ~60 ticks of ~45 f32
-// operations. It runs at one thread per lane, so a 25,000-lane launch
-// fills about a tenth of the card's thread slots and is latency-bound.
+// operations, plus AAPA's per-minute forecaster and trend work and, every
+// stride minutes, ~20,000 operations of features and trees. It runs at
+// one thread per lane, so a 25,000-lane launch fills about a tenth of the
+// card's thread slots and is latency-bound.
+#include "features.cuh"
+#include "gbdt.cuh"
 #include "plant.cuh"
 
 namespace repro_torch {
@@ -47,11 +62,12 @@ struct HPA {
   struct State {
     float* buf;  // this lane's window ring, slot j at buf[j * B]
     int head;    // oldest entry
+    int arch;    // no archetype (the kernel is launched without arch_out)
   };
 
   __device__ static State init(const Hyper& h, float* scratch, int b,
                                int B, float initial) {
-    State s{scratch + b, 0};
+    State s{scratch + b, 0, -1};
     for (int j = 0; j < h.buf_len; ++j) s.buf[static_cast<size_t>(j) * B] = initial;
     return s;
   }
@@ -79,7 +95,185 @@ struct HPA {
     return desired;
   }
 
-  __device__ static void on_minute(State&, const Hyper&, int) {}
+  __device__ static void on_minute(State&, const Hyper&, float, int, int) {}
+};
+
+constexpr int kHistory = 60;  // SimConfig.history_len, the feature window
+constexpr int kTrendWindow = 30, kMeanWindow = 15;
+constexpr float kOneMinusEps = 0.999999f;  // calibration's 1 - EPS clip
+
+__device__ __forceinline__ float select4(int idx, const float* v) {
+  return idx == 0 ? v[0] : (idx == 1 ? v[1] : (idx == 2 ? v[2] : v[3]));
+}
+
+// scaling/policies.py::aapa_controller with the Holt-Winters forecaster
+// (forecast/models.py, core/forecasting.py) and a GBDT + beta-calibration
+// classifier (core/pipeline.py::Classify) or the registry's constant one.
+struct AAPA {
+  using Hyper = AAPAHyper;
+  struct State {
+    float* hist;    // rate-history ring, slot j at hist[j * B]
+    float* season;  // Holt-Winters season, phase p at season[p * B]
+    int head;       // oldest history slot
+    int t;          // Holt-Winters phase counter
+    float level, trend, resid;
+    int arch;
+    float conf, cpu_adj, cool_adj_min, minrep_adj;
+    // pure functions of the history and the forecaster, refreshed at
+    // each minute boundary: decide's forecast, trend and mean, per second
+    float fc_rps, trend_rps, mean_rps;
+  };
+
+  __device__ static State init(const Hyper& h, float* scratch, int b, int B,
+                               float) {
+    State s;
+    s.hist = scratch + b;
+    s.season = scratch + static_cast<size_t>(kHistory) * B + b;
+    for (int j = 0; j < kHistory; ++j) s.hist[static_cast<size_t>(j) * B] = 0.0f;
+    for (int j = 0; j < h.period; ++j) s.season[static_cast<size_t>(j) * B] = 0.0f;
+    s.head = 0;
+    s.t = 0;
+    s.level = s.trend = s.resid = 0.0f;
+    s.arch = 2;  // start conservative
+    s.conf = 0.5f;
+    s.cpu_adj = 0.5f;
+    s.cool_adj_min = 5.0f;
+    s.minrep_adj = 1.0f;
+    s.fc_rps = s.trend_rps = s.mean_rps = 0.0f;  // all-zero history
+    return s;
+  }
+
+  // core/forecasting.py::hw_forecast_max
+  __device__ static float hw_forecast_max(const State& s, const Hyper& h,
+                                          int horizon, int B) {
+    float best = -INFINITY;
+    for (int k = 1; k <= horizon; ++k) {
+      const int phase = (s.t + k - 1) % h.period;
+      const float pred = (s.level + static_cast<float>(k) * s.trend) +
+                         s.season[static_cast<size_t>(phase) * B];
+      best = fmaxf(best, pred);
+    }
+    return best;
+  }
+
+  // history slot of minute j of the window, j = 0 the oldest
+  __device__ static float hist_at(const State& s, int j, int B) {
+    const int slot = s.head + j < kHistory ? s.head + j : s.head + j - kHistory;
+    return s.hist[static_cast<size_t>(slot) * B];
+  }
+
+  // the classifier on the lane's 60-minute window, oldest first
+  __device__ static void reclassify(State& s, const Hyper& h, int B) {
+    if (h.classify == 0) {  // scaling/registry.py::default_classify
+      s.arch = 2;
+      s.conf = 0.5f;
+      return;
+    }
+    float x[kHistory], xs[kHistory], feats[kFeatures];
+    for (int j = 0; j < kHistory; ++j) x[j] = hist_at(s, j, B);
+    stat_time_features(x, xs, kHistory, feats);
+    freq_features(x, kHistory, h.freq, feats + kStatFeatures);
+    int bins[kMaxGBDTFeatures];
+    float logits[4];
+    gbdt_logits(h.gbdt, feats, bins, logits);
+    // core/gbdt.py::softmax, core/calibration.py::calibrate
+    const float lmax = fmaxf(fmaxf(logits[0], logits[1]),
+                             fmaxf(logits[2], logits[3]));
+    float u[4], q[4];
+    for (int k = 0; k < 4; ++k) u[k] = rexp(logits[k] - lmax);
+    const float usum = ((u[0] + u[1]) + u[2]) + u[3];
+    for (int k = 0; k < 4; ++k) {
+      const float p = fminf(fmaxf(u[k] / usum, kFeatEps), kOneMinusEps);
+      const float z = __ldg(h.cal.a + k) * rlog(p) -
+                      __ldg(h.cal.b + k) * rlog1p(-p) + __ldg(h.cal.c + k);
+      q[k] = 1.0f / (1.0f + rexp(-z));
+    }
+    const float qsum = ((q[0] + q[1]) + q[2]) + q[3] + kFeatEps;
+    int arch = 0;
+    float conf = q[0] / qsum;
+    for (int k = 1; k < 4; ++k) {
+      const float ck = q[k] / qsum;
+      if (ck > conf) {
+        conf = ck;
+        arch = k;
+      }
+    }
+    s.arch = arch;
+    s.conf = conf;
+  }
+
+  __device__ static void on_minute(State& s, const Hyper& h, float rate,
+                                   int minute_idx, int B) {
+    // cluster._finish_minute: the minute's rate replaces the oldest slot
+    s.hist[static_cast<size_t>(s.head) * B] = rate;
+    s.head = s.head + 1 == kHistory ? 0 : s.head + 1;
+
+    // forecast/api.py update: residual EWMA, then core/forecasting.py
+    // hw_step with y = the newest history entry
+    const float pred1 = fmaxf(hw_forecast_max(s, h, 1, B), 0.0f);
+    s.resid = s.resid + h.resid_rho * (fabsf(rate - pred1) - s.resid);
+    const int phase = s.t % h.period;
+    float* slot = s.season + static_cast<size_t>(phase) * B;
+    const float s_t = *slot;
+    const float level = h.alpha * (rate - s_t) + h.one_m_alpha * (s.level + s.trend);
+    s.trend = h.beta * (level - s.level) + h.one_m_beta * s.trend;
+    *slot = h.gamma * (rate - level) + h.one_m_gamma * s_t;
+    s.level = level;
+    s.t = s.t + 1;
+    const float point = fmaxf(hw_forecast_max(s, h, h.horizon_min, B), 0.0f);
+
+    if (minute_idx % h.stride_min == 0) {
+      reclassify(s, h, B);
+      if (h.forecast_confidence) {  // forecast/api.py interval_confidence
+        const float half = (h.z * s.resid) * h.sqrt_h;
+        const float lo = fmaxf(point - half, 0.0f);
+        const float hi = point + half;
+        const float width = fmaxf(hi - lo, 0.0f);
+        const float sc = fmaxf(point, 1.0f);
+        s.conf = s.conf * (sc / (sc + width));
+      }
+      // core/uncertainty.py::adjust on the Table III row
+      const float c = fminf(fmaxf(s.conf, 0.0f), 1.0f);
+      const float m = 1.0f + 0.5f * (1.0f - c);
+      s.cpu_adj = select4(s.arch, h.target_cpu) * (1.0f - 0.2f * (1.0f - c));
+      s.cool_adj_min = select4(s.arch, h.cooldown_min) * m;
+      s.minrep_adj = ceilf(select4(s.arch, h.min_replicas) * m);
+    }
+
+    // what decide reads until the next minute boundary
+    s.fc_rps = fmaxf(point, 0.0f) * kInv60;
+    const int t0 = kHistory - kTrendWindow;
+    const float tmean = xla_sum(kTrendWindow, [&](int j) { return hist_at(s, t0 + j, B); }) *
+                        (1.0f / static_cast<float>(kTrendWindow));
+    const float cov = xla_sum(kTrendWindow, [&](int j) {
+      return (static_cast<float>(j) - h.trend_tbar) * (hist_at(s, t0 + j, B) - tmean);
+    }) * (1.0f / static_cast<float>(kTrendWindow));
+    const float slope = cov / h.trend_tvar;
+    s.trend_rps = fmaxf(tmean + slope * h.trend_step, 0.0f) * kInv60;
+    const int m0 = kHistory - kMeanWindow;
+    s.mean_rps = xla_sum(kMeanWindow, [&](int j) { return hist_at(s, m0 + j, B); }) *
+                 (1.0f / static_cast<float>(kMeanWindow)) * kInv60;
+  }
+
+  __device__ static float decide(State& s, const Hyper& h, const LaneObs& o,
+                                 int, float& cool_req) {
+    const float cpu = fmaxf(s.cpu_adj, 0.05f);
+    const float cap = h.rps_per_replica * cpu;
+    // reactive component (archetype-specific utilization target)
+    const float ratio = o.util_ema / cpu;
+    float reactive = ceilf(o.ready_total * ratio);
+    reactive = fabsf(ratio - 1.0f) <= 0.1f ? o.ready_total : reactive;
+    // strategy components (paper Table III)
+    const float need_now = ceilf(o.rate_rps / cap);
+    const float strat[4] = {
+        ceilf(s.fc_rps / cap),                                  // PERIODIC
+        need_now + select4(s.arch, h.warm_pool) + s.minrep_adj,  // SPIKE
+        ceilf(s.mean_rps / cap),                                // STATIONARY
+        ceilf(fmaxf(s.trend_rps, o.rate_rps) / cap)};           // RAMP
+    cool_req = s.cool_adj_min * 60.0f;
+    return fmaxf(fmaxf(reactive, select4(s.arch, strat)),
+                 fmaxf(s.minrep_adj, 1.0f));
+  }
 };
 
 struct Acc {
@@ -104,8 +298,9 @@ template <class Policy>
 __global__ void episode_kernel(const float* __restrict__ rates,
                                float* __restrict__ out,
                                float* __restrict__ pipe_scratch,
-                               float* __restrict__ policy_scratch, int B,
-                               int M, EpisodeCfg cfg,
+                               float* __restrict__ policy_scratch,
+                               int* __restrict__ arch_out, int B, int M,
+                               EpisodeCfg cfg,
                                typename Policy::Hyper hyper) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -207,7 +402,8 @@ __global__ void episode_kernel(const float* __restrict__ rates,
     o[9 * plane] = acc.osc;
     o[10 * plane] = acc.util * kInv60;
     o[11 * plane] = acc.ready * kInv60;
-    Policy::on_minute(pol, hyper, m + 1);
+    Policy::on_minute(pol, hyper, rate, m + 1, B);
+    if (arch_out) arch_out[static_cast<size_t>(b) * M + m] = pol.arch;
   }
 }
 
@@ -217,8 +413,17 @@ void episode_block_hpa_launch(const float* rates, float* out, float* pipe,
                               float* buf, int B, int M, EpisodeCfg cfg,
                               HPAHyper hyper, cudaStream_t stream) {
   const int grid = (B + kThreads - 1) / kThreads;
-  episode_kernel<HPA><<<grid, kThreads, 0, stream>>>(rates, out, pipe, buf,
-                                                     B, M, cfg, hyper);
+  episode_kernel<HPA><<<grid, kThreads, 0, stream>>>(
+      rates, out, pipe, buf, nullptr, B, M, cfg, hyper);
+}
+
+void episode_block_aapa_launch(const float* rates, float* out, float* pipe,
+                               float* scratch, int* arch_out, int B, int M,
+                               EpisodeCfg cfg, AAPAHyper hyper,
+                               cudaStream_t stream) {
+  const int grid = (B + kThreads - 1) / kThreads;
+  episode_kernel<AAPA><<<grid, kThreads, 0, stream>>>(
+      rates, out, pipe, scratch, arch_out, B, M, cfg, hyper);
 }
 
 }  // namespace repro_torch

@@ -1,20 +1,26 @@
 """Kernel dispatch by the tensors' device.
 
 CUDA tensors go to the hand-written kernel (``plant_block``,
-``episode_block``), CPU tensors to its plain PyTorch version
-(``kernels.ref``), which is the only CPU path. Any other device raises.
+``episode_block``, ``window_features``, ``gbdt_tables``), CPU tensors to
+its plain PyTorch version (``kernels.ref``), which is the only CPU path.
+Any other device raises.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.features import freq_features
 from repro_torch.kernels import episode_block as _episode
+from repro_torch.kernels import gbdt_tables as _gbdt
 from repro_torch.kernels import plant_block as _plant
 from repro_torch.kernels import ref
+from repro_torch.kernels import window_features as _wf
 
 #: every kernel launcher, by kernel name (each counts its own launches)
 LAUNCHERS = {"plant_block": _plant.plant_tick_block_cuda,
-             "episode_block": _episode.episode_block_cuda}
+             "episode_block": _episode.episode_block_cuda,
+             "window_features": _wf.window_features_cuda,
+             "gbdt_tables": _gbdt.gbdt_logits_cuda}
 
 
 def _route(t: torch.Tensor) -> str:
@@ -46,6 +52,27 @@ def episode_block(rates, controller, cfg):
     fn = (_episode.episode_block_cuda if _route(rates) == "cuda"
           else ref.episode_block_ref)
     return fn(rates, controller, cfg)
+
+
+def window_features(windows: torch.Tensor) -> torch.Tensor:
+    """[N, W] -> the 28 stat/time features [N, 28]."""
+    fn = (_wf.window_features_cuda if _route(windows) == "cuda"
+          else ref.window_features_ref)
+    return fn(windows)
+
+
+def extract_features_fused(windows: torch.Tensor) -> torch.Tensor:
+    """All 38 AAPA features [N, 38]: the `window_features` kernel (28)
+    and the DFT frequency features (10, plain PyTorch)."""
+    return torch.cat([window_features(windows), freq_features(windows)], -1)
+
+
+def gbdt_logits(params, X: torch.Tensor) -> torch.Tensor:
+    """GBDT logits [N, K] from raw features X [N, F]; `params` is a
+    ``core.gbdt.GBDTParams`` on X's device."""
+    fn = (_gbdt.gbdt_logits_cuda if _route(X) == "cuda"
+          else ref.gbdt_logits_ref)
+    return fn(params, X)
 
 
 def launch_counts() -> dict[str, int]:

@@ -6,6 +6,9 @@ plain version on the card. Nothing on the card's main path calls them.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.core import features, gbdt
 from repro_torch.sim import cluster
 
 
@@ -30,6 +33,37 @@ def plant_block_ref(ready, pipeline, queue, wait_sum, util_ema, cooldown,
 def episode_block_ref(rates, controller, cfg):
     """rates [B, M] -> MinuteOut of [B, M]: the control-period-blocked
     ``cluster.simulate`` over all lanes at once, plant ticks in plain
-    PyTorch, on the rates' own device."""
+    PyTorch, on the rates' own device. The controller's own `decide` and
+    `on_minute` run; an AAPA controller's classifier routes by device
+    (``core.pipeline.Classify``), so on the card it launches the
+    ``gbdt_tables`` kernel, which is held against `gbdt_logits_ref`
+    on its own."""
     return cluster.simulate(rates, controller, cfg, device=rates.device,
                             plant_kernel=False, decide_kernel=False)
+
+
+def window_features_ref(windows):
+    """[N, W] -> [N, 28]: ``core.features.stat_time_features``."""
+    return features.stat_time_features(windows)
+
+
+def gbdt_logits_ref(params, X):
+    """[N, F] -> logits [N, K]: the plain node-table path
+    ``core.gbdt.predict_logits``."""
+    return gbdt.predict_logits(params, X)
+
+
+def aapa_episode_ref(rates, controller, cfg):
+    """`episode_block_ref` under an AAPA controller, also returning the
+    archetype each lane carries after each minute: (MinuteOut of [B, M],
+    int32 [B, M]); the same blocked minute step `simulate` loops over."""
+    carry = (cluster.initial_state(controller, cfg, lanes=rates.shape[:1],
+                                   device=rates.device), 0)
+    outs, archs = [], []
+    for m in range(rates.shape[1]):
+        carry, out = cluster.minute_step(cfg, controller, carry,
+                                         rates[:, m], use_kernel=False)
+        outs.append(out)
+        archs.append(carry[0].ctrl_state.arch)
+    return (cluster.MinuteOut(*(torch.stack(f, -1) for f in zip(*outs))),
+            torch.stack(archs, -1))

@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import torch
+
 from repro_torch.scaling import policies as P
 from repro_torch.scaling.api import Controller
 
@@ -21,6 +23,7 @@ class PolicySpec:
     name: str
     factory: Callable[..., Controller]   # factory(cfg, **hyper)
     defaults: dict[str, Any]
+    needs_classifier: bool = False
     description: str = ""
 
 
@@ -29,11 +32,12 @@ _REGISTRY: dict[str, PolicySpec] = {}
 
 def register(name: str, factory: Callable[..., Controller], *,
              defaults: dict[str, Any] | None = None,
+             needs_classifier: bool = False,
              description: str = "") -> None:
     if name in _REGISTRY:
         raise ValueError(f"policy {name!r} already registered")
     _REGISTRY[name] = PolicySpec(name, factory, dict(defaults or {}),
-                                 description)
+                                 needs_classifier, description)
 
 
 def available() -> list[str]:
@@ -48,8 +52,20 @@ def spec(name: str) -> PolicySpec:
                        f"ported: {available()}") from None
 
 
-def get_controller(name: str, cfg, **overrides) -> Controller:
-    """Build a registered controller with defaults + overrides applied."""
+def default_classify(feats: torch.Tensor):
+    """Fallback classifier for aapa when no trained model is supplied:
+    STATIONARY_NOISY at 0.5 confidence, i.e. Algorithm 1's conservative
+    midpoint. Real runs pass `trained.make_classify()`."""
+    lanes = feats.shape[:-1]
+    return (torch.full(lanes, 2, dtype=torch.int32, device=feats.device),
+            torch.full(lanes, 0.5, dtype=torch.float32, device=feats.device))
+
+
+def get_controller(name: str, cfg, *, classify=None,
+                   **overrides) -> Controller:
+    """Build a registered controller with defaults + overrides applied;
+    a policy that needs a classifier takes `classify` (default
+    `default_classify`)."""
     sp = spec(name)
     kw = dict(sp.defaults)
     unknown = set(overrides) - set(kw)
@@ -57,6 +73,8 @@ def get_controller(name: str, cfg, **overrides) -> Controller:
         raise TypeError(f"policy {name!r} has no hyperparameters "
                         f"{sorted(unknown)}; accepts {sorted(kw)}")
     kw.update(overrides)
+    if sp.needs_classifier:
+        return sp.factory(cfg, classify or default_classify, **kw)
     return sp.factory(cfg, **kw)
 
 
@@ -70,3 +88,12 @@ register(
                   tolerance=0.10),
     description="Kubernetes HPA: reactive CPU-target scaling with "
                 "downscale stabilization (paper §IV.C baseline).")
+
+register(
+    "aapa", P.aapa_controller,
+    defaults=dict(stride_min=10, horizon_min=15,
+                  forecaster="holt_winters", band=None,
+                  forecast_confidence=None),
+    needs_classifier=True,
+    description="Archetype-aware predictive autoscaler with uncertainty "
+                "quantification (the paper's system, §III).")

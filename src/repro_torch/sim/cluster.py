@@ -32,10 +32,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, NamedTuple
 
-import numpy as np
 import torch
 
 from repro_torch import _device
+from repro_torch._numerics import recip
 from repro_torch.scaling.api import (Controller, LimiterState, Obs,
                                      apply_decision, limiter_init)
 
@@ -46,13 +46,6 @@ __all__ = ["Controller", "Obs", "SimConfig", "SimState", "MinuteOut",
 
 EPSF = 1e-9
 F32 = torch.float32
-
-
-def recip(c: float) -> float:
-    """The f32 reciprocal of a configuration constant, as a Python float
-    (exactly representable in f32): the multiplier XLA substitutes for a
-    division by that constant."""
-    return float(np.float32(1.0) / np.float32(c))
 
 
 @dataclasses.dataclass(frozen=True)

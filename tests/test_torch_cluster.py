@@ -169,9 +169,9 @@ def test_apply_decision_matches_reference_exactly():
 
 
 def test_registry_lists_ported_policies():
-    assert t_registry.available() == ["hpa"]
-    with pytest.raises(KeyError, match="ported: \\['hpa'\\]"):
-        t_registry.make("aapa", t_cluster.SimConfig())
+    assert t_registry.available() == ["aapa", "hpa"]
+    with pytest.raises(KeyError, match="ported: \\['aapa', 'hpa'\\]"):
+        t_registry.make("kpa", t_cluster.SimConfig())
     with pytest.raises(TypeError, match="no hyperparameters"):
         t_registry.make("hpa", t_cluster.SimConfig(), horizon_min=5)
 

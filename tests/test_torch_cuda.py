@@ -10,8 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import episode_block, ops, plant_block, ref
-from repro_torch.scaling import registry
+from repro_torch.core import calibration, features, gbdt
+from repro_torch.core.pipeline import Classify
+from repro_torch.data import azure_synth, windows
+from repro_torch.kernels import (episode_block, gbdt_tables, ops,
+                                 plant_block, ref, window_features)
+from repro_torch.scaling import registry, scenarios
 from repro_torch.sim import cluster
 
 PLANT_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -76,7 +80,8 @@ def test_default_path_is_the_episode_kernel(cuda):
     rates = _rates(1, cuda, w=256)
     ops.reset_launch_counts()
     chunked = cluster.make_simulator(ctrl, cfg, w_chunk=64)(rates)
-    assert ops.launch_counts() == {"plant_block": 0, "episode_block": 4}
+    assert ops.launch_counts() == {"plant_block": 0, "episode_block": 4,
+                                   "window_features": 0, "gbdt_tables": 0}
     whole = cluster.make_simulator(ctrl, cfg)(rates)
     for a, b in zip(chunked, whole):
         assert torch.equal(a, b)
@@ -88,7 +93,8 @@ def test_unfused_path_launches_plant_block(cuda):
     rates = _rates(2, cuda, w=64, m=5)
     ops.reset_launch_counts()
     unfused = cluster.simulate(rates, ctrl, cfg, decide_kernel=False)
-    assert ops.launch_counts() == {"plant_block": 5 * 4, "episode_block": 0}
+    assert ops.launch_counts() == {"plant_block": 5 * 4, "episode_block": 0,
+                                   "window_features": 0, "gbdt_tables": 0}
     fused = cluster.simulate(rates, ctrl, cfg)
     for a, e in zip(unfused, fused):
         torch.testing.assert_close(a, e, **EPISODE_TOL)
@@ -99,3 +105,89 @@ def test_unknown_policy_raises(cuda):
     ctrl = registry.make("hpa", cfg)._replace(name="kpa")
     with pytest.raises(NotImplementedError, match="compiled"):
         episode_block.episode_block_cuda(_rates(3, cuda), ctrl, cfg)
+
+
+def _windows(dev, n=2000):
+    ds = windows.make_windows(azure_synth.generate_traces(
+        n_functions=8, n_days=2, seed=0))
+    x = np.concatenate([ds.windows[:n], np.zeros((1, 60), np.float32),
+                        np.full((1, 60), 5.0, np.float32)])
+    return torch.as_tensor(x, device=dev)
+
+
+def _classifier(dev, seed=0, rounds=60, depth=4):
+    """A seeded GBDT at the paper's size whose edges are quantiles of the
+    port's own features, and a beta calibration."""
+    rng = np.random.default_rng(seed)
+    feats = features.extract_features(_windows(dev)).cpu().numpy()
+    K, I = 4, 2 ** depth - 1
+    params = gbdt.from_arrays(
+        rng.integers(0, 38, (rounds, K, I)), rng.integers(0, 63,
+                                                          (rounds, K, I)),
+        rng.normal(0.0, 0.2, (rounds, K, I + 1)),
+        gbdt.compute_bin_edges(feats, 64),
+        np.log(np.float32([0.4, 0.2, 0.3, 0.1])), device=dev)
+    cal = calibration.from_arrays(rng.normal(0.5, 0.2, 4),
+                                  rng.normal(0.5, 0.2, 4),
+                                  rng.normal(0.0, 0.2, 4), device=dev)
+    return Classify(params, cal)
+
+
+@pytest.mark.parametrize("width", [60, 45])
+def test_window_features_kernel_matches_plain(cuda, width):
+    x = _windows(cuda)[:, :width].contiguous()
+    before = window_features.window_features_cuda.launches
+    got = window_features.window_features_cuda(x)
+    want = ref.window_features_ref(x)
+    torch.cuda.synchronize()
+    assert window_features.window_features_cuda.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_gbdt_tables_kernel_matches_plain(cuda):
+    cls = _classifier(cuda)
+    X = features.extract_features(_windows(cuda))
+    X[0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    got = gbdt_tables.gbdt_logits_cuda(cls.params, X)
+    want = ref.gbdt_logits_ref(cls.params, X)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ci,stride,fc_conf", [(15, 10, False),
+                                               (7, 2, False),
+                                               (15, 5, True)])
+def test_aapa_episode_kernel_matches_plain(cuda, ci, stride, fc_conf):
+    cfg = cluster.SimConfig(control_interval_sec=ci)
+    ctrl = registry.make("aapa", cfg, classify=_classifier(cuda),
+                         stride_min=stride, forecast_confidence=fc_conf)
+    rates = torch.as_tensor(scenarios.archetype_mix(
+        n_workloads=129, minutes=90, seed=1).rates, device=cuda)
+    got, got_arch = episode_block.aapa_episode_cuda(rates, ctrl, cfg)
+    want, want_arch = ref.aapa_episode_ref(rates, ctrl, cfg)
+    torch.cuda.synchronize()
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, **EPISODE_TOL)
+    assert torch.equal(got_arch, want_arch)
+    assert len(torch.unique(want_arch)) >= 3
+    # without the archetype output the kernel computes the same episode
+    for a, e in zip(episode_block.episode_block_cuda(rates, ctrl, cfg), got):
+        assert torch.equal(a, e)
+
+
+def test_aapa_default_classifier_kernel_matches_plain(cuda):
+    cfg = cluster.SimConfig()
+    ctrl = registry.make("aapa", cfg)
+    rates = _rates(4, cuda, m=40)
+    got = episode_block.episode_block_cuda(rates, ctrl, cfg)
+    want = ref.episode_block_ref(rates, ctrl, cfg)
+    torch.cuda.synchronize()
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, **EPISODE_TOL)
+
+
+def test_aapa_kernel_rejects_other_forecasters(cuda):
+    cfg = cluster.SimConfig()
+    ctrl = registry.make("aapa", cfg, forecaster="ewma")
+    with pytest.raises(NotImplementedError, match="holt_winters"):
+        episode_block.episode_block_cuda(_rates(5, cuda), ctrl, cfg)

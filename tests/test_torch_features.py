@@ -1,0 +1,173 @@
+"""The port's window features (``repro_torch.core.features``, the plain
+version of the ``window_features`` kernel) against the JAX reference
+(``repro.core.features``) on the CPU.
+
+Tolerances: the 28 stat/time features at the reference's kernel
+tolerance, rtol/atol 5e-4 (tests/test_kernel_smoke.py); the 10 frequency
+features, which the port takes from a DFT summed in another order than
+``jnp.fft.rfft``, at rtol 1e-4 / atol 1e-5. The quantized features
+(multiples of 1/60 or 1/30) are bitwise equal, with one documented
+exception (ROADMAP §C): where the exact spectrum is flat (one spike on a
+constant background) or zero up to the mean's rounding (a constant
+window whose f32 mean is not exact), `dominant_freq` is the argmax of
+rounding noise in both packages, and the two differ.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import features as ref_features
+from repro.data import azure_synth as ref_synth
+from repro.data import windows as ref_windows
+from repro_torch import _numerics
+from repro_torch.core import features as t_features
+from repro_torch.data import azure_synth as t_synth
+from repro_torch.data import windows as t_windows
+from repro_torch.kernels import ops
+
+STAT_TOL = dict(rtol=5e-4, atol=5e-4)
+FREQ_TOL = dict(rtol=1e-4, atol=1e-5)
+QUANTIZED = [t_features.FEATURE_NAMES.index(n) for n in t_features.QUANTIZED]
+DOMINANT = t_features.FEATURE_NAMES.index("dominant_freq")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _special_windows():
+    """zero, constant (exact and inexact f32 mean), ramp, a spike on a
+    noisy background, and single spikes on a flat one."""
+    rng = np.random.default_rng(42)
+    x = rng.gamma(2.0, 10.0, size=(9, 60)).astype(np.float32)
+    x[0] = 0.0                       # all-zero window
+    x[1] = 1.0                       # constant, mean exact in f32
+    x[2] = 5.0                       # constant, f32 mean 5 + 1 ulp
+    x[3] = np.arange(60)             # ramp
+    x[4, 30] = 1e5                   # spike outlier on gamma noise
+    x[5] = 0.0
+    x[5, 30] = 100.0                 # one spike on zeros
+    x[6] = 0.0
+    x[6, 7] = 3.0
+    x[7] = 20.0
+    x[7, 50] = 90.0                  # one spike on a constant
+    return x
+
+
+#: windows of `_special_windows` whose spectrum ties in exact arithmetic
+TIED = (2, 5, 6, 7)
+
+
+@pytest.fixture(scope="module")
+def windows():
+    ds = t_windows.make_windows(t_synth.generate_traces(n_functions=12,
+                                                        n_days=2, seed=0))
+    rng = np.random.default_rng(7)
+    noise = rng.gamma(2.0, 10.0, size=(200, 60)).astype(np.float32)
+    return np.concatenate([_special_windows(), noise, ds.windows[:600]])
+
+
+@pytest.fixture(scope="module")
+def reference(windows):
+    return np.asarray(jax.jit(ref_features.extract_features)(
+        jnp.asarray(windows)))
+
+
+@pytest.fixture(scope="module")
+def port(windows):
+    return t_features.extract_features(torch.as_tensor(windows)).numpy()
+
+
+def test_make_windows_matches_reference():
+    t = t_windows.make_windows(t_synth.generate_traces(n_functions=12,
+                                                       n_days=2, seed=0))
+    r = ref_windows.make_windows(ref_synth.generate_traces(n_functions=12,
+                                                           n_days=2, seed=0))
+    for field in ("windows", "func_id", "start_min", "pattern"):
+        np.testing.assert_array_equal(getattr(t, field), getattr(r, field))
+    np.testing.assert_array_equal(t.day(), r.day())
+    for name, mask in t_windows.default_day_split(t, 2).items():
+        np.testing.assert_array_equal(
+            mask, ref_windows.default_day_split(r, 2)[name], err_msg=name)
+
+
+def test_stat_time_features_match_reference(reference, port):
+    got, want = port[:, :28], reference[:, :28]
+    for k, name in enumerate(t_features.STAT_TIME_NAMES):
+        np.testing.assert_allclose(got[:, k], want[:, k], err_msg=name,
+                                   **STAT_TOL)
+
+
+def test_freq_features_match_reference(reference, port):
+    got, want = port[:, 28:], reference[:, 28:]
+    for k, name in enumerate(t_features.FREQ_NAMES):
+        if 28 + k in QUANTIZED:
+            continue
+        np.testing.assert_allclose(got[:, k], want[:, k], err_msg=name,
+                                   **FREQ_TOL)
+
+
+def test_quantized_features_bitwise(reference, port):
+    rows = np.setdiff1d(np.arange(len(port)), TIED)
+    for k in QUANTIZED:
+        np.testing.assert_array_equal(
+            port[rows, k], reference[rows, k],
+            err_msg=t_features.FEATURE_NAMES[k])
+    for k in QUANTIZED:
+        if k != DOMINANT:
+            np.testing.assert_array_equal(port[list(TIED), k],
+                                          reference[list(TIED), k])
+
+
+def test_tied_spectra_dominant_freq_differs(windows, reference, port):
+    """The documented difference (ROADMAP §C): on a flat or rounding-only
+    spectrum both packages pick the dominant bin from rounding noise.
+    The port's spectrum there is flat (or zero) to f32 rounding, and its
+    dominant_freq differs from the reference's."""
+    tied = list(TIED)
+    power = t_features.power_spectrum(torch.as_tensor(windows[tied]))
+    assert float(power[0].amax()) < 1e-18          # constant 5: noise only
+    flat = power[1:]
+    spread = (flat.amax(-1) - flat.amin(-1)) / flat.amax(-1)
+    assert float(spread.max()) < 1e-5
+    np.testing.assert_array_equal(
+        reference[tied, DOMINANT],
+        np.float32([0, 4, 3, 0]) * np.float32(_numerics.recip(30)))
+    assert (port[tied, DOMINANT] != reference[tied, DOMINANT]).all()
+
+
+def test_extract_features_leading_dims_and_ops(windows, port):
+    x = torch.as_tensor(windows[:12]).reshape(2, 6, 60)
+    got = t_features.extract_features(x)
+    assert got.shape == (2, 6, 38)
+    assert torch.equal(got.reshape(12, 38), torch.as_tensor(port[:12]))
+    fused = ops.extract_features_fused(torch.as_tensor(windows[:12]))
+    assert torch.equal(fused, torch.as_tensor(port[:12]))
+    assert torch.equal(ops.window_features(torch.as_tensor(windows[:12])),
+                       torch.as_tensor(port[:12, :28]))
+
+
+@pytest.mark.parametrize("n", [1, 7, 30, 32, 33, 45, 58, 59, 60, 64, 100])
+def test_xla_sum_is_xla_order(n):
+    """The port's summation order is XLA CPU's, bit for bit."""
+    rng = np.random.default_rng(n)
+    v = rng.gamma(2.0, 10.0, size=(500, n)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a: jnp.sum(a, axis=-1))(
+        jnp.asarray(v)))
+    got = _numerics.xla_sum(torch.as_tensor(v)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_dft_table_is_rounded_f64():
+    cos, sin = t_features.dft_table(60, torch.device("cpu")).numpy()
+    k, j = np.meshgrid(np.arange(31), np.arange(60), indexing="ij")
+    np.testing.assert_array_equal(
+        cos, np.cos(2 * np.pi * ((k * j) % 60) / 60).astype(np.float32))
+    np.testing.assert_array_equal(
+        sin, np.sin(2 * np.pi * ((k * j) % 60) / 60).astype(np.float32))

@@ -7,11 +7,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import calibration as ref_cal
+from repro.core import gbdt as ref_gbdt
+from repro.core import pipeline as ref_pipeline
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro.scaling import registry as ref_registry
 from repro.sim import cluster as ref_cluster
-from repro_torch.kernels import episode_block, ops, plant_block, ref
+from repro_torch.core import gbdt as t_gbdt
+from repro_torch.core.calibration import BetaCalibration
+from repro_torch.core.pipeline import Classify
+from repro_torch.kernels import (episode_block, gbdt_tables, ops,
+                                 plant_block, ref, window_features)
 from repro_torch.scaling import registry as t_registry
 from repro_torch.sim import cluster as t_cluster
 
@@ -89,7 +96,17 @@ def test_cpu_dispatch_runs_plain_versions_only():
     for a, e in zip(ops.episode_block(rates, ctrl, cfg),
                     ref.episode_block_ref(rates, ctrl, cfg)):
         assert torch.equal(a, e)
-    assert ops.launch_counts() == {"plant_block": 0, "episode_block": 0}
+    windows = torch.as_tensor(np.random.default_rng(4).gamma(
+        2.0, 10.0, (5, 60)).astype(np.float32))
+    assert torch.equal(ops.window_features(windows),
+                       ref.window_features_ref(windows))
+    params = _tiny_port_gbdt()[1]
+    X = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(7, 38)).astype(np.float32))
+    assert torch.equal(ops.gbdt_logits(params, X),
+                       ref.gbdt_logits_ref(params, X))
+    assert ops.launch_counts() == {"plant_block": 0, "episode_block": 0,
+                                   "window_features": 0, "gbdt_tables": 0}
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
@@ -103,3 +120,75 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         episode_block.episode_block_cuda(torch.ones(2, 3),
                                          t_registry.make("hpa", cfg), cfg)
+    with pytest.raises(ValueError, match="CUDA"):
+        episode_block.episode_block_cuda(torch.ones(2, 3),
+                                         t_registry.make("aapa", cfg), cfg)
+    with pytest.raises(ValueError, match="CUDA"):
+        window_features.window_features_cuda(torch.ones(2, 60))
+    with pytest.raises(ValueError, match="CUDA"):
+        gbdt_tables.gbdt_logits_cuda(_tiny_port_gbdt()[1],
+                                     torch.ones(2, 38))
+
+
+def _tiny_port_gbdt():
+    """The reference's tiny GBDT (tests/test_kernel_smoke.py) and its
+    port."""
+    rng = np.random.default_rng(11)
+    X = rng.normal(size=(96, 38)).astype(np.float32)
+    y = rng.integers(0, 4, 96).astype(np.int32)
+    params = ref_gbdt.fit(X, y, ref_gbdt.GBDTConfig(n_rounds=4, depth=3))
+    return params, t_gbdt.from_arrays(
+        *(np.asarray(a) for a in (params.feat, params.thresh, params.leaf,
+                                  params.bin_edges, params.base)),
+        device="cpu")
+
+
+def test_window_features_ref_matches_reference_kernel():
+    """Torch plain version vs the reference Pallas kernel in interpret
+    mode, all-zero and spike windows included (rtol/atol 5e-4,
+    test_kernel_smoke.py)."""
+    rng = np.random.default_rng(42)
+    x = rng.gamma(2.0, 10.0, size=(8, 60)).astype(np.float32)
+    x[0, :] = 0.0
+    x[4, 30] = 1e5
+    want = ref_ops.window_features(jnp.asarray(x), tile_n=8, interpret=True)
+    got = ref.window_features_ref(torch.as_tensor(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-4,
+                               atol=5e-4)
+
+
+def test_gbdt_logits_ref_matches_reference_kernel():
+    """Torch plain version vs the reference Pallas kernel in interpret
+    mode: argmax exact, logits to 4 ulp of the largest."""
+    params, port = _tiny_port_gbdt()
+    X = np.random.default_rng(23).normal(size=(37, 38)).astype(np.float32)
+    want = np.asarray(ref_ops.gbdt_logits(params, jnp.asarray(X), tile_n=16,
+                                          interpret=True))
+    got = ref.gbdt_logits_ref(port, torch.as_tensor(X)).numpy()
+    ulp = np.spacing(np.abs(want).max().astype(np.float32))
+    np.testing.assert_allclose(got, want, rtol=0, atol=4 * ulp)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_aapa_episode_ref_matches_reference_kernel():
+    """Torch plain AAPA episode vs the reference Pallas episode kernel in
+    interpret mode, which reclassifies inside: the tiny GBDT with a beta
+    calibration, 5 lanes, ci=30, stride 2."""
+    params, port = _tiny_port_gbdt()
+    raw = [np.float32([0.3, 0.5, 0.7, 0.9]), np.float32([0.6, 0.4, 0.2, 0.1]),
+           np.float32([0.1, -0.2, 0.0, 0.3])]
+    ref_classify = ref_pipeline.TrainedAAPA(
+        params, ref_cal.BetaCalibration(*map(jnp.asarray, raw)), 0.0, 0.0,
+        0.0, np.zeros(4), 96, 0.0).make_classify()
+    rates = np.random.default_rng(5).uniform(0.0, 200.0, (5, 6)).astype(
+        np.float32)
+    rcfg = ref_cluster.SimConfig(control_interval_sec=30)
+    want = ref_ops.episode_block(
+        jnp.asarray(rates), ref_registry.make(
+            "aapa", rcfg, classify=ref_classify, stride_min=2),
+        rcfg, tile_b=4, interpret=True)
+    cfg = t_cluster.SimConfig(control_interval_sec=30)
+    classify = Classify(port, BetaCalibration(*map(torch.as_tensor, raw)))
+    ctrl = t_registry.make("aapa", cfg, classify=classify, stride_min=2)
+    got = ref.episode_block_ref(torch.as_tensor(rates), ctrl, cfg)
+    _close(got, want, EPISODE_TOL, "MinuteOut")
