@@ -34,8 +34,9 @@ and prints no result line):
 8. The classification path at AAPAset scale (the ``aapaset_300k``
    recipe: ``generate_traces(n_functions=150, n_days=14, seed=0)``,
    60-minute windows at stride 10): ``window_features`` against its
-   plain version (quantized features exact, the rest at rtol/atol 5e-4),
-   a seeded GBDT at the paper's size (60 rounds x 4 classes, depth 4, 64
+   plain version, for the 28 features and for all 38 in one launch (the
+   classification path's; quantized features exact, the rest at
+   rtol/atol 5e-4), a seeded GBDT at the paper's size (60 rounds x 4 classes, depth 4, 64
    bins, 38 features; bin edges are quantiles of the port's own
    features over these windows) through ``gbdt_tables`` against its
    plain version (argmax exact, logits within 4 ulp of the largest),
@@ -54,7 +55,8 @@ and prints no result line):
 Phases 4, 5, 8 and 10 each reset the kernels' launch counts just before
 they run and read them just after; a path whose kernel was never
 launched fails. Kernel-vs-plain comparisons and timing launches are not
-counted.
+counted. The plain runs of phases 8 and 9 are checked to launch no
+kernel (the plain AAPA episode classifies through the plain GBDT).
 
 Output: progress lines, then a JSON line of per-kernel numbers, then the
 ``nvidia-smi`` line, then the result line
@@ -104,9 +106,9 @@ AAPA_CAL_OPS = 60
 def stat_feature_ops(w: int) -> int:
     """Operations of the 28 stat/time features of one window of `w`
     (features.cuh::stat_time_features), with the sort counted as the
-    w*log2(w) comparisons a comparison sort needs at least."""
+    w*log2(w) comparisons a comparison sort needs at least and each
+    autocorrelation lag's sum once."""
     acf = sum(4 * (w - lag) for lag in range(1, 31))        # lags 1..30
-    acf += sum(4 * (w - lag) for lag in (1, 2, 3, 6, 12))   # named again
     return (w + 1 + 3 * w + 1 + 2 * w + int(w * np.log2(w)) + 12
             + 3 * (4 * w + 1) + 3 * w + (w + 2) + acf + 4 * (w - 1)
             + 4 * (w - 2) + 30)
@@ -114,10 +116,11 @@ def stat_feature_ops(w: int) -> int:
 
 def freq_feature_ops(w: int) -> int:
     """Operations of the 10 frequency features of one window
-    (features.cuh::freq_features): the DFT (w subtractions, 2 products
-    and 2 sums per bin and sample) and the spectral statistics."""
+    (features.cuh::freq_features): the mean, its subtraction once per
+    sample, the DFT (2 products and 2 sums per bin and sample) and the
+    spectral statistics."""
     nb = w // 2
-    return w + 1 + nb * w * 5 + nb * 3 + nb * 20 + 10
+    return w + 1 + w + nb * w * 4 + nb * 3 + nb * 20 + 10
 
 
 def gbdt_ops(n_features: int, n_edges: int, n_trees: int,
@@ -240,6 +243,18 @@ def aapa_episode_ops(B: int, M: int, heads: int, stride: int, downs: float,
                      + heads * (EPISODE_OPS_PER_HEAD + AAPA_OPS_PER_HEAD)
                      + AAPA_OPS_PER_MINUTE)
             + B * (M // stride) * reclass + downs * S)
+
+
+def launch_free(fn, what: str):
+    """`fn()`, a plain version's run, checked to launch no kernel."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    result = fn()
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise RuntimeError(f"{what}: the plain version launched kernels "
+                           f"{counts}")
+    return result
 
 
 def assert_episode(got, want, what: str) -> float:
@@ -497,20 +512,36 @@ def main() -> int:
     log(f"[classify] {N} windows x 60 ({wins.numel() * 4 / 1e6:.1f} MB) "
         f"made in {time.perf_counter() - t0:.1f} s")
     wf_k = ops.window_features(wins)
-    wf_p = ref.window_features_ref(wins)
-    quant = [features.FEATURE_NAMES.index(n) for n in features.QUANTIZED
-             if n in features.STAT_TIME_NAMES]
-    if not torch.equal(wf_k[:, quant], wf_p[:, quant]):
+    wf_p = launch_free(lambda: ref.window_features_ref(wins),
+                       "window_features")
+    quant = [features.FEATURE_NAMES.index(n) for n in features.QUANTIZED]
+    quant28 = [i for i in quant if i < 28]
+    if not torch.equal(wf_k[:, quant28], wf_p[:, quant28]):
         raise RuntimeError("window_features: quantized features differ from "
                            "the plain version")
     wf_err = max_abs_err([wf_k], [wf_p], FEATURE_TOL, "window_features")
-    log(f"[window_features] {N} x 60 matches the plain version (quantized "
-        f"features exact), max_abs_err={wf_err}, bitwise "
-        f"{bool(torch.equal(wf_k, wf_p))}")
-    feats = torch.cat([wf_k, features.freq_features(wins)], -1)
+    log(f"[window_features] {N} x 60, 28 features, matches the plain "
+        f"version (quantized features exact), max_abs_err={wf_err}, "
+        f"bitwise {bool(torch.equal(wf_k, wf_p))}")
+    feats = ops.extract_features_fused(wins)
+    fx_p = launch_free(lambda: ref.extract_features_ref(wins),
+                       "extract_features")
+    if not (torch.equal(feats[:, :28], wf_k)
+            and torch.equal(feats[:, quant], fx_p[:, quant])):
+        raise RuntimeError("window_features with the frequency features: "
+                           "the 28 differ from the 28-feature launch, or "
+                           "quantized features differ from the plain "
+                           "version")
+    fx_err = max_abs_err([feats], [fx_p], FEATURE_TOL, "extract_features")
+    wf_err = max(wf_err, fx_err)
+    log(f"[window_features] {N} x 60, all 38 features in one launch, "
+        f"matches the plain version (quantized features exact, the 28 "
+        f"equal to the 28-feature launch), max_abs_err={fx_err}, bitwise "
+        f"{bool(torch.equal(feats, fx_p))}")
     cls = seeded_classifier(feats.cpu().numpy(), dev)
     lg_k = ops.gbdt_logits(cls.params, feats)
-    lg_p = ref.gbdt_logits_ref(cls.params, feats)
+    lg_p = launch_free(lambda: ref.gbdt_logits_ref(cls.params, feats),
+                       "gbdt_tables")
     if not torch.equal(lg_k.argmax(-1), lg_p.argmax(-1)):
         raise RuntimeError("gbdt_tables: argmax differs from the plain "
                            "version")
@@ -521,7 +552,7 @@ def main() -> int:
                            f"4 ulp ({ulp4})")
     log(f"[gbdt_tables] {N} x 38, 240 trees of depth 4 match the plain "
         f"version (argmax exact), max_abs_err={gb_err}")
-    del wf_k, wf_p, lg_k, lg_p
+    del wf_k, wf_p, fx_p, lg_k, lg_p
 
     def classify_path():
         feats = ops.extract_features_fused(wins)
@@ -545,15 +576,21 @@ def main() -> int:
                            "confidence")
     hist = torch.bincount(arch.long(), minlength=4).tolist()
     log(f"[classify] features -> logits -> calibrated archetype for {N} "
-        f"windows: {classify_s:.4f} s ({N / classify_s:.6g} windows/s), "
+        f"windows: {classify_s} s ({N / classify_s} windows/s), "
         f"archetype histogram {hist}, mean confidence "
         f"{float(conf.mean())}, launches {classify_counts}")
-    wf_ms = cuda_ms(lambda: ops.window_features(wins), iters=10)[0]
-    wf_plain_ms = cuda_ms(lambda: ref.window_features_ref(wins), iters=2)[0]
+    wf28_ms = cuda_ms(lambda: ops.window_features(wins), iters=10)[0]
+    wf28_bound, wf28_by = bound_ms(4.0 * N * (60 + 28),
+                                   float(N) * stat_feature_ops(60))
+    wf_ms = cuda_ms(lambda: ops.extract_features_fused(wins), iters=10)[0]
+    wf_plain_ms = cuda_ms(lambda: ref.extract_features_ref(wins),
+                          iters=2)[0]
     centred = wins - wins.mean(-1, keepdim=True)
     rfft_ms = cuda_ms(lambda: torch.fft.rfft(centred, dim=-1), iters=10)[0]
-    wf_bound, wf_by = bound_ms(4.0 * N * (60 + 28),
-                               float(N) * stat_feature_ops(60))
+    dft_bytes = 4.0 * 2 * 31 * 60
+    wf_bound, wf_by = bound_ms(
+        4.0 * N * (60 + 38) + dft_bytes,
+        float(N) * (stat_feature_ops(60) + freq_feature_ops(60)))
     gb_ms = cuda_ms(lambda: ops.gbdt_logits(cls.params, feats), iters=10)[0]
     gb_plain_ms = cuda_ms(
         lambda: ref.gbdt_logits_ref(cls.params, feats), iters=2)[0]
@@ -562,9 +599,12 @@ def main() -> int:
         cls.params.bin_edges, *cls.params.tables, cls.params.base))
     gb_bound, gb_by = bound_ms(4.0 * N * (38 + 4) + table_bytes,
                                float(N) * gbdt_ops(38, n_edges, 240, 4))
-    log(f"[timing] window_features {N} x 60: {wf_ms} ms, plain "
-        f"{wf_plain_ms} ms, bound {wf_bound} ms ({wf_by}); torch.fft.rfft "
-        f"for the 10 frequency features: {rfft_ms} ms")
+    log(f"[timing] window_features {N} x 60, 38 features (the "
+        f"classification path's launch): {wf_ms} ms, plain {wf_plain_ms} "
+        f"ms, bound {wf_bound} ms ({wf_by}); torch.fft.rfft for the 10 "
+        f"frequency features' DFT alone: {rfft_ms} ms")
+    log(f"[timing] window_features {N} x 60, 28 features: {wf28_ms} ms, "
+        f"bound {wf28_bound} ms ({wf28_by})")
     log(f"[timing] gbdt_tables {N} x 38: {gb_ms} ms, plain {gb_plain_ms} "
         f"ms, bound {gb_bound} ms ({gb_by})")
     del feats, centred, arch, conf
@@ -577,7 +617,8 @@ def main() -> int:
         actrl = registry.make("aapa", cfg7, classify=cls, stride_min=stride)
         aapa_err = max(aapa_err, assert_episode(
             episode_block.aapa_episode_cuda(mix, actrl, cfg7),
-            ref.aapa_episode_ref(mix, actrl, cfg7),
+            launch_free(lambda: ref.aapa_episode_ref(mix, actrl, cfg7),
+                        f"aapa ci=7 stride={stride}"),
             f"aapa archetype_mix ci=7 stride={stride}"))
     torch.cuda.synchronize()
     log(f"[episode_block<AAPA>] archetype_mix 1024x120 ci=7 stride 10/2 "
@@ -587,7 +628,8 @@ def main() -> int:
     got = episode_block.aapa_episode_cuda(chunk, actrl, cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = ref.aapa_episode_ref(chunk, actrl, cfg)
+    want = launch_free(lambda: ref.aapa_episode_ref(chunk, actrl, cfg),
+                       f"aapa {w_chunk}x{M}")
     torch.cuda.synchronize()
     aapa_plain_s = time.perf_counter() - t0
     chunk_err = assert_episode(got, want, f"aapa {w_chunk}x{M}")

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import pathlib
+from typing import Callable
 
 import numpy as np
 import torch
@@ -21,18 +22,23 @@ from repro_torch.core import calibration, gbdt
 @dataclasses.dataclass(frozen=True)
 class Classify:
     """classify(features [..., F]) -> (class id int32 [...], confidence
-    f32 [...]): GBDT logits (``kernels.ops.gbdt_logits``: the
-    ``gbdt_tables`` kernel on CUDA tensors, its plain version on the
-    CPU), softmax, beta calibration, argmax and max. The AAPA episode
-    kernel reads `params` and `cal` to run the same classifier per lane."""
+    f32 [...]): GBDT logits, softmax, beta calibration, argmax and max.
+    The logits come from `logits(params, X [N, F])`, by default
+    ``kernels.ops.gbdt_logits`` (the ``gbdt_tables`` kernel on CUDA
+    tensors, its plain version on the CPU); a plain episode on the card
+    passes ``kernels.ref.gbdt_logits_ref``. The AAPA episode kernel reads
+    `params` and `cal` to run the same classifier per lane."""
     params: gbdt.GBDTParams
     cal: calibration.BetaCalibration
+    logits: Callable[[gbdt.GBDTParams, torch.Tensor], torch.Tensor] | None \
+        = None
 
     def __call__(self, feats: torch.Tensor):
         from repro_torch.kernels import ops
+        logits = self.logits or ops.gbdt_logits
         lanes = feats.shape[:-1]
         flat = feats.reshape(-1, feats.shape[-1]).to(torch.float32)
-        probs = gbdt.softmax(ops.gbdt_logits(self.params, flat))
+        probs = gbdt.softmax(logits(self.params, flat))
         calp = calibration.calibrate(self.cal, probs)
         arch = torch.argmax(calp, -1).to(torch.int32)
         return arch.reshape(lanes), calp.amax(-1).reshape(lanes)

@@ -137,18 +137,30 @@ repro_torch::GBDTTables gbdt_tables(const torch::Tensor& edges,
           static_cast<int>(T), static_cast<int>(K), depth};
 }
 
-// windows [N, W] -> out [N, 28]
-void window_features(torch::Tensor windows, torch::Tensor out_) {
+// windows [N, W] -> out [N, 28] or, if dft is the [2, W/2 + 1, W] DFT
+// table (an empty tensor otherwise), out [N, 38] with the frequency
+// features; inv_log_nb and inv_nb are their f32 multipliers.
+void window_features(torch::Tensor windows, torch::Tensor out_,
+                     torch::Tensor dft, double inv_log_nb, double inv_nb) {
   TORCH_CHECK(windows.dim() == 2, "windows must be [N, W]");
   const int64_t N = windows.size(0), W = windows.size(1);
-  TORCH_CHECK(N > 0 && W >= 3 && W <= 64, "window_features takes N >= 1 "
-              "windows of 3 to 64 samples");
+  const bool freq = dft.numel() > 0;
+  TORCH_CHECK(N > 0 && W >= (freq ? 4 : 3) && W <= 64, "window_features "
+              "takes N >= 1 windows of 3 (4 with the frequency features) "
+              "to 64 samples");
   check(windows, "windows", {N, W});
-  check(out_, "out", {N, 28});
+  check(out_, "out", {N, freq ? 38 : 28});
+  repro_torch::FreqTables tab{};
+  if (freq) {
+    check(dft, "dft", {2, W / 2 + 1, W});
+    tab = {in(dft), static_cast<float>(inv_log_nb),
+           static_cast<float>(inv_nb)};
+  }
   const c10::cuda::CUDAGuard guard(windows.device());
   repro_torch::window_features_launch(in(windows), out(out_),
                                       static_cast<int>(N),
                                       static_cast<int>(W),
+                                      freq ? &tab : nullptr,
                                       at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }

@@ -105,9 +105,10 @@ void episode_block_aapa_launch(const float* rates, float* out, float* pipe,
                                EpisodeCfg cfg, AAPAHyper hyper,
                                cudaStream_t stream);
 
-// windows [N, W] (3 <= W <= 64) -> features [N, 28]
+// windows [N, W] (3 <= W <= 64) -> features [N, 28]; with freq (the DFT
+// table for W, 4 <= W <= 64) all 38 features [N, 38]
 void window_features_launch(const float* windows, float* out, int N, int W,
-                            cudaStream_t stream);
+                            const FreqTables* freq, cudaStream_t stream);
 
 // X [N, n_features] -> logits [N, n_classes]
 void gbdt_tables_launch(const float* X, float* out, int N, GBDTTables g,

@@ -9,7 +9,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.features import freq_features
 from repro_torch.kernels import episode_block as _episode
 from repro_torch.kernels import gbdt_tables as _gbdt
 from repro_torch.kernels import plant_block as _plant
@@ -62,9 +61,12 @@ def window_features(windows: torch.Tensor) -> torch.Tensor:
 
 
 def extract_features_fused(windows: torch.Tensor) -> torch.Tensor:
-    """All 38 AAPA features [N, 38]: the `window_features` kernel (28)
-    and the DFT frequency features (10, plain PyTorch)."""
-    return torch.cat([window_features(windows), freq_features(windows)], -1)
+    """All 38 AAPA features [N, 38]: one `window_features` launch that
+    also computes the 10 frequency features (the AAPA episode kernel's
+    own feature code)."""
+    if _route(windows) == "cuda":
+        return _wf.window_features_cuda(windows, freq=True)
+    return ref.extract_features_ref(windows)
 
 
 def gbdt_logits(params, X: torch.Tensor) -> torch.Tensor:

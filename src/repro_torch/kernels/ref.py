@@ -6,9 +6,13 @@ plain version on the card. Nothing on the card's main path calls them.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.core import features, gbdt
+from repro_torch.core.pipeline import Classify
+from repro_torch.scaling import policies
 from repro_torch.sim import cluster
 
 
@@ -34,17 +38,36 @@ def episode_block_ref(rates, controller, cfg):
     """rates [B, M] -> MinuteOut of [B, M]: the control-period-blocked
     ``cluster.simulate`` over all lanes at once, plant ticks in plain
     PyTorch, on the rates' own device. The controller's own `decide` and
-    `on_minute` run; an AAPA controller's classifier routes by device
-    (``core.pipeline.Classify``), so on the card it launches the
-    ``gbdt_tables`` kernel, which is held against `gbdt_logits_ref`
-    on its own."""
-    return cluster.simulate(rates, controller, cfg, device=rates.device,
-                            plant_kernel=False, decide_kernel=False)
+    `on_minute` run; an AAPA controller's GBDT classifier takes its logits
+    from `gbdt_logits_ref`, so this launches no kernel on the card."""
+    return cluster.simulate(rates, _plain_controller(controller, cfg), cfg,
+                            device=rates.device, plant_kernel=False,
+                            decide_kernel=False)
+
+
+def _plain_controller(controller, cfg):
+    """`controller`, or for an AAPA controller with a GBDT classifier
+    (``core.pipeline.Classify``) the same controller rebuilt on `cfg` (the
+    episode kernel reads `cfg` too) with the classifier's logits from
+    `gbdt_logits_ref`."""
+    h = controller.hyper
+    if controller.name != "aapa" or not isinstance(h["classify"], Classify):
+        return controller
+    return policies.aapa_controller(
+        cfg, dataclasses.replace(h["classify"], logits=gbdt_logits_ref),
+        stride_min=h["stride_min"], horizon_min=h["horizon_min"],
+        forecaster=h["forecaster"],
+        forecast_confidence=h["forecast_confidence"])
 
 
 def window_features_ref(windows):
     """[N, W] -> [N, 28]: ``core.features.stat_time_features``."""
     return features.stat_time_features(windows)
+
+
+def extract_features_ref(windows):
+    """[N, W] -> [N, 38]: ``core.features.extract_features``."""
+    return features.extract_features(windows)
 
 
 def gbdt_logits_ref(params, X):
@@ -57,6 +80,7 @@ def aapa_episode_ref(rates, controller, cfg):
     """`episode_block_ref` under an AAPA controller, also returning the
     archetype each lane carries after each minute: (MinuteOut of [B, M],
     int32 [B, M]); the same blocked minute step `simulate` loops over."""
+    controller = _plain_controller(controller, cfg)
     carry = (cluster.initial_state(controller, cfg, lanes=rates.shape[:1],
                                    device=rates.device), 0)
     outs, archs = [], []

@@ -1,37 +1,53 @@
 """``window_features`` CUDA kernel: the 28 statistical and time-domain
-features of each window (source ``csrc/window_features.cu``, feature math
-in ``csrc/features.cuh``).
+features of each window, or all 38 AAPA features (source
+``csrc/window_features.cu``, feature math in ``csrc/features.cuh``, the
+AAPA episode kernel's own).
 
 Replaces the Pallas TPU kernel ``repro/kernels/window_features.py``
-(``window_features_kernel``). Plain version:
-``kernels.ref.window_features_ref`` (``core.features.stat_time_features``);
-``kernels.ops.window_features`` dispatches between the two by device.
+(``window_features_kernel``). Plain versions:
+``kernels.ref.window_features_ref`` (``core.features.stat_time_features``)
+and ``kernels.ref.extract_features_ref`` (``core.features.extract_features``);
+``kernels.ops.window_features`` and ``kernels.ops.extract_features_fused``
+dispatch between kernel and plain version by device.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import features
 from repro_torch.kernels import _build
 
 N_FEATS = 28
 MIN_W, MAX_W = 3, 64
 
 
-def window_features_cuda(windows: torch.Tensor) -> torch.Tensor:
+def window_features_cuda(windows: torch.Tensor, *,
+                         freq: bool = False) -> torch.Tensor:
     """Launch the kernel: windows [N, W] (contiguous float32 on CUDA,
-    3 <= W <= 64) -> features [N, 28]. Raises on any other input."""
+    3 <= W <= 64) -> features [N, 28]; with `freq` (W >= 4) the 38
+    features [N, 38], the 10 frequency features after the 28. Raises on
+    any other input."""
     if windows.device.type != "cuda":
         raise ValueError("window_features kernel needs a CUDA tensor, got "
                          f"{windows.device}")
+    min_w = MIN_W + int(freq)
     if (windows.dim() != 2 or windows.dtype != torch.float32
             or not windows.is_contiguous() or windows.shape[0] < 1
-            or not MIN_W <= windows.shape[1] <= MAX_W):
+            or not min_w <= windows.shape[1] <= MAX_W):
         raise ValueError("windows: expected a contiguous float32 [N, W] "
-                         f"tensor, N >= 1, {MIN_W} <= W <= {MAX_W}; got "
+                         f"tensor, N >= 1, {min_w} <= W <= {MAX_W}; got "
                          f"{tuple(windows.shape)} {windows.dtype}")
-    out = torch.empty((windows.shape[0], N_FEATS), dtype=torch.float32,
-                      device=windows.device)
-    _build.extension().window_features(windows, out)
+    N, W = windows.shape
+    if freq:
+        dft = features.dft_table(W, windows.device)
+        inv_log_nb, inv_nb = features.freq_constants(W)
+    else:
+        dft = torch.empty(0, dtype=torch.float32, device=windows.device)
+        inv_log_nb = inv_nb = 0.0
+    out = torch.empty((N, features.N_FEATURES if freq else N_FEATS),
+                      dtype=torch.float32, device=windows.device)
+    _build.extension().window_features(windows, out, dft, inv_log_nb,
+                                       inv_nb)
     window_features_cuda.launches += 1
     return out
 

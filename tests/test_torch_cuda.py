@@ -133,15 +133,20 @@ def _classifier(dev, seed=0, rounds=60, depth=4):
     return Classify(params, cal)
 
 
+@pytest.mark.parametrize("freq", [False, True])
 @pytest.mark.parametrize("width", [60, 45])
-def test_window_features_kernel_matches_plain(cuda, width):
+def test_window_features_kernel_matches_plain(cuda, width, freq):
+    """The 28 features, and with `freq` all 38 (the classification path's
+    launch, `ops.extract_features_fused`), bit for bit."""
     x = _windows(cuda)[:, :width].contiguous()
     before = window_features.window_features_cuda.launches
-    got = window_features.window_features_cuda(x)
-    want = ref.window_features_ref(x)
+    got = window_features.window_features_cuda(x, freq=freq)
+    want = (ref.extract_features_ref if freq else ref.window_features_ref)(x)
     torch.cuda.synchronize()
     assert window_features.window_features_cuda.launches == before + 1
     assert torch.equal(got, want)
+    if freq:
+        assert torch.equal(ops.extract_features_fused(x), got)
 
 
 def test_gbdt_tables_kernel_matches_plain(cuda):
@@ -164,8 +169,11 @@ def test_aapa_episode_kernel_matches_plain(cuda, ci, stride, fc_conf):
     rates = torch.as_tensor(scenarios.archetype_mix(
         n_workloads=129, minutes=90, seed=1).rates, device=cuda)
     got, got_arch = episode_block.aapa_episode_cuda(rates, ctrl, cfg)
+    ops.reset_launch_counts()
     want, want_arch = ref.aapa_episode_ref(rates, ctrl, cfg)
     torch.cuda.synchronize()
+    # the plain episode classifies through the plain GBDT: no kernel
+    assert ops.launch_counts() == dict.fromkeys(ops.LAUNCHERS, 0)
     for a, e in zip(got, want):
         torch.testing.assert_close(a, e, **EPISODE_TOL)
     assert torch.equal(got_arch, want_arch)

@@ -100,6 +100,8 @@ def test_cpu_dispatch_runs_plain_versions_only():
         2.0, 10.0, (5, 60)).astype(np.float32))
     assert torch.equal(ops.window_features(windows),
                        ref.window_features_ref(windows))
+    assert torch.equal(ops.extract_features_fused(windows),
+                       ref.extract_features_ref(windows))
     params = _tiny_port_gbdt()[1]
     X = torch.as_tensor(np.random.default_rng(5).normal(
         size=(7, 38)).astype(np.float32))
@@ -123,8 +125,10 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         episode_block.episode_block_cuda(torch.ones(2, 3),
                                          t_registry.make("aapa", cfg), cfg)
-    with pytest.raises(ValueError, match="CUDA"):
-        window_features.window_features_cuda(torch.ones(2, 60))
+    for freq in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            window_features.window_features_cuda(torch.ones(2, 60),
+                                                 freq=freq)
     with pytest.raises(ValueError, match="CUDA"):
         gbdt_tables.gbdt_logits_cuda(_tiny_port_gbdt()[1],
                                      torch.ones(2, 38))
@@ -192,3 +196,37 @@ def test_aapa_episode_ref_matches_reference_kernel():
     ctrl = t_registry.make("aapa", cfg, classify=classify, stride_min=2)
     got = ref.episode_block_ref(torch.as_tensor(rates), ctrl, cfg)
     _close(got, want, EPISODE_TOL, "MinuteOut")
+
+
+def test_plain_aapa_episode_classifies_through_plain_logits():
+    """The plain AAPA episode rebuilds its controller on the classifier's
+    plain logits (`ref.gbdt_logits_ref`), so on the card it launches no
+    `gbdt_tables` kernel; the rebuilt controller keeps every
+    hyperparameter and classifies alike."""
+    port = _tiny_port_gbdt()[1]
+    raw = [torch.tensor([0.3, 0.5, 0.7, 0.9]),
+           torch.tensor([0.6, 0.4, 0.2, 0.1]),
+           torch.tensor([0.1, -0.2, 0.0, 0.3])]
+    classify = Classify(port, BetaCalibration(*raw))
+    cfg = t_cluster.SimConfig(control_interval_sec=30)
+    ctrl = t_registry.make("aapa", cfg, classify=classify, stride_min=2,
+                           horizon_min=5, forecast_confidence=True)
+    plain = ref._plain_controller(ctrl, cfg)
+    assert plain.hyper["classify"].logits is ref.gbdt_logits_ref
+    assert classify.logits is None
+    for k in ("stride_min", "horizon_min", "forecaster",
+              "forecast_confidence"):
+        assert plain.hyper[k] == ctrl.hyper[k]
+    X = torch.as_tensor(np.random.default_rng(6).normal(
+        size=(9, 38)).astype(np.float32))
+    for a, e in zip(plain.hyper["classify"](X), classify(X)):
+        assert torch.equal(a, e)
+    hpa = t_registry.make("hpa", cfg)
+    assert ref._plain_controller(hpa, cfg) is hpa
+    rates = torch.as_tensor(np.random.default_rng(7).uniform(
+        0.0, 200.0, (3, 8)).astype(np.float32))
+    for a, e in zip(ref.episode_block_ref(rates, ctrl, cfg),
+                    t_cluster.simulate(rates, ctrl, cfg, device="cpu",
+                                       plant_kernel=False,
+                                       decide_kernel=False)):
+        assert torch.equal(a, e)
