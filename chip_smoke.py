@@ -51,12 +51,33 @@ and prints no result line):
 10. The AAPA fleet: the same 100,000 x 1440 ``burst_storm`` rates as the
     HPA row through ``make_simulator(w_chunk=25_000)``, pooled metrics
     and REI, timed, then once more under ``torch.profiler``.
+11. ``holt_winters`` against its plain version (``hw_smooth``), bit for
+    bit (gate: the reference's rtol 1e-4 / atol 1e-3): 100,003 x 2,880
+    at period 60, 4,099 x 3,000 at period 1,440 (the season in global
+    scratch) and 257 x 61 at alpha 0.37; timed at the calibration split's
+    shape.
+12. The uncertainty path (paper §III.C.3): split-conformal calibration of
+    the paper's Holt-Winters (period 60, alpha 0.1, beta 0.01, gamma
+    0.3) at alpha 0.9, burn-in 60, on ``burst_storm(n_workloads=100_000,
+    minutes=2_880, seed=1)``, then its coverage on phase 5's held-out
+    fleet day, each timed after a warm-up call and profiled. Each call
+    must launch ``holt_winters`` exactly once and run no plain version;
+    the coverage is printed, not gated.
+13. The ``episode_block`` kernel's predictive (native, and conservative
+    with the band), kpa, AAPA-with-band and hybrid-with-band (phase 8's
+    classifier) policies against their plain episodes: a 25,000 x 240
+    chunk of the fleet at ci 15 and ``archetype_mix`` 1024 x 120 at ci 7;
+    archetypes exact for aapa and hybrid.
+14. A 100,000 x 1440 Table IV row (episode + pooled metrics + REI) for
+    each of those five policies, with the episode kernel's time per
+    25,000-lane launch against its bound.
 
-Phases 4, 5, 8 and 10 each reset the kernels' launch counts just before
-they run and read them just after; a path whose kernel was never
+Phases 4, 5, 8, 10, 12 and 14 each reset the kernels' launch counts just
+before they run and read them just after; a path whose kernel was never
 launched fails. Kernel-vs-plain comparisons and timing launches are not
-counted. The plain runs of phases 8 and 9 are checked to launch no
-kernel (the plain AAPA episode classifies through the plain GBDT).
+counted. The plain runs of phases 8, 9, 11 and 13 are checked to launch
+no kernel (the plain AAPA and hybrid episodes classify through the plain
+GBDT).
 
 Output: progress lines, then a JSON line of per-kernel numbers, then the
 ``nvidia-smi`` line, then the result line
@@ -101,6 +122,24 @@ AAPA_OPS_PER_HEAD = 26
 AAPA_OPS_PER_MINUTE = 20 + 4 * 15 + 157 + 17   # HW + residual, 15-min peak,
 #                                               trend, mean
 AAPA_CAL_OPS = 60
+# Interval confidence per reclassification (forecast_confidence on).
+AAPA_CONF_OPS = 10
+# The other policies, counted from episode_block.cu the same way. Hybrid
+# adds its guard (floor, bounded step) to AAPA's decide; predictive runs
+# the forecaster's update (as AAPA: 20), the horizon's peak (4 a step) and
+# its replica need (6) per minute, and 9 operations per decide; KPA's two
+# EMAs, panic window and idle test take 32 per decide and nothing per
+# minute.
+HYBRID_GUARD_OPS = 11
+PRED_OPS_PER_HEAD = 9
+PRED_OPS_PER_MINUTE = 20 + 4 * 15 + 6
+KPA_OPS_PER_HEAD = 32
+# holt_winters: the forecast (2 adds) and hw_step (13) per series and step
+HW_OPS_PER_STEP = 15
+HW_TOL = dict(rtol=1e-4, atol=1e-3)
+# radf2/3/4/5 of the real FFT, counted from features.cuh::radix_pass:
+# (first loop per k, the even-ido loop per k, the inner loop per (k, i))
+FFT_PASS_OPS = {2: (2, 1, 10), 3: (6, 0, 28), 4: (6, 8, 34), 5: (20, 0, 72)}
 
 
 def stat_feature_ops(w: int) -> int:
@@ -114,13 +153,25 @@ def stat_feature_ops(w: int) -> int:
             + 4 * (w - 2) + 30)
 
 
+def fft_ops(w: int) -> int:
+    """Operations of the real FFT of one window (features.cuh::radix_pass
+    over core.features.rfft_plan(w))."""
+    from repro_torch.core import features
+    total = 0
+    for ip, l1, ido, _ in features.rfft_plan(w):
+        first, even, inner = FFT_PASS_OPS[ip]
+        total += l1 * (first + (even if ido % 2 == 0 else 0)
+                       + inner * ((ido - 1) // 2))
+    return total
+
+
 def freq_feature_ops(w: int) -> int:
     """Operations of the 10 frequency features of one window
     (features.cuh::freq_features): the mean, its subtraction once per
-    sample, the DFT (2 products and 2 sums per bin and sample) and the
+    sample, the FFT, XLA's complex abs and the square (11 per bin) and the
     spectral statistics."""
     nb = w // 2
-    return w + 1 + w + nb * w * 4 + nb * 3 + nb * 20 + 10
+    return w + 1 + w + fft_ops(w) + nb * 11 + nb * 3 + nb * 20 + 10
 
 
 def gbdt_ops(n_features: int, n_edges: int, n_trees: int,
@@ -229,20 +280,35 @@ def seeded_classifier(feats: np.ndarray, dev, seed: int = 0):
     return Classify(params, cal)
 
 
+def episode_ops(B: int, M: int, heads: int, downs: float, S: int,
+                head_ops: int, minute_ops: int = 0, reclass_ops: int = 0,
+                stride: int = 1) -> float:
+    """Operations of one episode launch: the plant's ticks, decide,
+    limiter and scaling per control-period head (plus the policy's
+    `head_ops`), the policy's `minute_ops` per minute, `reclass_ops` every
+    `stride` minutes, and the pipeline rescale of each scale-down."""
+    return (B * M * (60 * EPISODE_OPS_PER_TICK
+                     + heads * (EPISODE_OPS_PER_HEAD + head_ops)
+                     + minute_ops)
+            + B * (M // stride) * reclass_ops + downs * S)
+
+
 def aapa_episode_ops(B: int, M: int, heads: int, stride: int, downs: float,
-                     cls, S: int) -> float:
-    """Operations of one AAPA episode launch: the plant as for HPA, the
-    AAPA decide per head, on_minute per minute, and per reclassification
-    the 38 features, the trees and the calibration."""
+                     cls, S: int, *, guard: bool = False,
+                     confidence: bool = False) -> float:
+    """Operations of one AAPA (or, with `guard`, hybrid) episode launch:
+    the plant as for HPA, the decide per head, on_minute per minute, and
+    per reclassification the 38 features, the trees, the calibration and
+    (with `confidence`) the interval confidence."""
     t = cls.params.tables
     n_edges = cls.params.bin_edges.shape[1]
     reclass = (stat_feature_ops(60) + freq_feature_ops(60)
                + gbdt_ops(38, n_edges, t.feat.shape[0], cls.params.depth)
-               + AAPA_CAL_OPS)
-    return (B * M * (60 * EPISODE_OPS_PER_TICK
-                     + heads * (EPISODE_OPS_PER_HEAD + AAPA_OPS_PER_HEAD)
-                     + AAPA_OPS_PER_MINUTE)
-            + B * (M // stride) * reclass + downs * S)
+               + AAPA_CAL_OPS + (AAPA_CONF_OPS if confidence else 0))
+    return episode_ops(B, M, heads, downs, S,
+                       AAPA_OPS_PER_HEAD + (HYBRID_GUARD_OPS if guard
+                                            else 0),
+                       AAPA_OPS_PER_MINUTE, reclass, stride)
 
 
 def launch_free(fn, what: str):
@@ -255,6 +321,25 @@ def launch_free(fn, what: str):
         raise RuntimeError(f"{what}: the plain version launched kernels "
                            f"{counts}")
     return result
+
+
+class forbidden:
+    """Within the block, calling `module.name` (a plain version) raises:
+    the path must not reach it."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+
+        def refuse(*args, **kwargs):
+            raise RuntimeError(f"the plain version {self.name} ran on the "
+                               "card's path")
+        setattr(self.module, self.name, refuse)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
 
 
 def assert_episode(got, want, what: str) -> float:
@@ -273,6 +358,7 @@ def profile_row(run, label: str):
     """`run()` under torch.profiler: prints device time by kernel and the
     busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -458,9 +544,7 @@ def main() -> int:
     buf_len = int(ctrl.hyper["buf_len"])
     ci, n_full, rem = cluster._ci_blocks(cfg)
     heads = n_full + (rem > 0)
-    ep_ops = (w_chunk * M * (60 * EPISODE_OPS_PER_TICK
-                             + heads * (EPISODE_OPS_PER_HEAD + buf_len))
-              + downs * cfg.startup_sec)
+    ep_ops = episode_ops(w_chunk, M, heads, downs, cfg.startup_sec, buf_len)
     ep_bound, ep_by = bound_ms(13.0 * 4 * w_chunk * M, ep_ops)
 
     Bu = mix.shape[0]
@@ -587,9 +671,9 @@ def main() -> int:
                           iters=2)[0]
     centred = wins - wins.mean(-1, keepdim=True)
     rfft_ms = cuda_ms(lambda: torch.fft.rfft(centred, dim=-1), iters=10)[0]
-    dft_bytes = 4.0 * 2 * 31 * 60
+    twiddle_bytes = 4.0 * features.fft_tables(60, dev)[0].numel()
     wf_bound, wf_by = bound_ms(
-        4.0 * N * (60 + 38) + dft_bytes,
+        4.0 * N * (60 + 38) + twiddle_bytes,
         float(N) * (stat_feature_ops(60) + freq_feature_ops(60)))
     gb_ms = cuda_ms(lambda: ops.gbdt_logits(cls.params, feats), iters=10)[0]
     gb_plain_ms = cuda_ms(
@@ -602,7 +686,7 @@ def main() -> int:
     log(f"[timing] window_features {N} x 60, 38 features (the "
         f"classification path's launch): {wf_ms} ms, plain {wf_plain_ms} "
         f"ms, bound {wf_bound} ms ({wf_by}); torch.fft.rfft for the 10 "
-        f"frequency features' DFT alone: {rfft_ms} ms")
+        f"frequency features' FFT alone: {rfft_ms} ms")
     log(f"[timing] window_features {N} x 60, 28 features: {wf28_ms} ms, "
         f"bound {wf28_bound} ms ({wf28_by})")
     log(f"[timing] gbdt_tables {N} x 38: {gb_ms} ms, plain {gb_plain_ms} "
@@ -657,6 +741,155 @@ def main() -> int:
                                           "aapa fleet")
     profile_row(aapa_path, "AAPA fleet episode + metrics + REI")
 
+    # ---- 11. holt_winters kernel vs plain
+    from repro_torch.forecast import conformal
+    from repro_torch.forecast import registry as forecast_registry
+    hw_err, hw_bitwise = 0.0, True
+    for (hb, ht, period, alpha) in ((100_003, 2880, 60, 0.1),
+                                    (4099, 3000, 1440, 0.1),
+                                    (257, 61, 60, 0.37)):
+        y = torch.as_tensor(np.random.default_rng(hb).gamma(
+            2.0, 60.0, (hb, ht)).astype(np.float32), device=dev)
+        got = ops.holt_winters(y, period=period, alpha=alpha)
+        want = launch_free(lambda: ref.holt_winters_ref(
+            y, period=period, alpha=alpha), "holt_winters")
+        hw_err = max(hw_err, max_abs_err([got], [want], HW_TOL,
+                                         f"holt_winters {hb}x{ht}"))
+        hw_bitwise = hw_bitwise and bool(torch.equal(got, want))
+        del y, got, want
+    torch.cuda.synchronize()
+    log(f"[holt_winters] 100003x2880 period 60, 4099x3000 period 1440, "
+        f"257x61 alpha 0.37 match the plain version, max_abs_err={hw_err},"
+        f" bitwise {hw_bitwise}")
+
+    # ---- 12. split-conformal calibration on the card, then coverage
+    t0 = time.perf_counter()
+    split = torch.as_tensor(scenarios.burst_storm(
+        n_workloads=W, minutes=2 * M, seed=1).rates, device=dev)
+    log(f"[conformal] calibration split burst_storm {W}x{2 * M} generated "
+        f"in {time.perf_counter() - t0:.1f} s ({split.numel() * 4 / 1e6:.0f}"
+        f" MB of rates on the card)")
+    fcst = forecast_registry.make("holt_winters")
+    band = conformal.calibrate(fcst, split, alpha=0.9)      # warm-up
+    conformal.coverage(fcst, band, fleet_rates)
+    conformal_counts = {}
+    with forbidden(ref, "holt_winters_ref"):
+        for what, call in (
+                ("calibrate", lambda: conformal.calibrate(fcst, split,
+                                                          alpha=0.9)),
+                ("coverage", lambda: conformal.coverage(fcst, band,
+                                                        fleet_rates))):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            if counts != dict(dict.fromkeys(counts, 0), holt_winters=1):
+                raise RuntimeError(f"{what} launched {counts}, not one "
+                                   "holt_winters kernel")
+            conformal_counts[what] = counts["holt_winters"]
+            if what == "calibrate":
+                band, calibrate_s = result, wall
+            else:
+                cov, coverage_s = result, wall
+    q, scale = float(band.q), float(band.scale)
+    conf = float(conformal.confidence(band))
+    if not (np.isfinite([q, scale, conf, cov]).all() and q > 0
+            and 0.0 < conf <= 1.0 and 0.0 <= cov <= 1.0):
+        raise RuntimeError(f"conformal band q={q} scale={scale} "
+                           f"confidence={conf} coverage={cov}")
+    log(f"[conformal] calibrate {W}x{2 * M} at alpha 0.9: q={q} scale="
+        f"{scale} confidence={conf}, wall {calibrate_s:.4f} s "
+        f"({W * 2 * M / calibrate_s:.6g} series-minutes/s); coverage on "
+        f"the held-out fleet day {W}x{M}: {cov}, wall {coverage_s:.4f} s; "
+        f"holt_winters launches {conformal_counts}")
+    hw_ms = cuda_ms(lambda: ops.holt_winters(split), iters=5)[0]
+    hw_plain_ms = cuda_ms(lambda: ref.holt_winters_ref(split), iters=1)[0]
+    hw_bound, hw_by = bound_ms(2.0 * 4 * split.numel(),
+                               float(split.numel()) * HW_OPS_PER_STEP)
+    log(f"[timing] holt_winters {W}x{2 * M}: {hw_ms} ms, plain "
+        f"{hw_plain_ms} ms, bound {hw_bound} ms ({hw_by})")
+    resid = (split - ops.holt_winters(split)).abs()[:, 60:].reshape(-1)
+    sort_ms = cuda_ms(lambda: torch.sort(resid), iters=3)[0]
+    log(f"[timing] the calibration's sort of {resid.numel()} residuals: "
+        f"{sort_ms} ms")
+    del resid
+    profile_row(lambda: (conformal.calibrate(fcst, split, alpha=0.9),
+                         torch.cuda.synchronize()), "conformal calibrate")
+    del split
+
+    # ---- 13. the other policies' episode kernels vs their plain episodes
+    pols = {
+        "predictive": ("predictive", {}),
+        "predictive_conservative_band": ("predictive",
+                                         dict(band=band,
+                                              conservative=True)),
+        "kpa": ("kpa", {}),
+        "aapa_band": ("aapa", dict(band=band, classify=cls)),
+        "hybrid_band": ("hybrid", dict(band=band, classify=cls)),
+    }
+    short = fleet_rates[:w_chunk, :240].contiguous()
+    cfg7 = cluster.SimConfig(control_interval_sec=7)
+    pol_err, pol_plain_s = {}, {}
+    for label, (name, kw) in pols.items():
+        err = 0.0
+        for rr, c, what in ((short, cfg, f"{w_chunk}x240 ci=15"),
+                            (mix, cfg7, "1024x120 ci=7")):
+            ctrl = registry.make(name, c, **kw)
+            arch = name in episode_block.ARCHETYPE_POLICIES
+            got = (episode_block.aapa_episode_cuda if arch
+                   else ops.episode_block)(rr, ctrl, c)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = launch_free(lambda: (
+                ref.aapa_episode_ref if arch else ref.episode_block_ref)(
+                    rr, ctrl, c), f"{label} {what}")
+            torch.cuda.synchronize()
+            if rr is short:
+                pol_plain_s[label] = time.perf_counter() - t0
+            err = max(err, assert_episode(got, want, f"{label} {what}")
+                      if arch else max_abs_err(got, want, EPISODE_TOL,
+                                               f"{label} {what}"))
+            del got, want
+        pol_err[label] = err
+        log(f"[episode_block<{label}>] {w_chunk}x240 ci=15 and 1024x120 "
+            f"ci=7 match the plain version"
+            + (" (archetypes exact)" if name in
+               episode_block.ARCHETYPE_POLICIES else "")
+            + f", max_abs_err={err}")
+
+    # ---- 14. a Table IV row for each of them, and the kernel's time
+    pol_rows = {}
+    for label, (name, kw) in pols.items():
+        ctrl = registry.make(name, cfg, **kw)
+        counts, _, pdowns = fleet_row(ctrl, cfg, fleet_rates, w_chunk,
+                                      f"{label} fleet")
+        ms = cuda_ms(lambda: ops.episode_block(chunk, ctrl, cfg),
+                     iters=3)[0]
+        ms240 = cuda_ms(lambda: ops.episode_block(short, ctrl, cfg),
+                        iters=3)[0]
+        if name == "predictive":
+            n_ops = episode_ops(w_chunk, M, heads, pdowns, cfg.startup_sec,
+                                PRED_OPS_PER_HEAD, PRED_OPS_PER_MINUTE)
+        elif name == "kpa":
+            n_ops = episode_ops(w_chunk, M, heads, pdowns, cfg.startup_sec,
+                                KPA_OPS_PER_HEAD)
+        else:
+            n_ops = aapa_episode_ops(w_chunk, M, heads,
+                                     int(ctrl.hyper["stride_min"]), pdowns,
+                                     cls, cfg.startup_sec,
+                                     guard=name == "hybrid",
+                                     confidence=True)
+        bnd, by = bound_ms(13.0 * 4 * w_chunk * M, n_ops)
+        pol_rows[label] = dict(launches=counts["episode_block"], ms=ms,
+                               ms_240=ms240, bound_ms=bnd, bound_by=by)
+        log(f"[timing] episode_block<{label}> {w_chunk}x{M}: {ms} ms "
+            f"({w_chunk}x240: {ms240} ms), plain {w_chunk}x240 "
+            f"{pol_plain_s[label] * 1e3} ms (one run, host clock), bound "
+            f"{bnd} ms ({by})")
+
     kernels = [
         dict(name="plant_block", route="cuda",
              source="src/repro_torch/kernels/csrc/plant_block.cu",
@@ -688,7 +921,23 @@ def main() -> int:
              launches=classify_counts["gbdt_tables"], max_abs_err=gb_err,
              ms=gb_ms, plain_ms=gb_plain_ms, bound_ms=gb_bound,
              bound_by=gb_by, library_ms=None),
-    ]
+        dict(name="holt_winters", route="cuda",
+             source="src/repro_torch/kernels/csrc/holt_winters.cu",
+             replaces="src/repro/kernels/holt_winters.py:55",
+             launches=sum(conformal_counts.values()), max_abs_err=hw_err,
+             ms=hw_ms, plain_ms=hw_plain_ms, bound_ms=hw_bound,
+             bound_by=hw_by, library_ms=None),
+    ] + [
+        dict(name=f"episode_block<{label}>", policy=pols[label][0],
+             route="cuda",
+             source="src/repro_torch/kernels/csrc/episode_block.cu",
+             replaces="src/repro/kernels/episode_block.py:210",
+             launches=row["launches"], max_abs_err=pol_err[label],
+             ms=row["ms"], ms_240=row["ms_240"],
+             plain_ms=pol_plain_s[label] * 1e3,
+             plain_shape=f"{w_chunk}x240", bound_ms=row["bound_ms"],
+             bound_by=row["bound_by"], library_ms=None)
+        for label, row in pol_rows.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

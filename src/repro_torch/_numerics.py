@@ -11,6 +11,8 @@ own CUDA kernels.
   partial sums are then summed in order. The plain versions sum in this
   order and the CUDA device functions (``kernels/csrc/numerics.cuh``)
   repeat it, so a kernel and its plain version agree bit for bit.
+* `fma`: a fused multiply-add rounded once to f32, where XLA contracts
+  one and the port must match it (the kernels call ``__fmaf_rn``).
 * `rounded`: exp, log, log1p and pow evaluated in f64 and rounded once to
   f32, the correctly rounded f32 result (up to a double-rounding tie,
   about one case in 2^28). PyTorch's vectorized CPU functions are not
@@ -80,3 +82,21 @@ def rounded(fn: Callable[..., torch.Tensor], *args) -> torch.Tensor:
 def sqrt(v: torch.Tensor) -> torch.Tensor:
     """Correctly rounded f32 square root."""
     return rounded(torch.sqrt, v)
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded once (a fused multiply-add).
+
+    The product of two f32 values is exact in f64; the f64 sum is made
+    round-to-odd (a TwoSum error term moves an inexact even result one
+    f64 ulp towards the exact value), and a round-to-odd value with at
+    least two extra bits rounds to the correctly rounded f32."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c = torch.as_tensor(c, dtype=torch.float64, device=p.device)
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)

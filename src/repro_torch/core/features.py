@@ -3,7 +3,7 @@
 
 * ``stat_time_features``: 28 statistical + time-domain features, the
   plain version of the ``window_features`` CUDA kernel.
-* ``freq_features``: 10 frequency-domain features from a real DFT of the
+* ``freq_features``: 10 frequency-domain features from a real FFT of the
   mean-removed window.
 
 Everything takes ``windows`` of shape [..., W] and runs on the windows'
@@ -20,10 +20,12 @@ module agree bit for bit:
   EPS``, the q75 interpolation), which the port does not, so about half
   of the continuous features differ from the reference's in the last
   one or two ulp; the quantized ones (``QUANTIZED``) are exact.
-* The spectrum is a DFT with an f32 cos/sin table (built in f64, rounded
-  once), summed sequentially over time. ``jnp.fft.rfft`` sums in another
-  order, so the 10 frequency features agree with the reference to a
-  tolerance (tests/test_torch_features.py), not bitwise.
+* The spectrum is the real FFT ``jnp.fft.rfft`` runs on the CPU (ducc0's
+  ``rfftp``: radix-4, 2, 3 and 5 passes, twiddles rounded once from
+  f64), then XLA's complex ``abs`` (max * sqrt(fma(r, r, 1)), r = min /
+  max) and the square, op for op in f32, so the power spectrum, and with
+  it every frequency feature's ties, is the reference's bit for bit.
+  Windows whose length has a prime factor above 5 are not supported.
 """
 from __future__ import annotations
 
@@ -163,15 +165,215 @@ def stat_time_features(windows: torch.Tensor) -> torch.Tensor:
          mean_abs_diff, max_abs_diff, n_peaks], -1)
 
 
+#: the constants of ducc0's radix-3, -4 and -5 passes, rounded to f32
+_TAUI3 = float(np.float32(0.8660254037844386467637231707529362))
+_HSQT2 = float(np.float32(0.7071067811865475244008443621048490))
+_TR11, _TI11 = (float(np.float32(0.3090169943749474241022934171828191)),
+                float(np.float32(0.9510565162951535721164393333793821)))
+_TR12, _TI12 = (float(np.float32(-0.8090169943749474241022934171828191)),
+                float(np.float32(0.5877852522924731291687059546390728)))
+
+
+def _factorize(n: int) -> list[int]:
+    """ducc0's factor order for a real FFT: 4s, then a 2 swapped to the
+    front, then odd factors ascending."""
+    fct = []
+    while n % 4 == 0:
+        fct.append(4)
+        n //= 4
+    if n % 2 == 0:
+        n //= 2
+        fct.append(2)
+        fct[0], fct[-1] = fct[-1], fct[0]
+    d = 3
+    while d * d <= n:
+        while n % d == 0:
+            fct.append(d)
+            n //= d
+        d += 2
+    if n > 1:
+        fct.append(n)
+    return fct
+
+
 @functools.lru_cache(maxsize=None)
-def dft_table(n: int, device: torch.device) -> torch.Tensor:
-    """[2, n//2 + 1, n] f32 cos and sin of 2*pi*k*j/n, computed in f64
-    and rounded once (the table the episode kernel reads too)."""
-    k = np.arange(n // 2 + 1)[:, None]
-    j = np.arange(n)[None, :]
-    ang = 2.0 * np.pi * ((k * j) % n) / n
-    tab = np.stack([np.cos(ang), np.sin(ang)]).astype(np.float32)
-    return torch.as_tensor(tab, device=device)
+def rfft_plan(n: int) -> tuple[tuple[int, int, int, tuple[float, ...]], ...]:
+    """The passes of a forward real FFT of length `n`, in the order they
+    run: (ip, l1, ido, twiddles) per pass, the twiddles cos and sin of
+    2*pi*j*l1*i/n for j < ip, i <= (ido-1)/2, as ducc0's `wa` array
+    ([(ip-1) * (ido-1)]), computed in f64 and rounded once."""
+    fct = _factorize(n)
+    if any(f > 5 for f in fct):
+        raise NotImplementedError(
+            f"real FFT of length {n}: only radix-2/3/4/5 lengths are "
+            f"implemented (factors {fct})")
+    passes, l1 = [], n
+    for ip in reversed(fct):
+        ido = n // l1
+        l1 //= ip
+        wa = np.zeros((ip - 1, ido - 1))
+        for j in range(1, ip):
+            for i in range(1, (ido - 1) // 2 + 1):
+                ang = 2.0 * np.pi * (j * l1 * i) / n
+                wa[j - 1, 2 * i - 2] = np.cos(ang)
+                wa[j - 1, 2 * i - 1] = np.sin(ang)
+        passes.append((ip, l1, ido, tuple(
+            float(v) for v in wa.astype(np.float32).reshape(-1))))
+    return tuple(passes)
+
+
+@functools.lru_cache(maxsize=None)
+def fft_tables(n: int, device: torch.device):
+    """`rfft_plan(n)` as the kernels take it: (every pass's twiddles in one
+    f32 tensor on `device`, at least one element; the flat plan list of
+    (ip, l1, ido, offset of the pass's twiddles) per pass)."""
+    tw, plan = [], []
+    for ip, l1, ido, wa in rfft_plan(n):
+        plan += [ip, l1, ido, len(tw)]
+        tw.extend(wa)
+    return (torch.tensor(tw or [0.0], dtype=torch.float32, device=device),
+            plan)
+
+
+def _radix_pass(ip: int, l1: int, ido: int, wa, cc: list) -> list:
+    """One forward pass of ducc0's rfftp (radf2/3/4/5) on a list of n
+    columns: CC(a, b, c) = cc[a + ido*(b + l1*c)] in, CH(a, b, c) =
+    ch[a + ido*(b + ip*c)] out."""
+    ch = [None] * len(cc)
+
+    def CC(a, b, c):
+        return cc[a + ido * (b + l1 * c)]
+
+    def put(a, b, c, v):
+        ch[a + ido * (b + ip * c)] = v
+
+    def mulpm(x, i, k):
+        """conj(twiddle) * (CC(i-1, k, x+1) + i CC(i, k, x+1))"""
+        wr, wi = wa[x * (ido - 1) + i - 2], wa[x * (ido - 1) + i - 1]
+        e, f = CC(i - 1, k, x + 1), CC(i, k, x + 1)
+        return wr * e + wi * f, wr * f - wi * e
+
+    inner = [(k, i, ido - i) for k in range(l1) for i in range(2, ido, 2)]
+    if ip == 2:
+        for k in range(l1):
+            put(0, 0, k, CC(0, k, 0) + CC(0, k, 1))
+            put(ido - 1, 1, k, CC(0, k, 0) - CC(0, k, 1))
+        if ido % 2 == 0:
+            for k in range(l1):
+                put(0, 1, k, -CC(ido - 1, k, 1))
+                put(ido - 1, 0, k, CC(ido - 1, k, 0))
+        for k, i, ic in inner:
+            tr2, ti2 = mulpm(0, i, k)
+            put(i - 1, 0, k, CC(i - 1, k, 0) + tr2)
+            put(ic - 1, 1, k, CC(i - 1, k, 0) - tr2)
+            put(i, 0, k, ti2 + CC(i, k, 0))
+            put(ic, 1, k, ti2 - CC(i, k, 0))
+    elif ip == 3:
+        for k in range(l1):
+            cr2 = CC(0, k, 1) + CC(0, k, 2)
+            put(0, 0, k, CC(0, k, 0) + cr2)
+            put(0, 2, k, _TAUI3 * (CC(0, k, 2) - CC(0, k, 1)))
+            put(ido - 1, 1, k, CC(0, k, 0) + -0.5 * cr2)
+        for k, i, ic in inner:
+            dr2, di2 = mulpm(0, i, k)
+            dr3, di3 = mulpm(1, i, k)
+            cr2, ci2 = dr2 + dr3, di2 + di3
+            put(i - 1, 0, k, CC(i - 1, k, 0) + cr2)
+            put(i, 0, k, CC(i, k, 0) + ci2)
+            tr2 = CC(i - 1, k, 0) + -0.5 * cr2
+            ti2 = CC(i, k, 0) + -0.5 * ci2
+            tr3 = _TAUI3 * (di2 - di3)
+            ti3 = _TAUI3 * (dr3 - dr2)
+            put(i - 1, 2, k, tr2 + tr3)
+            put(ic - 1, 1, k, tr2 - tr3)
+            put(i, 2, k, ti3 + ti2)
+            put(ic, 1, k, ti3 - ti2)
+    elif ip == 4:
+        for k in range(l1):
+            tr1 = CC(0, k, 3) + CC(0, k, 1)
+            put(0, 2, k, CC(0, k, 3) - CC(0, k, 1))
+            tr2 = CC(0, k, 0) + CC(0, k, 2)
+            put(ido - 1, 1, k, CC(0, k, 0) - CC(0, k, 2))
+            put(0, 0, k, tr2 + tr1)
+            put(ido - 1, 3, k, tr2 - tr1)
+        if ido % 2 == 0:
+            for k in range(l1):
+                ti1 = -_HSQT2 * (CC(ido - 1, k, 1) + CC(ido - 1, k, 3))
+                tr1 = _HSQT2 * (CC(ido - 1, k, 1) - CC(ido - 1, k, 3))
+                put(ido - 1, 0, k, CC(ido - 1, k, 0) + tr1)
+                put(ido - 1, 2, k, CC(ido - 1, k, 0) - tr1)
+                put(0, 3, k, ti1 + CC(ido - 1, k, 2))
+                put(0, 1, k, ti1 - CC(ido - 1, k, 2))
+        for k, i, ic in inner:
+            cr2, ci2 = mulpm(0, i, k)
+            cr3, ci3 = mulpm(1, i, k)
+            cr4, ci4 = mulpm(2, i, k)
+            tr1, tr4 = cr4 + cr2, cr4 - cr2
+            ti1, ti4 = ci2 + ci4, ci2 - ci4
+            tr2, tr3 = CC(i - 1, k, 0) + cr3, CC(i - 1, k, 0) - cr3
+            ti2, ti3 = CC(i, k, 0) + ci3, CC(i, k, 0) - ci3
+            put(i - 1, 0, k, tr2 + tr1)
+            put(ic - 1, 3, k, tr2 - tr1)
+            put(i, 0, k, ti1 + ti2)
+            put(ic, 3, k, ti1 - ti2)
+            put(i - 1, 2, k, tr3 + ti4)
+            put(ic - 1, 1, k, tr3 - ti4)
+            put(i, 2, k, tr4 + ti3)
+            put(ic, 1, k, tr4 - ti3)
+    else:                                            # ip == 5
+        for k in range(l1):
+            cr2, ci5 = CC(0, k, 4) + CC(0, k, 1), CC(0, k, 4) - CC(0, k, 1)
+            cr3, ci4 = CC(0, k, 3) + CC(0, k, 2), CC(0, k, 3) - CC(0, k, 2)
+            put(0, 0, k, CC(0, k, 0) + cr2 + cr3)
+            put(ido - 1, 1, k, CC(0, k, 0) + _TR11 * cr2 + _TR12 * cr3)
+            put(0, 2, k, _TI11 * ci5 + _TI12 * ci4)
+            put(ido - 1, 3, k, CC(0, k, 0) + _TR12 * cr2 + _TR11 * cr3)
+            put(0, 4, k, _TI12 * ci5 - _TI11 * ci4)
+        for k, i, ic in inner:
+            dr2, di2 = mulpm(0, i, k)
+            dr3, di3 = mulpm(1, i, k)
+            dr4, di4 = mulpm(2, i, k)
+            dr5, di5 = mulpm(3, i, k)
+            cr2, ci5 = dr5 + dr2, dr5 - dr2
+            ci2, cr5 = di2 + di5, di2 - di5
+            cr3, ci4 = dr4 + dr3, dr4 - dr3
+            ci3, cr4 = di3 + di4, di3 - di4
+            put(i - 1, 0, k, CC(i - 1, k, 0) + cr2 + cr3)
+            put(i, 0, k, CC(i, k, 0) + ci2 + ci3)
+            tr2 = CC(i - 1, k, 0) + _TR11 * cr2 + _TR12 * cr3
+            ti2 = CC(i, k, 0) + _TR11 * ci2 + _TR12 * ci3
+            tr3 = CC(i - 1, k, 0) + _TR12 * cr2 + _TR11 * cr3
+            ti3 = CC(i, k, 0) + _TR12 * ci2 + _TR11 * ci3
+            tr5, tr4 = cr5 * _TI11 + cr4 * _TI12, cr5 * _TI12 - cr4 * _TI11
+            ti5, ti4 = ci5 * _TI11 + ci4 * _TI12, ci5 * _TI12 - ci4 * _TI11
+            put(i - 1, 2, k, tr2 + tr5)
+            put(ic - 1, 1, k, tr2 - tr5)
+            put(i, 2, k, ti5 + ti2)
+            put(ic, 1, k, ti5 - ti2)
+            put(i - 1, 4, k, tr3 + tr4)
+            put(ic - 1, 3, k, tr3 - tr4)
+            put(i, 4, k, ti4 + ti3)
+            put(ic, 3, k, ti4 - ti3)
+    return ch
+
+
+def rfft_halfcomplex(x: torch.Tensor) -> list[torch.Tensor]:
+    """The forward real FFT of the last axis in ducc0's halfcomplex order:
+    n columns r0, re1, im1, re2, im2, ... (re(n/2) last for even n)."""
+    cols = list(x.unbind(-1))
+    for ip, l1, ido, wa in rfft_plan(x.shape[-1]):
+        cols = _radix_pass(ip, l1, ido, wa, cols)
+    return cols
+
+
+def complex_abs(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU complex abs: max * sqrt(fma(r, r, 1)), r = min / max,
+    0 where both parts are 0."""
+    a, b = re.abs(), im.abs()
+    hi, lo = torch.maximum(a, b), torch.minimum(a, b)
+    r = lo / hi
+    h = hi * N.sqrt(N.fma(r, r, 1.0))
+    return torch.where(hi == 0, torch.zeros_like(h), h)
 
 
 def freq_constants(n: int) -> tuple[float, float]:
@@ -181,18 +383,17 @@ def freq_constants(n: int) -> tuple[float, float]:
 
 
 def power_spectrum(windows: torch.Tensor) -> torch.Tensor:
-    """|DFT|^2 of the mean-removed window without the DC bin:
-    [..., W] -> [..., W // 2], each bin summed sequentially over time."""
+    """``|rfft(window - mean)| ** 2`` without the DC bin, as the reference
+    computes it on the CPU: [..., W] -> [..., W // 2]."""
     x = torch.as_tensor(windows).to(torch.float32)
     n = x.shape[-1]
-    xc = x - _mean(x)[..., None]
-    cos, sin = dft_table(n, x.device)
-    re = xc[..., 0, None] * cos[:, 0]
-    im = xc[..., 0, None] * sin[:, 0]
-    for j in range(1, n):
-        re = re + xc[..., j, None] * cos[:, j]
-        im = im + xc[..., j, None] * sin[:, j]
-    return (re * re + im * im)[..., 1:]
+    r = rfft_halfcomplex(x - _mean(x)[..., None])
+    zero = torch.zeros_like(r[0])
+    bins = []
+    for k in range(1, n // 2 + 1):
+        h = complex_abs(r[2 * k - 1], r[2 * k] if 2 * k < n else zero)
+        bins.append(h * h)
+    return torch.stack(bins, -1)
 
 
 def freq_features(windows: torch.Tensor) -> torch.Tensor:

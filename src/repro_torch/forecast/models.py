@@ -2,9 +2,10 @@
 and EWMA (port of ``repro.forecast.models``), each assembled through
 ``api.make_forecaster``.
 
-Holt-Winters' offline `smooth` is the reference's ``holt_winters``
-kernel path, which is not ported yet (ROADMAP B5): it raises. The other
-three backtest through the shared sequential `smooth`.
+Holt-Winters' offline `smooth` is ``kernels.ops.holt_winters``: the
+``holt_winters`` CUDA kernel on a CUDA tensor, its plain version
+(``core.forecasting.hw_smooth``) on a CPU tensor. The other three
+backtest through the shared sequential `smooth`.
 """
 from __future__ import annotations
 
@@ -24,9 +25,10 @@ def holt_winters_forecaster(*, period: int = 60, alpha: float = 0.1,
     paper Table III; the Generic-Predictive baseline, §IV.C)."""
 
     def smooth_fn(y):
-        raise NotImplementedError(
-            "Holt-Winters smooth runs the holt_winters kernel, which is not "
-            "ported yet (ROADMAP B5)")
+        from repro_torch.kernels import ops
+        flat = y.reshape(-1, y.shape[-1]).contiguous()
+        return ops.holt_winters(flat, period=period, alpha=alpha, beta=beta,
+                                gamma=gamma).reshape(y.shape)
 
     return make_forecaster(
         "holt_winters",

@@ -88,7 +88,7 @@ register(
     "holt_winters", Mo.holt_winters_forecaster,
     defaults=dict(period=60, alpha=0.1, beta=0.01, gamma=0.3),
     description="Additive-seasonal triple exponential smoothing; its "
-                "offline backtest waits for the holt_winters kernel.")
+                "offline backtest is the holt_winters kernel.")
 
 register(
     "linear_trend", Mo.linear_trend_forecaster,

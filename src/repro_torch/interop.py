@@ -1,8 +1,9 @@
 """Carry state across from the JAX reference and back, as NumPy arrays.
 
 `from_reference` takes a reference ``SimState`` (with its
-``LimiterState`` and an ``HPAState`` or ``AAPAState``, whose forecaster
-carry is an ``FState`` over an ``HWState``), ``MinuteOut`` or
+``LimiterState`` and an ``HPAState``, ``PredState``, ``KPAState`` or
+``AAPAState``, whose forecaster carry is an ``FState`` over an
+``HWState``), a ``ConformalBand``, ``MinuteOut`` or
 ``EpisodeMetrics`` whose leaves are NumPy arrays (``jax.tree.map(np.asarray,
 tree)``), or tuples and lists of them, and returns the port's NamedTuple
 of the same name with tensors on `device`. `to_numpy` goes the other
@@ -27,12 +28,15 @@ from repro_torch.core.forecasting import HWState
 from repro_torch.core.pipeline import TrainedAAPA
 from repro_torch.evals.metrics import EpisodeMetrics
 from repro_torch.forecast.api import FState
+from repro_torch.forecast.conformal import ConformalBand
 from repro_torch.scaling.api import LimiterState
-from repro_torch.scaling.policies import AAPAState, HPAState
+from repro_torch.scaling.policies import (AAPAState, HPAState, KPAState,
+                                          PredState)
 from repro_torch.sim.cluster import MinuteOut, SimState
 
 _TYPES = {t.__name__: t for t in (SimState, LimiterState, HPAState,
-                                  AAPAState, FState, HWState, MinuteOut,
+                                  PredState, KPAState, AAPAState, FState,
+                                  HWState, ConformalBand, MinuteOut,
                                   EpisodeMetrics)}
 
 
@@ -54,7 +58,10 @@ def from_reference(tree, device="cuda"):
             if port._fields != x._fields:
                 raise TypeError(f"{name} fields differ: reference "
                                 f"{x._fields}, port {port._fields}")
-            return port(*(conv(v) for v in x))
+            out = port(*(conv(v) for v in x))
+            if port is ConformalBand:          # its nominal level is a float
+                out = out._replace(alpha=float(np.asarray(x.alpha)))
+            return out
         if isinstance(x, (tuple, list)):
             return type(x)(conv(v) for v in x)
         if isinstance(x, (int, float)):

@@ -137,25 +137,58 @@ repro_torch::GBDTTables gbdt_tables(const torch::Tensor& edges,
           static_cast<int>(T), static_cast<int>(K), depth};
 }
 
-// windows [N, W] -> out [N, 28] or, if dft is the [2, W/2 + 1, W] DFT
-// table (an empty tensor otherwise), out [N, 38] with the frequency
-// features; inv_log_nb and inv_nb are their f32 multipliers.
+// The real FFT's plan for windows of W samples (core/features.py::
+// fft_tables): twiddles tw and plan [n_pass * 4] of (ip, l1, ido, offset)
+repro_torch::FreqTables freq_tables(const torch::Tensor& tw,
+                                    const std::vector<int64_t>& plan,
+                                    int64_t W, double inv_log_nb,
+                                    double inv_nb) {
+  const int64_t n_pass = static_cast<int64_t>(plan.size()) / 4;
+  TORCH_CHECK(plan.size() % 4 == 0 && n_pass >= 1 &&
+                  n_pass <= repro_torch::kMaxFftPasses,
+              "FFT plan: 1 to ", repro_torch::kMaxFftPasses,
+              " passes of (ip, l1, ido, offset)");
+  TORCH_CHECK(tw.dim() == 1, "FFT twiddles must be 1-d");
+  check(tw, "twiddles", {tw.size(0)});
+  repro_torch::FreqTables f{};
+  f.tw = in(tw);
+  f.n_pass = static_cast<int>(n_pass);
+  int64_t prod = 1;
+  for (int64_t q = 0; q < n_pass; ++q) {
+    const int64_t ip = plan[4 * q], l1 = plan[4 * q + 1];
+    const int64_t ido = plan[4 * q + 2], off = plan[4 * q + 3];
+    TORCH_CHECK(ip >= 2 && ip <= 5 && l1 * ip * ido == W && off >= 0 &&
+                    off + (ip - 1) * (ido - 1) <= tw.size(0),
+                "FFT plan: pass ", q, " does not fit a window of ", W);
+    prod *= ip;
+    f.ip[q] = static_cast<int>(ip);
+    f.l1[q] = static_cast<int>(l1);
+    f.ido[q] = static_cast<int>(ido);
+    f.off[q] = static_cast<int>(off);
+  }
+  TORCH_CHECK(prod == W, "FFT plan: radices multiply to ", prod, ", not ",
+              W);
+  f.inv_log_nb = static_cast<float>(inv_log_nb);
+  f.inv_nb = static_cast<float>(inv_nb);
+  return f;
+}
+
+// windows [N, W] -> out [N, 28] or, with an FFT plan (empty otherwise),
+// out [N, 38] with the frequency features; inv_log_nb and inv_nb are
+// their f32 multipliers.
 void window_features(torch::Tensor windows, torch::Tensor out_,
-                     torch::Tensor dft, double inv_log_nb, double inv_nb) {
+                     torch::Tensor tw, std::vector<int64_t> plan,
+                     double inv_log_nb, double inv_nb) {
   TORCH_CHECK(windows.dim() == 2, "windows must be [N, W]");
   const int64_t N = windows.size(0), W = windows.size(1);
-  const bool freq = dft.numel() > 0;
+  const bool freq = !plan.empty();
   TORCH_CHECK(N > 0 && W >= (freq ? 4 : 3) && W <= 64, "window_features "
               "takes N >= 1 windows of 3 (4 with the frequency features) "
               "to 64 samples");
   check(windows, "windows", {N, W});
   check(out_, "out", {N, freq ? 38 : 28});
   repro_torch::FreqTables tab{};
-  if (freq) {
-    check(dft, "dft", {2, W / 2 + 1, W});
-    tab = {in(dft), static_cast<float>(inv_log_nb),
-           static_cast<float>(inv_nb)};
-  }
+  if (freq) tab = freq_tables(tw, plan, W, inv_log_nb, inv_nb);
   const c10::cuda::CUDAGuard guard(windows.device());
   repro_torch::window_features_launch(in(windows), out(out_),
                                       static_cast<int>(N),
@@ -181,43 +214,54 @@ void gbdt_logits(torch::Tensor X, torch::Tensor out_, torch::Tensor edges,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// rates [B, M] -> out [12, B, M] and, if arch_out has B * M elements, the
-// archetype after each minute into it; scratch pipe [S, B] and scratch
-// [60 + period, B]. fhyper: Table III (16 floats: target_cpu, cooldown_min,
-// min_replicas, warm_pool by class), rps_per_replica, alpha, beta, gamma,
-// 1 - alpha, 1 - beta, 1 - gamma, resid_rho, z, sqrt(horizon),
-// trend_tbar, trend_tvar, trend_step, inv_log_nb, inv_nb. ihyper:
-// stride_min, horizon_min, forecast_confidence, period, classify.
-void episode_block_aapa(torch::Tensor rates, torch::Tensor out_,
-                        torch::Tensor pipe, torch::Tensor scratch,
-                        torch::Tensor arch_out, int64_t ci,
-                        double rps, double service, double slo, double cap,
-                        double inv_tau, double max_replicas,
-                        double initial_replicas, std::vector<double> fhyper,
-                        std::vector<int64_t> ihyper, torch::Tensor dft,
-                        torch::Tensor edges, torch::Tensor feat,
-                        torch::Tensor thresh, torch::Tensor leaf,
-                        torch::Tensor base, torch::Tensor cal_a,
-                        torch::Tensor cal_b, torch::Tensor cal_c) {
-  TORCH_CHECK(fhyper.size() == 31 && ihyper.size() == 5,
-              "episode_block_aapa takes 31 float and 5 int hyperparameters");
-  TORCH_CHECK(rates.dim() == 2 && pipe.dim() == 2 && scratch.dim() == 2,
-              "rates, pipe and scratch must be 2-d");
+// The episode's shapes and SimConfig: rates [B, M] and out [12, B, M]
+// checked, S from pipe [S, B].
+repro_torch::EpisodeCfg episode_cfg(const torch::Tensor& rates,
+                                    const torch::Tensor& out_,
+                                    const torch::Tensor& pipe, int64_t ci,
+                                    double rps, double service, double slo,
+                                    double cap, double inv_tau,
+                                    double max_replicas,
+                                    double initial_replicas) {
+  TORCH_CHECK(rates.dim() == 2 && pipe.dim() == 2,
+              "rates and pipe must be 2-d");
   const int64_t B = rates.size(0), M = rates.size(1), S = pipe.size(0);
-  const int64_t period = ihyper[3];
-  TORCH_CHECK(B > 0 && M > 0 && S > 0 && period > 0, "empty episode block");
+  TORCH_CHECK(B > 0 && M > 0 && S > 0, "empty episode block");
   TORCH_CHECK(ci >= 1 && ci <= 60, "control interval must be in [1, 60]");
-  TORCH_CHECK(ihyper[0] >= 1 && ihyper[1] >= 1, "stride and horizon >= 1");
   check(rates, "rates", {B, M});
   check(out_, "out", {12, B, M});
   check(pipe, "pipe", {S, B});
-  check(scratch, "scratch", {60 + period, B});
-  check(dft, "dft", {2, 31, 60});
-  int* arch = nullptr;
-  if (arch_out.numel() > 0) {
-    check_i32(arch_out, "arch_out", {B, M});
-    arch = arch_out.data_ptr<int>();
-  }
+  return {plant_cfg(rps, service, slo, cap, inv_tau),
+          static_cast<float>(max_replicas),
+          static_cast<float>(initial_replicas), static_cast<int>(S),
+          static_cast<int>(ci)};
+}
+
+// Holt-Winters: alpha, beta, gamma, 1 - alpha, 1 - beta, 1 - gamma at
+// f[0..5]
+repro_torch::HWCoeffs hw_coeffs(const std::vector<double>& f) {
+  return {static_cast<float>(f[0]), static_cast<float>(f[1]),
+          static_cast<float>(f[2]), static_cast<float>(f[3]),
+          static_cast<float>(f[4]), static_cast<float>(f[5])};
+}
+
+// AAPA's hyperparameters. fhyper (33): Table III (16 floats: target_cpu,
+// cooldown_min, min_replicas, warm_pool by class), rps_per_replica, the 6
+// Holt-Winters coefficients, resid_rho, z, sqrt(horizon), trend_tbar,
+// trend_tvar, trend_step, inv_log_nb, inv_nb, band_q, band_scale. ihyper
+// (6): stride_min, horizon_min, forecast_confidence, period, classify,
+// use_band. The classifier's tables are read only when classify is 1.
+repro_torch::AAPAHyper aapa_hyper(
+    const std::vector<double>& fhyper, const std::vector<int64_t>& ihyper,
+    const torch::Tensor& tw, const std::vector<int64_t>& plan,
+    const torch::Tensor& edges, const torch::Tensor& feat,
+    const torch::Tensor& thresh, const torch::Tensor& leaf,
+    const torch::Tensor& base, const torch::Tensor& cal_a,
+    const torch::Tensor& cal_b, const torch::Tensor& cal_c) {
+  TORCH_CHECK(fhyper.size() == 33 && ihyper.size() == 6,
+              "the AAPA policy takes 33 float and 6 int hyperparameters");
+  TORCH_CHECK(ihyper[0] >= 1 && ihyper[1] >= 1 && ihyper[3] >= 1,
+              "stride, horizon and period >= 1");
   repro_torch::AAPAHyper h{};
   for (int k = 0; k < 4; ++k) {
     h.target_cpu[k] = static_cast<float>(fhyper[k]);
@@ -227,24 +271,23 @@ void episode_block_aapa(torch::Tensor rates, torch::Tensor out_,
   }
   const auto f = [&](int i) { return static_cast<float>(fhyper[i]); };
   h.rps_per_replica = f(16);
-  h.alpha = f(17);
-  h.beta = f(18);
-  h.gamma = f(19);
-  h.one_m_alpha = f(20);
-  h.one_m_beta = f(21);
-  h.one_m_gamma = f(22);
-  h.resid_rho = f(23);
+  h.hw.c = hw_coeffs(
+      std::vector<double>(fhyper.begin() + 17, fhyper.begin() + 23));
+  h.hw.resid_rho = f(23);
   h.z = f(24);
   h.sqrt_h = f(25);
   h.trend_tbar = f(26);
   h.trend_tvar = f(27);
   h.trend_step = f(28);
-  h.freq = {in(dft), f(29), f(30)};
+  h.band_q = f(31);
+  h.band_scale = f(32);
+  h.freq = freq_tables(tw, plan, 60, fhyper[29], fhyper[30]);
   h.stride_min = static_cast<int>(ihyper[0]);
   h.horizon_min = static_cast<int>(ihyper[1]);
   h.forecast_confidence = static_cast<int>(ihyper[2]);
-  h.period = static_cast<int>(period);
+  h.hw.period = static_cast<int>(ihyper[3]);
   h.classify = static_cast<int>(ihyper[4]);
+  h.use_band = static_cast<int>(ihyper[5]);
   if (h.classify) {
     h.gbdt = gbdt_tables(edges, feat, thresh, leaf, base);
     TORCH_CHECK(h.gbdt.n_features == 38 && h.gbdt.n_classes == 4,
@@ -254,14 +297,142 @@ void episode_block_aapa(torch::Tensor rates, torch::Tensor out_,
     check(cal_c, "cal_c", {4});
     h.cal = {in(cal_a), in(cal_b), in(cal_c)};
   }
-  repro_torch::EpisodeCfg cfg{plant_cfg(rps, service, slo, cap, inv_tau),
-                              static_cast<float>(max_replicas),
-                              static_cast<float>(initial_replicas),
-                              static_cast<int>(S), static_cast<int>(ci)};
+  return h;
+}
+
+// rates [B, M] -> out [12, B, M] and, if arch_out has B * M elements, the
+// archetype after each minute into it; scratch pipe [S, B] and scratch
+// [60 + period, B]. With guard (3 floats: f32 reciprocals of guard_target
+// and rps_per_replica * guard_target, f32(1 - max_down_frac)) the hybrid
+// policy runs, without it (empty) AAPA.
+void episode_block_aapa(torch::Tensor rates, torch::Tensor out_,
+                        torch::Tensor pipe, torch::Tensor scratch,
+                        torch::Tensor arch_out, int64_t ci,
+                        double rps, double service, double slo, double cap,
+                        double inv_tau, double max_replicas,
+                        double initial_replicas, std::vector<double> fhyper,
+                        std::vector<int64_t> ihyper, std::vector<double> guard,
+                        torch::Tensor tw, std::vector<int64_t> plan,
+                        torch::Tensor edges, torch::Tensor feat,
+                        torch::Tensor thresh, torch::Tensor leaf,
+                        torch::Tensor base, torch::Tensor cal_a,
+                        torch::Tensor cal_b, torch::Tensor cal_c) {
+  const repro_torch::EpisodeCfg cfg =
+      episode_cfg(rates, out_, pipe, ci, rps, service, slo, cap, inv_tau,
+                  max_replicas, initial_replicas);
+  const repro_torch::AAPAHyper h =
+      aapa_hyper(fhyper, ihyper, tw, plan, edges, feat, thresh, leaf, base,
+                 cal_a, cal_b, cal_c);
+  const int64_t B = rates.size(0), M = rates.size(1);
+  TORCH_CHECK(scratch.dim() == 2, "scratch must be 2-d");
+  check(scratch, "scratch", {60 + h.hw.period, B});
+  int* arch = nullptr;
+  if (arch_out.numel() > 0) {
+    check_i32(arch_out, "arch_out", {B, M});
+    arch = arch_out.data_ptr<int>();
+  }
+  TORCH_CHECK(guard.empty() || guard.size() == 3,
+              "the hybrid guard takes 3 floats");
+  const c10::cuda::CUDAGuard device_guard(rates.device());
+  if (guard.empty()) {
+    repro_torch::episode_block_aapa_launch(
+        in(rates), out(out_), out(pipe), out(scratch), arch,
+        static_cast<int>(B), static_cast<int>(M), cfg, h,
+        at::cuda::getCurrentCUDAStream());
+  } else {
+    const repro_torch::HybridHyper hh{h, static_cast<float>(guard[0]),
+                                      static_cast<float>(guard[1]),
+                                      static_cast<float>(guard[2])};
+    repro_torch::episode_block_hybrid_launch(
+        in(rates), out(out_), out(pipe), out(scratch), arch,
+        static_cast<int>(B), static_cast<int>(M), cfg, hh,
+        at::cuda::getCurrentCUDAStream());
+  }
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// rates [B, M] -> out [12, B, M]; scratch pipe [S, B] and season [period,
+// B]. fhyper (12): the 6 Holt-Winters coefficients, resid_rho, z,
+// sqrt(horizon), band_q, inv_cap, cooldown_sec; ihyper (4): period,
+// horizon_min, use_band, conservative.
+void episode_block_predictive(torch::Tensor rates, torch::Tensor out_,
+                              torch::Tensor pipe, torch::Tensor season,
+                              int64_t ci, double rps, double service,
+                              double slo, double cap, double inv_tau,
+                              double max_replicas, double initial_replicas,
+                              std::vector<double> fhyper,
+                              std::vector<int64_t> ihyper) {
+  const repro_torch::EpisodeCfg cfg =
+      episode_cfg(rates, out_, pipe, ci, rps, service, slo, cap, inv_tau,
+                  max_replicas, initial_replicas);
+  TORCH_CHECK(fhyper.size() == 12 && ihyper.size() == 4,
+              "the predictive policy takes 12 float and 4 int "
+              "hyperparameters");
+  TORCH_CHECK(ihyper[0] >= 1 && ihyper[1] >= 1, "period and horizon >= 1");
+  const int64_t B = rates.size(0), M = rates.size(1);
+  TORCH_CHECK(season.dim() == 2, "season must be 2-d");
+  check(season, "season", {ihyper[0], B});
+  repro_torch::PredictiveHyper h{};
+  h.hw.c = hw_coeffs(fhyper);
+  h.hw.period = static_cast<int>(ihyper[0]);
+  h.hw.resid_rho = static_cast<float>(fhyper[6]);
+  h.z = static_cast<float>(fhyper[7]);
+  h.sqrt_h = static_cast<float>(fhyper[8]);
+  h.band_q = static_cast<float>(fhyper[9]);
+  h.inv_cap = static_cast<float>(fhyper[10]);
+  h.cooldown_sec = static_cast<float>(fhyper[11]);
+  h.horizon_min = static_cast<int>(ihyper[1]);
+  h.use_band = static_cast<int>(ihyper[2]);
+  h.conservative = static_cast<int>(ihyper[3]);
   const c10::cuda::CUDAGuard guard(rates.device());
-  repro_torch::episode_block_aapa_launch(
-      in(rates), out(out_), out(pipe), out(scratch), arch,
-      static_cast<int>(B), static_cast<int>(M), cfg, h,
+  repro_torch::episode_block_predictive_launch(
+      in(rates), out(out_), out(pipe), out(season), static_cast<int>(B),
+      static_cast<int>(M), cfg, h, at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// rates [B, M] -> out [12, B, M]; scratch pipe [S, B]. fhyper (8):
+// service_sec, a_s, a_p, inv_tgt, panic_threshold, stable_window_s, dt,
+// cooldown_sec.
+void episode_block_kpa(torch::Tensor rates, torch::Tensor out_,
+                       torch::Tensor pipe, int64_t ci, double rps,
+                       double service, double slo, double cap,
+                       double inv_tau, double max_replicas,
+                       double initial_replicas, std::vector<double> fhyper) {
+  const repro_torch::EpisodeCfg cfg =
+      episode_cfg(rates, out_, pipe, ci, rps, service, slo, cap, inv_tau,
+                  max_replicas, initial_replicas);
+  TORCH_CHECK(fhyper.size() == 8,
+              "the kpa policy takes 8 float hyperparameters");
+  const auto f = [&](int i) { return static_cast<float>(fhyper[i]); };
+  const repro_torch::KPAHyper h{f(0), f(1), f(2), f(3),
+                                f(4), f(5), f(6), f(7)};
+  const c10::cuda::CUDAGuard guard(rates.device());
+  repro_torch::episode_block_kpa_launch(
+      in(rates), out(out_), out(pipe), static_cast<int>(rates.size(0)),
+      static_cast<int>(rates.size(1)), cfg, h,
+      at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// y [B, T] -> out [B, T]; season_scratch [period, B]; coeffs: alpha, beta,
+// gamma, 1 - alpha, 1 - beta, 1 - gamma
+void holt_winters(torch::Tensor y, torch::Tensor out_,
+                  torch::Tensor season_scratch, int64_t period,
+                  std::vector<double> coeffs) {
+  TORCH_CHECK(y.dim() == 2, "y must be [B, T]");
+  const int64_t B = y.size(0), T = y.size(1);
+  TORCH_CHECK(B > 0 && T > 0 && period >= 1,
+              "holt_winters takes B, T >= 1 and period >= 1");
+  TORCH_CHECK(coeffs.size() == 6, "holt_winters takes 6 coefficients");
+  check(y, "y", {B, T});
+  check(out_, "out", {B, T});
+  TORCH_CHECK(season_scratch.dim() == 2, "season scratch must be 2-d");
+  check(season_scratch, "season scratch", {period, B});
+  const c10::cuda::CUDAGuard guard(y.device());
+  repro_torch::holt_winters_launch(
+      in(y), out(out_), out(season_scratch), static_cast<int>(B),
+      static_cast<int>(T), static_cast<int>(period), hw_coeffs(coeffs),
       at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -273,7 +444,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("episode_block_hpa", &episode_block_hpa,
         "episode_block CUDA kernel, HPA policy");
   m.def("episode_block_aapa", &episode_block_aapa,
-        "episode_block CUDA kernel, AAPA policy");
+        "episode_block CUDA kernel, AAPA or (with a guard) hybrid policy");
+  m.def("episode_block_predictive", &episode_block_predictive,
+        "episode_block CUDA kernel, predictive policy");
+  m.def("episode_block_kpa", &episode_block_kpa,
+        "episode_block CUDA kernel, kpa policy");
+  m.def("holt_winters", &holt_winters, "holt_winters CUDA kernel");
   m.def("window_features", &window_features, "window_features CUDA kernel");
   m.def("gbdt_logits", &gbdt_logits, "gbdt_tables CUDA kernel");
 }

@@ -19,10 +19,12 @@
 //     the slots (skipped when the factor is exactly 1, where it is an
 //     identity);
 //   * HPA's stabilization window is a ring too; its max is order-free;
-//   * AAPA's 60-minute rate history is a ring (oldest at the head) and
-//     the Holt-Winters season is indexed by its phase.
+//   * AAPA's (and hybrid's) 60-minute rate history is a ring (oldest at
+//     the head), and the Holt-Winters season of the AAPA, hybrid and
+//     predictive forecasters (hw.cuh) is indexed by its phase.
 // decide and on_minute are device functions of a Policy type chosen at
-// compile time (HPA, AAPA). Hyperparameters, ci, S, M and the SimConfig
+// compile time (HPA, AAPA, Hybrid, Predictive, KPA), the five policies of
+// scaling/policies.py. Hyperparameters, ci, S, M and the SimConfig
 // floats are run-time arguments, so a sweep never rebuilds. Minute 0
 // starts from cluster.initial_state. A control interval that does not
 // divide 60 (e.g. 7) ends each minute with a shorter remainder block.
@@ -32,19 +34,22 @@
 // into local memory and runs the window-feature and GBDT device functions
 // (features.cuh, gbdt.cuh) the standalone kernels run, then softmax, beta
 // calibration and Algorithm 1. The 10 frequency features, which the TPU
-// kernel could not lower (jnp.fft.rfft), are a real DFT against an f32
-// cos/sin table. Everything decide reads that changes only at a minute
-// boundary (the forecaster's peak, the 30-minute trend, the 15-minute
-// mean) is computed once there.
+// kernel could not lower (jnp.fft.rfft), come from the real FFT that
+// jnp.fft.rfft runs on the CPU (features.cuh::radix_pass). Everything
+// decide reads that changes only at a minute boundary (the forecaster's
+// peak, the 30-minute trend, the 15-minute mean, the predictive policy's
+// forecast need) is computed once there; KPA's state changes at every
+// control-period head instead.
 //
 // Bound on the H100: operations. Per lane-minute the kernel moves 52
 // bytes (one rate in, 12 aggregates out) against ~60 ticks of ~45 f32
-// operations, plus AAPA's per-minute forecaster and trend work and, every
-// stride minutes, ~20,000 operations of features and trees. It runs at
+// operations, plus the forecaster's and AAPA's trend work per minute and,
+// every stride minutes, ~11,000 operations of features and trees. It runs at
 // one thread per lane, so a 25,000-lane launch fills about a tenth of the
 // card's thread slots and is latency-bound.
 #include "features.cuh"
 #include "gbdt.cuh"
+#include "hw.cuh"
 #include "plant.cuh"
 
 namespace repro_torch {
@@ -108,15 +113,15 @@ __device__ __forceinline__ float select4(int idx, const float* v) {
 
 // scaling/policies.py::aapa_controller with the Holt-Winters forecaster
 // (forecast/models.py, core/forecasting.py) and a GBDT + beta-calibration
-// classifier (core/pipeline.py::Classify) or the registry's constant one.
+// classifier (core/pipeline.py::Classify) or the registry's constant one;
+// with a conformal band (forecast/conformal.py) the interval confidence
+// takes the band's half-width and scale.
 struct AAPA {
   using Hyper = AAPAHyper;
   struct State {
-    float* hist;    // rate-history ring, slot j at hist[j * B]
-    float* season;  // Holt-Winters season, phase p at season[p * B]
-    int head;       // oldest history slot
-    int t;          // Holt-Winters phase counter
-    float level, trend, resid;
+    float* hist;      // rate-history ring, slot j at hist[j * B]
+    int head;         // oldest history slot
+    HWForecaster fc;  // season in scratch after the history ring
     int arch;
     float conf, cpu_adj, cool_adj_min, minrep_adj;
     // pure functions of the history and the forecaster, refreshed at
@@ -128,12 +133,9 @@ struct AAPA {
                                float) {
     State s;
     s.hist = scratch + b;
-    s.season = scratch + static_cast<size_t>(kHistory) * B + b;
     for (int j = 0; j < kHistory; ++j) s.hist[static_cast<size_t>(j) * B] = 0.0f;
-    for (int j = 0; j < h.period; ++j) s.season[static_cast<size_t>(j) * B] = 0.0f;
     s.head = 0;
-    s.t = 0;
-    s.level = s.trend = s.resid = 0.0f;
+    s.fc.init(scratch + static_cast<size_t>(kHistory) * B + b, h.hw, B);
     s.arch = 2;  // start conservative
     s.conf = 0.5f;
     s.cpu_adj = 0.5f;
@@ -141,19 +143,6 @@ struct AAPA {
     s.minrep_adj = 1.0f;
     s.fc_rps = s.trend_rps = s.mean_rps = 0.0f;  // all-zero history
     return s;
-  }
-
-  // core/forecasting.py::hw_forecast_max
-  __device__ static float hw_forecast_max(const State& s, const Hyper& h,
-                                          int horizon, int B) {
-    float best = -INFINITY;
-    for (int k = 1; k <= horizon; ++k) {
-      const int phase = (s.t + k - 1) % h.period;
-      const float pred = (s.level + static_cast<float>(k) * s.trend) +
-                         s.season[static_cast<size_t>(phase) * B];
-      best = fmaxf(best, pred);
-    }
-    return best;
   }
 
   // history slot of minute j of the window, j = 0 the oldest
@@ -208,28 +197,19 @@ struct AAPA {
     s.hist[static_cast<size_t>(s.head) * B] = rate;
     s.head = s.head + 1 == kHistory ? 0 : s.head + 1;
 
-    // forecast/api.py update: residual EWMA, then core/forecasting.py
-    // hw_step with y = the newest history entry
-    const float pred1 = fmaxf(hw_forecast_max(s, h, 1, B), 0.0f);
-    s.resid = s.resid + h.resid_rho * (fabsf(rate - pred1) - s.resid);
-    const int phase = s.t % h.period;
-    float* slot = s.season + static_cast<size_t>(phase) * B;
-    const float s_t = *slot;
-    const float level = h.alpha * (rate - s_t) + h.one_m_alpha * (s.level + s.trend);
-    s.trend = h.beta * (level - s.level) + h.one_m_beta * s.trend;
-    *slot = h.gamma * (rate - level) + h.one_m_gamma * s_t;
-    s.level = level;
-    s.t = s.t + 1;
-    const float point = fmaxf(hw_forecast_max(s, h, h.horizon_min, B), 0.0f);
+    // the forecaster observes the newest history entry
+    s.fc.update(h.hw, rate, B);
+    const float point = fmaxf(s.fc.forecast_max(h.hw, h.horizon_min, B), 0.0f);
 
     if (minute_idx % h.stride_min == 0) {
       reclassify(s, h, B);
       if (h.forecast_confidence) {  // forecast/api.py interval_confidence
-        const float half = (h.z * s.resid) * h.sqrt_h;
+        const float half = h.use_band ? h.band_q * h.sqrt_h
+                                      : (h.z * s.fc.resid) * h.sqrt_h;
         const float lo = fmaxf(point - half, 0.0f);
         const float hi = point + half;
         const float width = fmaxf(hi - lo, 0.0f);
-        const float sc = fmaxf(point, 1.0f);
+        const float sc = fmaxf(h.use_band ? h.band_scale : point, 1.0f);
         s.conf = s.conf * (sc / (sc + width));
       }
       // core/uncertainty.py::adjust on the Table III row
@@ -273,6 +253,126 @@ struct AAPA {
     cool_req = s.cool_adj_min * 60.0f;
     return fmaxf(fmaxf(reactive, select4(s.arch, strat)),
                  fmaxf(s.minrep_adj, 1.0f));
+  }
+};
+
+// scaling/policies.py::hybrid_controller: AAPA's state, minute hook and
+// decide, the decision floored by live utilization and its scale-down
+// step bounded
+struct Hybrid {
+  using Hyper = HybridHyper;
+  using State = AAPA::State;
+
+  __device__ static State init(const Hyper& h, float* scratch, int b, int B,
+                               float initial) {
+    return AAPA::init(h.aapa, scratch, b, B, initial);
+  }
+
+  __device__ static void on_minute(State& s, const Hyper& h, float rate,
+                                   int minute_idx, int B) {
+    AAPA::on_minute(s, h.aapa, rate, minute_idx, B);
+  }
+
+  __device__ static float decide(State& s, const Hyper& h, const LaneObs& o,
+                                 int B, float& cool_req) {
+    const float desired = AAPA::decide(s, h.aapa, o, B, cool_req);
+    const float floor = fmaxf(ceilf((o.ready_total * o.util_ema) * h.inv_guard),
+                              ceilf(o.rate_rps * h.inv_rps_guard));
+    const float guarded = fmaxf(desired, floor);
+    const float step_floor = ceilf(o.ready_total * h.down_keep);
+    return guarded < o.ready_total ? fmaxf(guarded, step_floor) : guarded;
+  }
+};
+
+// scaling/policies.py::predictive_controller with the Holt-Winters
+// forecaster, native or conformal band
+struct Predictive {
+  using Hyper = PredictiveHyper;
+  struct State {
+    HWForecaster fc;
+    float need_pred;  // replicas the horizon's forecast needs (per minute)
+    int arch;         // no archetype
+  };
+
+  // the forecast's replica need; it changes only when the forecaster
+  // observes a minute
+  __device__ static float forecast_need(const State& s, const Hyper& h,
+                                        int B) {
+    float pred = fmaxf(s.fc.forecast_max(h.hw, h.horizon_min, B), 0.0f);
+    if (h.conservative)
+      pred = pred + (h.use_band ? h.band_q * h.sqrt_h
+                                : (h.z * s.fc.resid) * h.sqrt_h);
+    return (fmaxf(pred, 0.0f) * kInv60) * h.inv_cap;
+  }
+
+  __device__ static State init(const Hyper& h, float* scratch, int b, int B,
+                               float) {
+    State s;
+    s.fc.init(scratch + b, h.hw, B);
+    s.arch = -1;
+    s.need_pred = forecast_need(s, h, B);
+    return s;
+  }
+
+  __device__ static void on_minute(State& s, const Hyper& h, float rate, int,
+                                   int B) {
+    s.fc.update(h.hw, rate, B);
+    s.need_pred = forecast_need(s, h, B);
+  }
+
+  __device__ static float decide(State& s, const Hyper& h, const LaneObs& o,
+                                 int, float& cool_req) {
+    const float desired = ceilf(fmaxf(s.need_pred, o.rate_rps * h.inv_cap));
+    // scale to zero when neither live traffic nor the forecast needs pods
+    const bool idle =
+        (desired < 1.0f) && (o.queue <= 0.0f) && (o.rate_rps <= 1e-6f);
+    cool_req = h.cooldown_sec;
+    return idle ? 0.0f : fmaxf(desired, 1.0f);
+  }
+};
+
+// scaling/policies.py::kpa_controller: stable and panic EMAs of the
+// estimated concurrency, updated at every control-period head
+struct KPA {
+  using Hyper = KPAHyper;
+  struct State {
+    float stable, panic, panic_left, panic_max;
+    int arch;  // no archetype
+  };
+
+  __device__ static State init(const Hyper&, float*, int, int, float) {
+    return State{0.0f, 0.0f, 0.0f, 0.0f, -1};
+  }
+
+  __device__ static void on_minute(State&, const Hyper&, float, int, int) {}
+
+  __device__ static float decide(State& s, const Hyper& h, const LaneObs& o,
+                                 int, float& cool_req) {
+    const float conc = o.queue + o.rate_rps * h.service_sec;
+    const float stable = s.stable + h.a_s * (conc - s.stable);
+    const float panic = s.panic + h.a_p * (conc - s.panic);
+    const float want_stable = ceilf(stable * h.inv_tgt);
+    const float want_panic = ceilf(panic * h.inv_tgt);
+    const float fleet = fmaxf(o.ready_total, 1.0f);
+    const bool enter = want_panic >= h.panic_threshold * fleet;
+    const float panic_left =
+        enter ? h.stable_window_s : fmaxf(s.panic_left - h.dt, 0.0f);
+    const bool in_panic = panic_left > 0.0f;
+    const float panic_max =
+        in_panic ? fmaxf(s.panic_left > 0.0f ? s.panic_max : 0.0f,
+                         fmaxf(want_panic, fleet))
+                 : 0.0f;
+    float desired = in_panic ? panic_max : want_stable;
+    // scale-to-zero on a truly idle stable window; wake on traffic
+    const bool idle =
+        (stable <= 1e-3f) && (o.queue <= 0.0f) && (o.rate_rps <= 1e-6f);
+    desired = idle ? 0.0f : fmaxf(desired, 1.0f);
+    s.stable = stable;
+    s.panic = panic;
+    s.panic_left = panic_left;
+    s.panic_max = panic_max;
+    cool_req = h.cooldown_sec;
+    return desired;
   }
 };
 
@@ -424,6 +524,33 @@ void episode_block_aapa_launch(const float* rates, float* out, float* pipe,
   const int grid = (B + kThreads - 1) / kThreads;
   episode_kernel<AAPA><<<grid, kThreads, 0, stream>>>(
       rates, out, pipe, scratch, arch_out, B, M, cfg, hyper);
+}
+
+void episode_block_hybrid_launch(const float* rates, float* out, float* pipe,
+                                 float* scratch, int* arch_out, int B, int M,
+                                 EpisodeCfg cfg, HybridHyper hyper,
+                                 cudaStream_t stream) {
+  const int grid = (B + kThreads - 1) / kThreads;
+  episode_kernel<Hybrid><<<grid, kThreads, 0, stream>>>(
+      rates, out, pipe, scratch, arch_out, B, M, cfg, hyper);
+}
+
+void episode_block_predictive_launch(const float* rates, float* out,
+                                     float* pipe, float* season, int B,
+                                     int M, EpisodeCfg cfg,
+                                     PredictiveHyper hyper,
+                                     cudaStream_t stream) {
+  const int grid = (B + kThreads - 1) / kThreads;
+  episode_kernel<Predictive><<<grid, kThreads, 0, stream>>>(
+      rates, out, pipe, season, nullptr, B, M, cfg, hyper);
+}
+
+void episode_block_kpa_launch(const float* rates, float* out, float* pipe,
+                              int B, int M, EpisodeCfg cfg, KPAHyper hyper,
+                              cudaStream_t stream) {
+  const int grid = (B + kThreads - 1) / kThreads;
+  episode_kernel<KPA><<<grid, kThreads, 0, stream>>>(
+      rates, out, pipe, nullptr, nullptr, B, M, cfg, hyper);
 }
 
 }  // namespace repro_torch

@@ -148,25 +148,186 @@ __device__ inline void stat_time_features(const float* x, float* xs, int n,
   out[27] = n_peaks;
 }
 
-// x [n] (4 <= n <= kMaxWindow) -> out [10]. The power spectrum of the
-// mean-removed window, without the DC bin, from the f32 DFT table; each
-// bin summed left to right over time.
+// One forward pass of ducc0's real FFT (rfftp: radf2, radf3, radf4, radf5)
+// from cc to ch, CC(a, b, c) = cc[a + ido*(b + l1*c)] in and CH(a, b, c) =
+// ch[a + ido*(b + ip*c)] out, wa the pass's twiddles [(ip-1) * (ido-1)]
+// (core/features.py::_radix_pass, op for op).
+__device__ inline void radix_pass(int ip, int l1, int ido, const float* wa,
+                                  const float* cc, float* ch) {
+  constexpr float kTaui3 = 0.8660254037844386467637231707529362f;
+  constexpr float kHsqt2 = 0.7071067811865475244008443621048490f;
+  constexpr float kTr11 = 0.3090169943749474241022934171828191f;
+  constexpr float kTi11 = 0.9510565162951535721164393333793821f;
+  constexpr float kTr12 = -0.8090169943749474241022934171828191f;
+  constexpr float kTi12 = 0.5877852522924731291687059546390728f;
+  auto CC = [&](int a, int b, int c) { return cc[a + ido * (b + l1 * c)]; };
+  auto CH = [&](int a, int b, int c) -> float& {
+    return ch[a + ido * (b + ip * c)];
+  };
+  // conj(twiddle x at i) * (CC(i-1, k, x+1) + i CC(i, k, x+1))
+  auto mulpm = [&](int x, int i, int k, float& re, float& im) {
+    const float wr = __ldg(wa + x * (ido - 1) + i - 2);
+    const float wi = __ldg(wa + x * (ido - 1) + i - 1);
+    const float e = CC(i - 1, k, x + 1), f = CC(i, k, x + 1);
+    re = wr * e + wi * f;
+    im = wr * f - wi * e;
+  };
+  if (ip == 2) {
+    for (int k = 0; k < l1; ++k) {
+      CH(0, 0, k) = CC(0, k, 0) + CC(0, k, 1);
+      CH(ido - 1, 1, k) = CC(0, k, 0) - CC(0, k, 1);
+    }
+    if (ido % 2 == 0)
+      for (int k = 0; k < l1; ++k) {
+        CH(0, 1, k) = -CC(ido - 1, k, 1);
+        CH(ido - 1, 0, k) = CC(ido - 1, k, 0);
+      }
+    for (int k = 0; k < l1; ++k)
+      for (int i = 2; i < ido; i += 2) {
+        const int ic = ido - i;
+        float tr2, ti2;
+        mulpm(0, i, k, tr2, ti2);
+        CH(i - 1, 0, k) = CC(i - 1, k, 0) + tr2;
+        CH(ic - 1, 1, k) = CC(i - 1, k, 0) - tr2;
+        CH(i, 0, k) = ti2 + CC(i, k, 0);
+        CH(ic, 1, k) = ti2 - CC(i, k, 0);
+      }
+  } else if (ip == 3) {
+    for (int k = 0; k < l1; ++k) {
+      const float cr2 = CC(0, k, 1) + CC(0, k, 2);
+      CH(0, 0, k) = CC(0, k, 0) + cr2;
+      CH(0, 2, k) = kTaui3 * (CC(0, k, 2) - CC(0, k, 1));
+      CH(ido - 1, 1, k) = CC(0, k, 0) + -0.5f * cr2;
+    }
+    for (int k = 0; k < l1; ++k)
+      for (int i = 2; i < ido; i += 2) {
+        const int ic = ido - i;
+        float dr2, di2, dr3, di3;
+        mulpm(0, i, k, dr2, di2);
+        mulpm(1, i, k, dr3, di3);
+        const float cr2 = dr2 + dr3, ci2 = di2 + di3;
+        CH(i - 1, 0, k) = CC(i - 1, k, 0) + cr2;
+        CH(i, 0, k) = CC(i, k, 0) + ci2;
+        const float tr2 = CC(i - 1, k, 0) + -0.5f * cr2;
+        const float ti2 = CC(i, k, 0) + -0.5f * ci2;
+        const float tr3 = kTaui3 * (di2 - di3);
+        const float ti3 = kTaui3 * (dr3 - dr2);
+        CH(i - 1, 2, k) = tr2 + tr3;
+        CH(ic - 1, 1, k) = tr2 - tr3;
+        CH(i, 2, k) = ti3 + ti2;
+        CH(ic, 1, k) = ti3 - ti2;
+      }
+  } else if (ip == 4) {
+    for (int k = 0; k < l1; ++k) {
+      const float tr1 = CC(0, k, 3) + CC(0, k, 1);
+      CH(0, 2, k) = CC(0, k, 3) - CC(0, k, 1);
+      const float tr2 = CC(0, k, 0) + CC(0, k, 2);
+      CH(ido - 1, 1, k) = CC(0, k, 0) - CC(0, k, 2);
+      CH(0, 0, k) = tr2 + tr1;
+      CH(ido - 1, 3, k) = tr2 - tr1;
+    }
+    if (ido % 2 == 0)
+      for (int k = 0; k < l1; ++k) {
+        const float ti1 = -kHsqt2 * (CC(ido - 1, k, 1) + CC(ido - 1, k, 3));
+        const float tr1 = kHsqt2 * (CC(ido - 1, k, 1) - CC(ido - 1, k, 3));
+        CH(ido - 1, 0, k) = CC(ido - 1, k, 0) + tr1;
+        CH(ido - 1, 2, k) = CC(ido - 1, k, 0) - tr1;
+        CH(0, 3, k) = ti1 + CC(ido - 1, k, 2);
+        CH(0, 1, k) = ti1 - CC(ido - 1, k, 2);
+      }
+    for (int k = 0; k < l1; ++k)
+      for (int i = 2; i < ido; i += 2) {
+        const int ic = ido - i;
+        float cr2, ci2, cr3, ci3, cr4, ci4;
+        mulpm(0, i, k, cr2, ci2);
+        mulpm(1, i, k, cr3, ci3);
+        mulpm(2, i, k, cr4, ci4);
+        const float tr1 = cr4 + cr2, tr4 = cr4 - cr2;
+        const float ti1 = ci2 + ci4, ti4 = ci2 - ci4;
+        const float tr2 = CC(i - 1, k, 0) + cr3, tr3 = CC(i - 1, k, 0) - cr3;
+        const float ti2 = CC(i, k, 0) + ci3, ti3 = CC(i, k, 0) - ci3;
+        CH(i - 1, 0, k) = tr2 + tr1;
+        CH(ic - 1, 3, k) = tr2 - tr1;
+        CH(i, 0, k) = ti1 + ti2;
+        CH(ic, 3, k) = ti1 - ti2;
+        CH(i - 1, 2, k) = tr3 + ti4;
+        CH(ic - 1, 1, k) = tr3 - ti4;
+        CH(i, 2, k) = tr4 + ti3;
+        CH(ic, 1, k) = tr4 - ti3;
+      }
+  } else {  // ip == 5
+    for (int k = 0; k < l1; ++k) {
+      const float cr2 = CC(0, k, 4) + CC(0, k, 1), ci5 = CC(0, k, 4) - CC(0, k, 1);
+      const float cr3 = CC(0, k, 3) + CC(0, k, 2), ci4 = CC(0, k, 3) - CC(0, k, 2);
+      CH(0, 0, k) = CC(0, k, 0) + cr2 + cr3;
+      CH(ido - 1, 1, k) = CC(0, k, 0) + kTr11 * cr2 + kTr12 * cr3;
+      CH(0, 2, k) = kTi11 * ci5 + kTi12 * ci4;
+      CH(ido - 1, 3, k) = CC(0, k, 0) + kTr12 * cr2 + kTr11 * cr3;
+      CH(0, 4, k) = kTi12 * ci5 - kTi11 * ci4;
+    }
+    for (int k = 0; k < l1; ++k)
+      for (int i = 2; i < ido; i += 2) {
+        const int ic = ido - i;
+        float dr2, di2, dr3, di3, dr4, di4, dr5, di5;
+        mulpm(0, i, k, dr2, di2);
+        mulpm(1, i, k, dr3, di3);
+        mulpm(2, i, k, dr4, di4);
+        mulpm(3, i, k, dr5, di5);
+        const float cr2 = dr5 + dr2, ci5 = dr5 - dr2;
+        const float ci2 = di2 + di5, cr5 = di2 - di5;
+        const float cr3 = dr4 + dr3, ci4 = dr4 - dr3;
+        const float ci3 = di3 + di4, cr4 = di3 - di4;
+        CH(i - 1, 0, k) = CC(i - 1, k, 0) + cr2 + cr3;
+        CH(i, 0, k) = CC(i, k, 0) + ci2 + ci3;
+        const float tr2 = CC(i - 1, k, 0) + kTr11 * cr2 + kTr12 * cr3;
+        const float ti2 = CC(i, k, 0) + kTr11 * ci2 + kTr12 * ci3;
+        const float tr3 = CC(i - 1, k, 0) + kTr12 * cr2 + kTr11 * cr3;
+        const float ti3 = CC(i, k, 0) + kTr12 * ci2 + kTr11 * ci3;
+        const float tr5 = cr5 * kTi11 + cr4 * kTi12, tr4 = cr5 * kTi12 - cr4 * kTi11;
+        const float ti5 = ci5 * kTi11 + ci4 * kTi12, ti4 = ci5 * kTi12 - ci4 * kTi11;
+        CH(i - 1, 2, k) = tr2 + tr5;
+        CH(ic - 1, 1, k) = tr2 - tr5;
+        CH(i, 2, k) = ti5 + ti2;
+        CH(ic, 1, k) = ti5 - ti2;
+        CH(i - 1, 4, k) = tr3 + tr4;
+        CH(ic - 1, 3, k) = tr3 - tr4;
+        CH(i, 4, k) = ti4 + ti3;
+        CH(ic, 3, k) = ti4 - ti3;
+      }
+  }
+}
+
+// XLA's CPU complex abs (core/features.py::complex_abs): max * sqrt(fma(r,
+// r, 1)) with r = min / max, 0 where both parts are 0
+__device__ __forceinline__ float complex_abs(float re, float im) {
+  const float a = fabsf(re), b = fabsf(im);
+  const float hi = fmaxf(a, b), lo = fminf(a, b);
+  const float r = lo / hi;
+  const float h = hi * sqrtf(__fmaf_rn(r, r, 1.0f));
+  return hi == 0.0f ? 0.0f : h;
+}
+
+// x [n] (4 <= n <= kMaxWindow, prime factors 2, 3, 5) -> out [10]. The
+// power spectrum |rfft(x - mean)|^2 without the DC bin, computed as the
+// reference's jnp.fft.rfft (ducc0's radix passes), abs and square run on
+// the CPU (core/features.py::power_spectrum).
 __device__ inline void freq_features(const float* x, int n, const FreqTables& f,
                               float* out) {
-  const int nb = n / 2, nf = nb + 1;
+  const int nb = n / 2;
   const float mean = window_mean(x, n);
-  float power[kMaxWindow / 2];
+  float a[kMaxWindow], b[kMaxWindow], power[kMaxWindow / 2];
+  for (int j = 0; j < n; ++j) a[j] = x[j] - mean;
+  float* p1 = a;
+  float* p2 = b;
+  for (int q = 0; q < f.n_pass; ++q) {
+    radix_pass(f.ip[q], f.l1[q], f.ido[q], f.tw + f.off[q], p1, p2);
+    float* t = p1;
+    p1 = p2;
+    p2 = t;
+  }
   for (int k = 1; k <= nb; ++k) {
-    const float* cs = f.dft + static_cast<size_t>(k) * n;
-    const float* sn = f.dft + static_cast<size_t>(nf + k) * n;
-    const float x0 = x[0] - mean;
-    float re = x0 * __ldg(cs), im = x0 * __ldg(sn);
-    for (int j = 1; j < n; ++j) {
-      const float xc = x[j] - mean;
-      re = re + xc * __ldg(cs + j);
-      im = im + xc * __ldg(sn + j);
-    }
-    power[k - 1] = re * re + im * im;
+    const float h = complex_abs(p1[2 * k - 1], 2 * k < n ? p1[2 * k] : 0.0f);
+    power[k - 1] = h * h;
   }
   const float psum = seq_sum(0, nb, [&](int k) { return power[k]; });
   const float total = psum + kFeatEps;

@@ -62,10 +62,16 @@ struct GBDTTables {
   int n_features, n_edges, n_trees, n_classes, depth;
 };
 
-// The frequency features' real DFT: dft [2, W/2 + 1, W] f32 cos and sin
-// tables, and the f32 multipliers 1 / log(W/2) and 1 / (W/2).
+// The frequency features' real FFT (core/features.py::rfft_plan): up to
+// kMaxFftPasses radix passes in the order they run, pass q of radix ip[q]
+// over l1[q] x ido[q] with its twiddles at tw + off[q]; and the f32
+// multipliers 1 / log(W/2) and 1 / (W/2).
+constexpr int kMaxFftPasses = 6;
 struct FreqTables {
-  const float* dft;
+  const float* tw;
+  int n_pass;
+  int ip[kMaxFftPasses], l1[kMaxFftPasses], ido[kMaxFftPasses],
+      off[kMaxFftPasses];
   float inv_log_nb, inv_nb;
 };
 
@@ -76,6 +82,19 @@ struct CalCoeffs {
   const float* c;
 };
 
+// Holt-Winters smoothing coefficients: alpha, beta, gamma and 1 - each
+struct HWCoeffs {
+  float alpha, beta, gamma, one_m_alpha, one_m_beta, one_m_gamma;
+};
+
+// The in-episode Holt-Winters forecaster (forecast/models.py): its
+// coefficients, season length and residual EWMA rate
+struct HWHyper {
+  HWCoeffs c;
+  int period;
+  float resid_rho;
+};
+
 // scaling/policies.py::aapa_controller with the Holt-Winters forecaster.
 struct AAPAHyper {
   // Table III by class id (core/archetypes.py::table_iii_arrays)
@@ -83,10 +102,12 @@ struct AAPAHyper {
   float rps_per_replica;
   int stride_min, horizon_min;
   int forecast_confidence;     // Algorithm 1 conf *= interval confidence
-  // Holt-Winters: alpha, beta, gamma and f32(1 - each); period slots
-  float alpha, beta, gamma, one_m_alpha, one_m_beta, one_m_gamma;
-  int period;
-  float resid_rho, z, sqrt_h;  // residual EWMA, native band half-width
+  HWHyper hw;
+  float z, sqrt_h;  // native band half-width z * resid * sqrt(horizon)
+  // a conformal band (forecast/conformal.py): half-width q * sqrt(horizon)
+  // and confidence scale max(band_scale, 1) in place of the native band's
+  int use_band;
+  float band_q, band_scale;
   // linear trend over the last 30 minutes: tbar, tvar and the step
   // (29 - tbar + horizon) to the forecast minute
   float trend_tbar, trend_tvar, trend_step;
@@ -96,17 +117,69 @@ struct AAPAHyper {
   FreqTables freq;
 };
 
+// scaling/policies.py::hybrid_controller: AAPA's hyperparameters and the
+// guard: f32 reciprocals of guard_target and rps_per_replica *
+// guard_target, and f32(1 - max_down_frac)
+struct HybridHyper {
+  AAPAHyper aapa;
+  float inv_guard, inv_rps_guard, down_keep;
+};
+
+// scaling/policies.py::predictive_controller with the Holt-Winters
+// forecaster
+struct PredictiveHyper {
+  HWHyper hw;
+  int horizon_min;
+  float z, sqrt_h;      // native band half-width z * resid * sqrt(horizon)
+  int use_band;         // a conformal band's q * sqrt(horizon) instead
+  float band_q;
+  int conservative;     // scale to the band's upper edge, not the point
+  float inv_cap;        // f32 reciprocal of rps_per_replica * target
+  float cooldown_sec;
+};
+
+// scaling/policies.py::kpa_controller
+struct KPAHyper {
+  float service_sec;        // Little's law: queue + rate * service time
+  float a_s, a_p;           // f32(min(dt / window, 1)) of both EMAs
+  float inv_tgt;            // f32 reciprocal of the target concurrency
+  float panic_threshold, stable_window_s, dt, cooldown_sec;
+};
+
+// y [B, T] -> out [B, T] one-step-ahead forecasts; season_scratch [period,
+// B] holds each series' season
+void holt_winters_launch(const float* y, float* out, float* season_scratch,
+                         int B, int T, int period, HWCoeffs c,
+                         cudaStream_t stream);
+
 // rates [B, M] -> out [12, B, M], and, when arch_out is not null, the
 // archetype each lane carries after each minute into arch_out [B, M].
 // Scratch: pipe [S, B] startup-pipeline ring, scratch [60 + period, B]:
-// the rate-history ring, then the Holt-Winters season.
+// the rate-history ring, then the Holt-Winters season. The hybrid policy
+// takes the same arguments and scratch.
 void episode_block_aapa_launch(const float* rates, float* out, float* pipe,
                                float* scratch, int* arch_out, int B, int M,
                                EpisodeCfg cfg, AAPAHyper hyper,
                                cudaStream_t stream);
+void episode_block_hybrid_launch(const float* rates, float* out, float* pipe,
+                                 float* scratch, int* arch_out, int B, int M,
+                                 EpisodeCfg cfg, HybridHyper hyper,
+                                 cudaStream_t stream);
 
-// windows [N, W] (3 <= W <= 64) -> features [N, 28]; with freq (the DFT
-// table for W, 4 <= W <= 64) all 38 features [N, 38]
+// rates [B, M] -> out [12, B, M]; scratch pipe [S, B] and season [period, B]
+void episode_block_predictive_launch(const float* rates, float* out,
+                                     float* pipe, float* season, int B,
+                                     int M, EpisodeCfg cfg,
+                                     PredictiveHyper hyper,
+                                     cudaStream_t stream);
+
+// rates [B, M] -> out [12, B, M]; scratch pipe [S, B]
+void episode_block_kpa_launch(const float* rates, float* out, float* pipe,
+                              int B, int M, EpisodeCfg cfg, KPAHyper hyper,
+                              cudaStream_t stream);
+
+// windows [N, W] (3 <= W <= 64) -> features [N, 28]; with freq (the FFT
+// plan for W, 4 <= W <= 64) all 38 features [N, 38]
 void window_features_launch(const float* windows, float* out, int N, int W,
                             const FreqTables* freq, cudaStream_t stream);
 

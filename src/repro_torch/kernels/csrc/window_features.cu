@@ -12,13 +12,14 @@
 // which the AAPA episode kernel calls too, so the classification path and
 // the episode's reclassification compute the same features. The reference
 // computes the 10 frequency features with an XLA rFFT outside its kernel;
-// here they are the same real DFT against the f32 cos/sin table that the
-// episode kernel reads (through the read-only cache; 14.9 KB at W = 60).
+// here they are the same real FFT as jnp.fft.rfft on the CPU (ducc0's
+// radix passes, twiddles through the read-only cache), which the episode
+// kernel runs too.
 //
 // Bound on the H100: operations. Per 60-sample window the kernel reads
 // 240 bytes and writes 112 (152 with the frequency features), against
-// ~8,000 f32 operations for the 30 autocorrelations, the moments, the
-// sort and the trend (and ~9,000 more for the DFT), so it sits far above
+// ~7,500 f32 operations for the 30 autocorrelations, the moments, the
+// sort and the trend (and ~900 more for the FFT), so it sits far above
 // the card's operations-per-byte ridge. One thread per window keeps every
 // sum in XLA's order without any cross-thread reduction; the loads of a
 // warp are strided by the window length.

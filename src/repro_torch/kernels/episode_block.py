@@ -5,10 +5,12 @@ Replaces the Pallas TPU kernel ``repro/kernels/episode_block.py``
 (``episode_minutes``). The TPU kernel took any controller by hoisting
 its closure through a jaxpr; a CUDA kernel cannot, so each policy is a
 device function chosen at compile time and the launcher is picked by the
-controller's name: HPA, and AAPA with the Holt-Winters forecaster and
-either a GBDT + beta-calibration classifier (``core.pipeline.Classify``)
-or the registry's constant default. Plain version:
-``kernels.ref.episode_block_ref``; ``kernels.ops.episode_block``
+controller's name: all five registered policies (HPA, predictive, KPA,
+AAPA, hybrid). The forecasting policies take the Holt-Winters forecaster,
+native or with a conformal band (read from the controller's `hyper`);
+AAPA and hybrid classify with a GBDT + beta-calibration classifier
+(``core.pipeline.Classify``) or the registry's constant default. Plain
+version: ``kernels.ref.episode_block_ref``; ``kernels.ops.episode_block``
 dispatches between the two by device.
 """
 from __future__ import annotations
@@ -20,6 +22,7 @@ from repro_torch.core import calibration, features
 from repro_torch.core.archetypes import table_iii_arrays
 from repro_torch.core.pipeline import Classify
 from repro_torch.forecast import api as fapi
+from repro_torch.forecast import conformal
 from repro_torch.kernels import _build
 from repro_torch.kernels.gbdt_tables import table_args
 from repro_torch.sim.cluster import MinuteOut, recip
@@ -32,6 +35,14 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
+def _plant_args(cfg) -> tuple[float, ...]:
+    """SimConfig's plant constants in the order every launcher takes
+    them."""
+    return (cfg.rps_per_replica, cfg.service_sec, cfg.slo_sec,
+            cfg.resp_cap_sec, recip(cfg.metric_tau_sec), cfg.max_replicas,
+            cfg.initial_replicas)
+
+
 def _launch_hpa(ext, rates, out, cfg, hyper, ci, arch_out):
     del arch_out                      # HPA carries no archetype
     B = rates.shape[0]
@@ -41,19 +52,43 @@ def _launch_hpa(ext, rates, out, cfg, hyper, ci, arch_out):
     buf = torch.empty((int(hyper["buf_len"]), B), dtype=torch.float32,
                       device=dev)
     ext.episode_block_hpa(
-        rates, out, pipe, buf, ci, cfg.rps_per_replica, cfg.service_sec,
-        cfg.slo_sec, cfg.resp_cap_sec, recip(cfg.metric_tau_sec),
-        cfg.max_replicas, cfg.initial_replicas, hyper["inv_target"],
+        rates, out, pipe, buf, ci, *_plant_args(cfg), hyper["inv_target"],
         hyper["tolerance"], hyper["cooldown_sec"])
 
 
-def _launch_aapa(ext, rates, out, cfg, hyper, ci, arch_out):
-    from repro_torch.scaling.registry import default_classify
-    fcst, cls = hyper["forecaster"], hyper["classify"]
-    if fcst.name != "holt_winters":
+def _holt_winters(hyper) -> dict:
+    """The hyperparameters of a forecasting policy's Holt-Winters
+    forecaster, band-wrapped or not; raises for any other forecaster and
+    for a band that does not widen with the horizon."""
+    fcst = hyper["forecaster"]
+    inner = conformal.unwrap(fcst)
+    if inner.name != "holt_winters":
         raise NotImplementedError(
-            f"episode_block's AAPA policy runs the holt_winters forecaster, "
-            f"not {fcst.name!r}")
+            f"episode_block's forecasting policies run the holt_winters "
+            f"forecaster, not {fcst.name!r}")
+    if not fcst.hyper.get("widen_with_horizon", True):
+        raise NotImplementedError(
+            "episode_block widens a conformal band with sqrt(horizon)")
+    return inner.hyper
+
+
+def _hw_floats(hw) -> list[float]:
+    """alpha, beta, gamma and 1 - each as the in-episode forecaster takes
+    them: Python floats rounded to f32 (hw_step), and RESID_RHO."""
+    return [*(_f32(hw[k]) for k in ("alpha", "beta", "gamma")),
+            *(_f32(1.0 - hw[k]) for k in ("alpha", "beta", "gamma")),
+            _f32(fapi.RESID_RHO)]
+
+
+def _band_floats(band) -> list[float]:
+    """(q, scale) of a conformal band, zeros without one."""
+    return [0.0, 0.0] if band is None else [float(band.q), float(band.scale)]
+
+
+def _launch_aapa(ext, rates, out, cfg, hyper, ci, arch_out, guard=()):
+    from repro_torch.scaling.registry import default_classify
+    hw = _holt_winters(hyper)
+    cls = hyper["classify"]
     if cfg.history_len != HISTORY:
         raise NotImplementedError(
             f"episode_block's AAPA policy takes history_len {HISTORY}, got "
@@ -76,20 +111,19 @@ def _launch_aapa(ext, rates, out, cfg, hyper, ci, arch_out):
         raise NotImplementedError(
             "episode_block's AAPA policy takes core.pipeline.Classify or "
             "the registry's default_classify")
-    hw = fcst.hyper
     period, horizon = int(hw["period"]), int(hyper["horizon_min"])
     tab = table_iii_arrays()
     tbar, tvar = features.trend_constants(TREND_WINDOW)
     inv_log_nb, inv_nb = features.freq_constants(HISTORY)
+    band = hyper["band"]
     fh = [*tab["target_cpu"], *tab["cooldown_min"], *tab["min_replicas"],
-          *tab["warm_pool"], _f32(cfg.rps_per_replica),
-          *(_f32(hw[k]) for k in ("alpha", "beta", "gamma")),
-          *(_f32(1.0 - hw[k]) for k in ("alpha", "beta", "gamma")),
-          _f32(fapi.RESID_RHO), _f32(fapi.NATIVE_Z),
-          float(np.sqrt(np.float32(horizon))), tbar, tvar,
-          _f32((TREND_WINDOW - 1) - tbar + horizon), inv_log_nb, inv_nb]
+          *tab["warm_pool"], _f32(cfg.rps_per_replica), *_hw_floats(hw),
+          _f32(fapi.NATIVE_Z), float(np.sqrt(np.float32(horizon))), tbar,
+          tvar, _f32((TREND_WINDOW - 1) - tbar + horizon), inv_log_nb,
+          inv_nb, *_band_floats(band)]
     ih = [int(hyper["stride_min"]), horizon,
-          int(hyper["forecast_confidence"]), period, kind]
+          int(hyper["forecast_confidence"]), period, kind,
+          int(band is not None)]
     pipe = torch.empty((cfg.startup_sec, B), dtype=torch.float32,
                        device=dev)
     scratch = torch.empty((HISTORY + period, B), dtype=torch.float32,
@@ -97,15 +131,51 @@ def _launch_aapa(ext, rates, out, cfg, hyper, ci, arch_out):
     if arch_out is None:
         arch_out = torch.empty(0, dtype=torch.int32, device=dev)
     ext.episode_block_aapa(
-        rates, out, pipe, scratch, arch_out, ci, cfg.rps_per_replica,
-        cfg.service_sec,
-        cfg.slo_sec, cfg.resp_cap_sec, recip(cfg.metric_tau_sec),
-        cfg.max_replicas, cfg.initial_replicas, fh, ih,
-        features.dft_table(HISTORY, dev), *tables, *coeffs)
+        rates, out, pipe, scratch, arch_out, ci, *_plant_args(cfg), fh, ih,
+        list(guard), *features.fft_tables(HISTORY, dev), *tables, *coeffs)
+
+
+def _launch_hybrid(ext, rates, out, cfg, hyper, ci, arch_out):
+    _launch_aapa(ext, rates, out, cfg, hyper, ci, arch_out,
+                 guard=(hyper["inv_guard"], hyper["inv_rps_guard"],
+                        hyper["down_keep"]))
+
+
+def _launch_predictive(ext, rates, out, cfg, hyper, ci, arch_out):
+    del arch_out                      # predictive carries no archetype
+    hw = _holt_winters(hyper)
+    period, horizon = int(hw["period"]), int(hyper["horizon_min"])
+    band = hyper["band"]
+    fh = [*_hw_floats(hw), _f32(fapi.NATIVE_Z),
+          float(np.sqrt(np.float32(horizon))), _band_floats(band)[0],
+          hyper["inv_cap"], hyper["cooldown_sec"]]
+    ih = [period, horizon, int(band is not None),
+          int(hyper["conservative"])]
+    B, dev = rates.shape[0], rates.device
+    pipe = torch.empty((cfg.startup_sec, B), dtype=torch.float32,
+                       device=dev)
+    season = torch.empty((period, B), dtype=torch.float32, device=dev)
+    ext.episode_block_predictive(rates, out, pipe, season, ci,
+                                 *_plant_args(cfg), fh, ih)
+
+
+def _launch_kpa(ext, rates, out, cfg, hyper, ci, arch_out):
+    del arch_out                      # kpa carries no archetype
+    fh = [hyper[k] for k in ("service_sec", "a_s", "a_p", "inv_tgt")] + [
+        _f32(hyper[k]) for k in ("panic_threshold", "stable_window_s",
+                                 "dt")] + [hyper["cooldown_sec"]]
+    pipe = torch.empty((cfg.startup_sec, rates.shape[0]),
+                       dtype=torch.float32, device=rates.device)
+    ext.episode_block_kpa(rates, out, pipe, ci, *_plant_args(cfg), fh)
 
 
 #: controller name -> launcher of its compiled policy
-_POLICIES = {"hpa": _launch_hpa, "aapa": _launch_aapa}
+_POLICIES = {"hpa": _launch_hpa, "predictive": _launch_predictive,
+             "kpa": _launch_kpa, "aapa": _launch_aapa,
+             "hybrid": _launch_hybrid}
+
+#: the policies that carry an archetype
+ARCHETYPE_POLICIES = ("aapa", "hybrid")
 
 
 def _launch(rates, controller, cfg, arch_out=None) -> MinuteOut:
@@ -138,12 +208,12 @@ def episode_block_cuda(rates: torch.Tensor, controller, cfg) -> MinuteOut:
 
 
 def aapa_episode_cuda(rates: torch.Tensor, controller, cfg):
-    """The kernel under an AAPA controller, also returning the archetype
-    each lane carries after each minute: (MinuteOut of [B, M], int32
-    [B, M]). Counts as an episode_block launch."""
-    if controller.name != "aapa":
-        raise ValueError(f"archetypes need an aapa controller, got "
-                         f"{controller.name!r}")
+    """The kernel under an AAPA or hybrid controller, also returning the
+    archetype each lane carries after each minute: (MinuteOut of [B, M],
+    int32 [B, M]). Counts as an episode_block launch."""
+    if controller.name not in ARCHETYPE_POLICIES:
+        raise ValueError(f"archetypes need an aapa or hybrid controller, "
+                         f"got {controller.name!r}")
     arch = torch.empty(rates.shape, dtype=torch.int32, device=rates.device)
     return _launch(rates, controller, cfg, arch), arch
 

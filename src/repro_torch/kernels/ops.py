@@ -1,7 +1,8 @@
 """Kernel dispatch by the tensors' device.
 
 CUDA tensors go to the hand-written kernel (``plant_block``,
-``episode_block``, ``window_features``, ``gbdt_tables``), CPU tensors to
+``episode_block``, ``window_features``, ``gbdt_tables``,
+``holt_winters``), CPU tensors to
 its plain PyTorch version (``kernels.ref``), which is the only CPU path.
 Any other device raises.
 """
@@ -11,6 +12,7 @@ import torch
 
 from repro_torch.kernels import episode_block as _episode
 from repro_torch.kernels import gbdt_tables as _gbdt
+from repro_torch.kernels import holt_winters as _hw
 from repro_torch.kernels import plant_block as _plant
 from repro_torch.kernels import ref
 from repro_torch.kernels import window_features as _wf
@@ -19,7 +21,8 @@ from repro_torch.kernels import window_features as _wf
 LAUNCHERS = {"plant_block": _plant.plant_tick_block_cuda,
              "episode_block": _episode.episode_block_cuda,
              "window_features": _wf.window_features_cuda,
-             "gbdt_tables": _gbdt.gbdt_logits_cuda}
+             "gbdt_tables": _gbdt.gbdt_logits_cuda,
+             "holt_winters": _hw.holt_winters_cuda}
 
 
 def _route(t: torch.Tensor) -> str:
@@ -75,6 +78,14 @@ def gbdt_logits(params, X: torch.Tensor) -> torch.Tensor:
     fn = (_gbdt.gbdt_logits_cuda if _route(X) == "cuda"
           else ref.gbdt_logits_ref)
     return fn(params, X)
+
+
+def holt_winters(y: torch.Tensor, *, period: int = 60, alpha: float = 0.1,
+                 beta: float = 0.01, gamma: float = 0.3) -> torch.Tensor:
+    """One-step-ahead Holt-Winters forecasts: y [B, T] -> [B, T]."""
+    fn = (_hw.holt_winters_cuda if _route(y) == "cuda"
+          else ref.holt_winters_ref)
+    return fn(y, period=period, alpha=alpha, beta=beta, gamma=gamma)
 
 
 def launch_counts() -> dict[str, int]:

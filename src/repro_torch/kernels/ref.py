@@ -10,8 +10,9 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import features, gbdt
+from repro_torch.core import features, forecasting, gbdt
 from repro_torch.core.pipeline import Classify
+from repro_torch.forecast import conformal
 from repro_torch.scaling import policies
 from repro_torch.sim import cluster
 
@@ -38,26 +39,40 @@ def episode_block_ref(rates, controller, cfg):
     """rates [B, M] -> MinuteOut of [B, M]: the control-period-blocked
     ``cluster.simulate`` over all lanes at once, plant ticks in plain
     PyTorch, on the rates' own device. The controller's own `decide` and
-    `on_minute` run; an AAPA controller's GBDT classifier takes its logits
-    from `gbdt_logits_ref`, so this launches no kernel on the card."""
+    `on_minute` run; an AAPA or hybrid controller's GBDT classifier takes
+    its logits from `gbdt_logits_ref`, so this launches no kernel on the
+    card."""
     return cluster.simulate(rates, _plain_controller(controller, cfg), cfg,
                             device=rates.device, plant_kernel=False,
                             decide_kernel=False)
 
 
 def _plain_controller(controller, cfg):
-    """`controller`, or for an AAPA controller with a GBDT classifier
-    (``core.pipeline.Classify``) the same controller rebuilt on `cfg` (the
-    episode kernel reads `cfg` too) with the classifier's logits from
-    `gbdt_logits_ref`."""
+    """`controller`, or for an AAPA or hybrid controller with a GBDT
+    classifier (``core.pipeline.Classify``) the same controller rebuilt on
+    `cfg` (the episode kernel reads `cfg` too) with the classifier's
+    logits from `gbdt_logits_ref`."""
     h = controller.hyper
-    if controller.name != "aapa" or not isinstance(h["classify"], Classify):
+    if (controller.name not in ("aapa", "hybrid")
+            or not isinstance(h["classify"], Classify)):
         return controller
-    return policies.aapa_controller(
-        cfg, dataclasses.replace(h["classify"], logits=gbdt_logits_ref),
-        stride_min=h["stride_min"], horizon_min=h["horizon_min"],
-        forecaster=h["forecaster"],
-        forecast_confidence=h["forecast_confidence"])
+    cls = dataclasses.replace(h["classify"], logits=gbdt_logits_ref)
+    kw = dict(stride_min=h["stride_min"], horizon_min=h["horizon_min"],
+              forecaster=conformal.unwrap(h["forecaster"]), band=h["band"],
+              forecast_confidence=h["forecast_confidence"])
+    if controller.name == "hybrid":
+        return policies.hybrid_controller(
+            cfg, cls, guard_target=h["guard_target"],
+            max_down_frac=h["max_down_frac"], **kw)
+    return policies.aapa_controller(cfg, cls, **kw)
+
+
+def holt_winters_ref(y, *, period: int = 60, alpha: float = 0.1,
+                     beta: float = 0.01, gamma: float = 0.3):
+    """[B, T] -> one-step-ahead forecasts [B, T]:
+    ``core.forecasting.hw_smooth``."""
+    return forecasting.hw_smooth(y, period=period, alpha=alpha, beta=beta,
+                                 gamma=gamma)
 
 
 def window_features_ref(windows):
@@ -77,9 +92,10 @@ def gbdt_logits_ref(params, X):
 
 
 def aapa_episode_ref(rates, controller, cfg):
-    """`episode_block_ref` under an AAPA controller, also returning the
-    archetype each lane carries after each minute: (MinuteOut of [B, M],
-    int32 [B, M]); the same blocked minute step `simulate` loops over."""
+    """`episode_block_ref` under an AAPA or hybrid controller, also
+    returning the archetype each lane carries after each minute:
+    (MinuteOut of [B, M], int32 [B, M]); the same blocked minute step
+    `simulate` loops over."""
     controller = _plain_controller(controller, cfg)
     carry = (cluster.initial_state(controller, cfg, lanes=rates.shape[:1],
                                    device=rates.device), 0)

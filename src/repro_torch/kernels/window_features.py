@@ -24,9 +24,9 @@ MIN_W, MAX_W = 3, 64
 def window_features_cuda(windows: torch.Tensor, *,
                          freq: bool = False) -> torch.Tensor:
     """Launch the kernel: windows [N, W] (contiguous float32 on CUDA,
-    3 <= W <= 64) -> features [N, 28]; with `freq` (W >= 4) the 38
-    features [N, 38], the 10 frequency features after the 28. Raises on
-    any other input."""
+    3 <= W <= 64) -> features [N, 28]; with `freq` (W >= 4, prime
+    factors 2, 3 and 5 only) the 38 features [N, 38], the 10 frequency
+    features after the 28. Raises on any other input."""
     if windows.device.type != "cuda":
         raise ValueError("window_features kernel needs a CUDA tensor, got "
                          f"{windows.device}")
@@ -39,14 +39,14 @@ def window_features_cuda(windows: torch.Tensor, *,
                          f"{tuple(windows.shape)} {windows.dtype}")
     N, W = windows.shape
     if freq:
-        dft = features.dft_table(W, windows.device)
+        tw, plan = features.fft_tables(W, windows.device)
         inv_log_nb, inv_nb = features.freq_constants(W)
     else:
-        dft = torch.empty(0, dtype=torch.float32, device=windows.device)
-        inv_log_nb = inv_nb = 0.0
+        tw = torch.empty(0, dtype=torch.float32, device=windows.device)
+        plan, inv_log_nb, inv_nb = [], 0.0, 0.0
     out = torch.empty((N, features.N_FEATURES if freq else N_FEATS),
                       dtype=torch.float32, device=windows.device)
-    _build.extension().window_features(windows, out, dft, inv_log_nb,
+    _build.extension().window_features(windows, out, tw, plan, inv_log_nb,
                                        inv_nb)
     window_features_cuda.launches += 1
     return out

@@ -4,17 +4,22 @@
   5-minute downscale stabilization window, 5-minute scale-down cooldown,
   +-10% tolerance band (Kubernetes semantics), with serverless
   scale-to-zero on sustained idle.
+* ``predictive_controller`` — paper §IV.C baseline: uniform Holt-Winters,
+  15-minute prediction horizon, no workload differentiation.
 * ``aapa_controller`` — the paper's system (§III.C): every 10 minutes,
   extract 38 features from the last 60 minutes, classify the archetype,
   beta-calibrate the confidence, adjust Table III parameters via
   Algorithm 1, and apply the archetype strategy.
+* ``kpa_controller`` — Knative-KPA-style concurrency scaler: stable and
+  panic windows over estimated in-flight concurrency.
+* ``hybrid_controller`` — AAPA with a reactive guardrail floor and a
+  bounded scale-down step.
 
-``predictive``, ``kpa`` and ``hybrid`` are not ported yet. Divisions by
-a constant are multiplies by its f32 reciprocal, which is what XLA
-compiles the reference's constant divisors to; the episode kernel does
-the same. Each controller's `hyper` dict is the one source of its
-hyperparameters: `decide`/`on_minute` read them there and the episode
-kernel's launcher passes the same values to the card.
+Divisions by a constant are multiplies by its f32 reciprocal, which is
+what XLA compiles the reference's constant divisors to; the episode
+kernel does the same. Each controller's `hyper` dict is the one source
+of its hyperparameters: `decide`/`on_minute` read them there and the
+episode kernel's launcher passes the same values to the card.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from repro_torch.core import forecasting as fc
 from repro_torch.core import uncertainty
 from repro_torch.core.archetypes import table_iii_arrays
 from repro_torch.forecast import api as fapi
+from repro_torch.forecast import conformal as fconf
 from repro_torch.forecast import registry as forecast_registry
 from repro_torch.scaling.api import Controller, Obs
 
@@ -94,6 +100,60 @@ def hpa_controller(cfg, *, target: float = 0.70,
     return Controller("hpa", init, on_minute, decide, hyper=hyper)
 
 
+# --------------------------------------------------- Generic Predictive ----
+class PredState(NamedTuple):
+    fc: fapi.FState
+
+
+def _resolve_forecaster(forecaster, band):
+    """Name or Forecaster -> Forecaster, conformal-wrapped when a
+    calibrated band is supplied."""
+    fcst = forecast_registry.make(forecaster)
+    return fcst if band is None else fconf.wrap(fcst, band)
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+def predictive_controller(cfg, *, target: float = 0.70,
+                          horizon_min: int = 15,
+                          cooldown_min: float = 5.0,
+                          forecaster="holt_winters",
+                          band: fconf.ConformalBand | None = None,
+                          conservative: bool = False) -> Controller:
+    """Uniform predictive baseline over any registered forecaster.
+    `conservative=True` scales to the interval's upper bound instead of
+    the point forecast (pay replicas for forecast uncertainty)."""
+    fcst = _resolve_forecaster(forecaster, band)
+    hyper = dict(target=target, horizon_min=int(horizon_min),
+                 forecaster=fcst, band=band, conservative=bool(conservative),
+                 inv_cap=recip(cfg.rps_per_replica * target),
+                 cooldown_sec=_f32(cooldown_min * 60.0))
+
+    def init(lanes: tuple[int, ...] = (), device="cuda"):
+        return PredState(fc=fcst.init(lanes, _device.resolve(device)))
+
+    def on_minute(state: PredState, hist, minute_idx):
+        return PredState(fc=fcst.update(state.fc, hist[..., -1]))
+
+    def decide(state: PredState, obs: Obs):
+        iv = fcst.forecast(state.fc, hyper["horizon_min"])
+        pred = (iv.hi if hyper["conservative"] else iv.point).clamp_min(0.0)
+        need_pred = pred * recip(60.0) * hyper["inv_cap"]
+        need_now = obs.rate_rps * hyper["inv_cap"]
+        desired = torch.ceil(torch.maximum(need_pred, need_now))
+        # scale to zero when neither live traffic nor forecast needs pods
+        idle = ((desired < 1.0) & (obs.queue <= 0.0)
+                & (obs.rate_rps <= 1e-6))
+        desired = torch.where(idle, torch.zeros_like(desired),
+                              desired.clamp_min(1.0))
+        return state, desired, torch.full_like(desired,
+                                               hyper["cooldown_sec"])
+
+    return Controller("predictive", init, on_minute, decide, hyper=hyper)
+
+
 # ------------------------------------------------------------------ AAPA ----
 class AAPAState(NamedTuple):
     fc: fapi.FState             # named forecaster carry (PERIODIC strategy)
@@ -116,15 +176,15 @@ def aapa_controller(
 
     The predictive strategy runs any registered forecaster (by name or
     instance). With `forecast_confidence` on, Algorithm 1's confidence is
-    the classifier's times the forecaster's interval confidence (the
-    residual-EWMA native band). The calibrated conformal `band` of the
-    reference is not ported yet, so `band` must be None and
-    `forecast_confidence=None` means off."""
-    if band is not None:
-        raise NotImplementedError(
-            "the conformal band (repro.forecast.conformal) is not ported yet")
+    the classifier's times the forecaster's interval confidence: the
+    split-conformal band when a calibrated `band` is supplied (its scale
+    the trace's mean), the residual-EWMA native band otherwise.
+    `forecast_confidence=None` turns the signal on exactly when a `band`
+    is given."""
+    if forecast_confidence is None:
+        forecast_confidence = band is not None
     hyper = dict(stride_min=int(stride_min), horizon_min=int(horizon_min),
-                 forecaster=forecast_registry.make(forecaster),
+                 forecaster=_resolve_forecaster(forecaster, band), band=band,
                  forecast_confidence=bool(forecast_confidence),
                  classify=classify, table=table_iii_arrays())
 
@@ -145,7 +205,9 @@ def aapa_controller(
         arch, conf = hyper["classify"](F.extract_features(hist))
         if hyper["forecast_confidence"]:
             iv = fcst.forecast(fst, hyper["horizon_min"])
-            conf = conf * fapi.interval_confidence(iv)
+            band = hyper["band"]
+            conf = conf * fapi.interval_confidence(
+                iv, None if band is None else band.scale)
         adj = uncertainty.adjust(conf, _select4(arch, *tab["target_cpu"]),
                                  _select4(arch, *tab["cooldown_min"]),
                                  _select4(arch, *tab["min_replicas"]))
@@ -186,3 +248,109 @@ def aapa_controller(
         return state, desired, state.cool_adj_min * 60.0
 
     return Controller("aapa", init, on_minute, decide, hyper=hyper)
+
+
+# ------------------------------------------------------------------- KPA ----
+class KPAState(NamedTuple):
+    stable_ema: torch.Tensor    # concurrency, ~stable_window average
+    panic_ema: torch.Tensor     # concurrency, ~panic_window average
+    panic_left_s: torch.Tensor  # seconds of panic mode remaining
+    panic_max: torch.Tensor     # max desired seen during the panic
+
+
+def kpa_controller(cfg, *, target_concurrency: float | None = None,
+                   panic_threshold: float = 2.0,
+                   stable_window_s: float = 60.0,
+                   panic_window_s: float = 6.0,
+                   cooldown_min: float = 1.0) -> Controller:
+    """Knative-KPA-style concurrency autoscaler.
+
+    Estimated in-flight concurrency (rate x service time plus the
+    standing queue) feeds two EMAs. The stable window drives steady-state
+    sizing; when the panic-window estimate needs more than
+    `panic_threshold` x the current fleet, the scaler enters panic mode
+    for one stable window, pinned to the maximum seen."""
+    if target_concurrency is None:
+        # one replica's concurrency at full utilization
+        target_concurrency = cfg.rps_per_replica * cfg.service_sec
+    dt = float(cfg.control_interval_sec)
+    hyper = dict(target_concurrency=target_concurrency,
+                 panic_threshold=panic_threshold,
+                 stable_window_s=stable_window_s,
+                 panic_window_s=panic_window_s, dt=dt,
+                 service_sec=_f32(cfg.service_sec),
+                 a_s=_f32(min(dt / stable_window_s, 1.0)),
+                 a_p=_f32(min(dt / panic_window_s, 1.0)),
+                 inv_tgt=recip(_f32(target_concurrency)),
+                 cooldown_sec=_f32(cooldown_min * 60.0))
+
+    def init(lanes: tuple[int, ...] = (), device="cuda"):
+        z = torch.zeros(lanes, dtype=torch.float32,
+                        device=_device.resolve(device))
+        return KPAState(z, z.clone(), z.clone(), z.clone())
+
+    def on_minute(state, hist, minute_idx):
+        return state
+
+    def decide(state: KPAState, obs: Obs):
+        h = hyper
+        conc = obs.queue + obs.rate_rps * h["service_sec"]
+        stable = state.stable_ema + h["a_s"] * (conc - state.stable_ema)
+        panic = state.panic_ema + h["a_p"] * (conc - state.panic_ema)
+        want_stable = torch.ceil(stable * h["inv_tgt"])
+        want_panic = torch.ceil(panic * h["inv_tgt"])
+
+        fleet = obs.ready_total.clamp_min(1.0)
+        enter = want_panic >= h["panic_threshold"] * fleet
+        panic_left = torch.where(
+            enter, torch.full_like(fleet, h["stable_window_s"]),
+            (state.panic_left_s - h["dt"]).clamp_min(0.0))
+        in_panic = panic_left > 0.0
+        zero = torch.zeros_like(fleet)
+        panic_max = torch.where(
+            in_panic, torch.maximum(
+                torch.where(state.panic_left_s > 0.0, state.panic_max,
+                            zero),
+                torch.maximum(want_panic, fleet)), zero)
+        desired = torch.where(in_panic, panic_max, want_stable)
+
+        # scale-to-zero on a truly idle stable window; wake on traffic
+        idle = ((stable <= 1e-3) & (obs.queue <= 0.0)
+                & (obs.rate_rps <= 1e-6))
+        desired = torch.where(idle, zero, desired.clamp_min(1.0))
+        return (KPAState(stable, panic, panic_left, panic_max), desired,
+                torch.full_like(desired, h["cooldown_sec"]))
+
+    return Controller("kpa", init, on_minute, decide, hyper=hyper)
+
+
+# ---------------------------------------------------------------- hybrid ----
+def hybrid_controller(cfg, classify, *, guard_target: float = 0.85,
+                      max_down_frac: float = 0.3,
+                      **aapa_kw) -> Controller:
+    """AAPA plus a reactive guardrail: desired never drops below what live
+    utilization requires at `guard_target`, and one decision removes at
+    most `max_down_frac` of the current fleet. State and classification
+    cadence are ``aapa_controller``'s; only `decide` is wrapped."""
+    base = aapa_controller(cfg, classify, **aapa_kw)
+    hyper = dict(base.hyper, guard_target=guard_target,
+                 max_down_frac=max_down_frac,
+                 inv_guard=recip(guard_target),
+                 inv_rps_guard=recip(cfg.rps_per_replica * guard_target),
+                 down_keep=_f32(1.0 - max_down_frac))
+
+    def decide(state, obs: Obs):
+        state, desired, cool = base.decide(state, obs)
+        # reactive floor from live utilization
+        floor = torch.maximum(
+            torch.ceil(obs.ready_total * obs.util_ema * hyper["inv_guard"]),
+            torch.ceil(obs.rate_rps * hyper["inv_rps_guard"]))
+        guarded = torch.maximum(desired, floor)
+        # bounded scale-down step
+        step_floor = torch.ceil(obs.ready_total * hyper["down_keep"])
+        guarded = torch.where(guarded < obs.ready_total,
+                              torch.maximum(guarded, step_floor), guarded)
+        return state, guarded, cool
+
+    return Controller("hybrid", base.init, base.on_minute, decide,
+                      hyper=hyper)

@@ -4,8 +4,8 @@
     from repro_torch.scaling import registry
     ctrl = registry.make("hpa", SimConfig(), target=0.6)
 
-Only the policies ported so far are registered; asking for any other
-name raises a ``KeyError`` that lists them.
+All five policies of the reference are registered, with its defaults;
+asking for any other name raises a ``KeyError`` that lists them.
 """
 from __future__ import annotations
 
@@ -48,8 +48,8 @@ def spec(name: str) -> PolicySpec:
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise KeyError(f"unknown or not yet ported policy {name!r}; "
-                       f"ported: {available()}") from None
+        raise KeyError(f"unknown policy {name!r}; "
+                       f"available: {available()}") from None
 
 
 def default_classify(feats: torch.Tensor):
@@ -90,6 +90,15 @@ register(
                 "downscale stabilization (paper §IV.C baseline).")
 
 register(
+    "predictive", P.predictive_controller,
+    defaults=dict(target=0.70, horizon_min=15, cooldown_min=5.0,
+                  forecaster="holt_winters", band=None,
+                  conservative=False),
+    description="Generic predictive over any registered forecaster "
+                "(default Holt-Winters, 15-minute horizon: the paper "
+                "§IV.C baseline).")
+
+register(
     "aapa", P.aapa_controller,
     defaults=dict(stride_min=10, horizon_min=15,
                   forecaster="holt_winters", band=None,
@@ -97,3 +106,20 @@ register(
     needs_classifier=True,
     description="Archetype-aware predictive autoscaler with uncertainty "
                 "quantification (the paper's system, §III).")
+
+register(
+    "kpa", P.kpa_controller,
+    defaults=dict(target_concurrency=None, panic_threshold=2.0,
+                  stable_window_s=60.0, panic_window_s=6.0,
+                  cooldown_min=1.0),
+    description="Knative-KPA-style concurrency scaler with stable/panic "
+                "windows.")
+
+register(
+    "hybrid", P.hybrid_controller,
+    defaults=dict(guard_target=0.85, max_down_frac=0.3, stride_min=10,
+                  horizon_min=15, forecaster="holt_winters", band=None,
+                  forecast_confidence=None),
+    needs_classifier=True,
+    description="AAPA with a reactive guardrail floor and bounded "
+                "scale-down steps.")

@@ -22,6 +22,7 @@ from repro.core import pipeline as ref_pipeline
 from repro.scaling import registry as ref_registry
 from repro.sim import cluster as ref_cluster
 from repro_torch import interop
+from repro_torch.forecast import conformal as t_conformal
 from repro_torch.kernels import ref as t_ref
 from repro_torch.scaling import policies as t_policies
 from repro_torch.scaling import registry as t_registry
@@ -175,12 +176,19 @@ def test_state_handoff_from_reference(classifier):
 
 
 def test_registry_entry_and_unported_options():
+    """The registry entry matches the reference's; a conformal band (once
+    refused) wraps the forecaster and turns the forecast-confidence
+    signal on, as in the reference."""
     cfg = t_cluster.SimConfig()
     spec = t_registry.spec("aapa")
     assert spec.needs_classifier
     assert spec.defaults == ref_registry.spec("aapa").defaults
-    assert t_registry.available() == ["aapa", "hpa"]
-    with pytest.raises(NotImplementedError, match="conformal"):
-        t_registry.make("aapa", cfg, band=object())
+    assert "aapa" in t_registry.available()
+    band = t_conformal.ConformalBand(torch.tensor(3.0), 0.9,
+                                     torch.tensor(50.0))
+    ctrl = t_registry.make("aapa", cfg, band=band)
+    assert ctrl.hyper["forecaster"].name == "conformal[holt_winters]"
+    assert ctrl.hyper["forecast_confidence"] is True
+    assert t_registry.make("aapa", cfg).hyper["forecast_confidence"] is False
     with pytest.raises(TypeError, match="no hyperparameters"):
         t_registry.make("aapa", cfg, target=0.5)

@@ -169,9 +169,12 @@ def test_apply_decision_matches_reference_exactly():
 
 
 def test_registry_lists_ported_policies():
-    assert t_registry.available() == ["aapa", "hpa"]
-    with pytest.raises(KeyError, match="ported: \\['aapa', 'hpa'\\]"):
-        t_registry.make("kpa", t_cluster.SimConfig())
+    """All five of the reference's policies are ported."""
+    assert t_registry.available() == ["aapa", "hpa", "hybrid", "kpa",
+                                      "predictive"]
+    assert t_registry.available() == ref_registry.available()
+    with pytest.raises(KeyError, match="available: \\['aapa', 'hpa', "):
+        t_registry.make("no_such_policy", t_cluster.SimConfig())
     with pytest.raises(TypeError, match="no hyperparameters"):
         t_registry.make("hpa", t_cluster.SimConfig(), horizon_min=5)
 

@@ -13,8 +13,10 @@ import torch
 from repro_torch.core import calibration, features, gbdt
 from repro_torch.core.pipeline import Classify
 from repro_torch.data import azure_synth, windows
-from repro_torch.kernels import (episode_block, gbdt_tables, ops,
-                                 plant_block, ref, window_features)
+from repro_torch.forecast import conformal
+from repro_torch.forecast import registry as forecast_registry
+from repro_torch.kernels import (episode_block, gbdt_tables, holt_winters,
+                                 ops, plant_block, ref, window_features)
 from repro_torch.scaling import registry, scenarios
 from repro_torch.sim import cluster
 
@@ -81,7 +83,8 @@ def test_default_path_is_the_episode_kernel(cuda):
     ops.reset_launch_counts()
     chunked = cluster.make_simulator(ctrl, cfg, w_chunk=64)(rates)
     assert ops.launch_counts() == {"plant_block": 0, "episode_block": 4,
-                                   "window_features": 0, "gbdt_tables": 0}
+                                   "window_features": 0, "gbdt_tables": 0,
+                                   "holt_winters": 0}
     whole = cluster.make_simulator(ctrl, cfg)(rates)
     for a, b in zip(chunked, whole):
         assert torch.equal(a, b)
@@ -94,7 +97,8 @@ def test_unfused_path_launches_plant_block(cuda):
     ops.reset_launch_counts()
     unfused = cluster.simulate(rates, ctrl, cfg, decide_kernel=False)
     assert ops.launch_counts() == {"plant_block": 5 * 4, "episode_block": 0,
-                                   "window_features": 0, "gbdt_tables": 0}
+                                   "window_features": 0, "gbdt_tables": 0,
+                                   "holt_winters": 0}
     fused = cluster.simulate(rates, ctrl, cfg)
     for a, e in zip(unfused, fused):
         torch.testing.assert_close(a, e, **EPISODE_TOL)
@@ -102,7 +106,7 @@ def test_unfused_path_launches_plant_block(cuda):
 
 def test_unknown_policy_raises(cuda):
     cfg = cluster.SimConfig()
-    ctrl = registry.make("hpa", cfg)._replace(name="kpa")
+    ctrl = registry.make("hpa", cfg)._replace(name="no_such_policy")
     with pytest.raises(NotImplementedError, match="compiled"):
         episode_block.episode_block_cuda(_rates(3, cuda), ctrl, cfg)
 
@@ -199,3 +203,86 @@ def test_aapa_kernel_rejects_other_forecasters(cuda):
     ctrl = registry.make("aapa", cfg, forecaster="ewma")
     with pytest.raises(NotImplementedError, match="holt_winters"):
         episode_block.episode_block_cuda(_rates(5, cuda), ctrl, cfg)
+
+
+@pytest.mark.parametrize("b,t,period,alpha", [
+    (1003, 300, 60, 0.1), (257, 61, 60, 0.37), (130, 500, 1440, 0.1),
+    (65, 100, 96, 0.33), (64, 33, 97, 0.1), (1, 1, 1, 0.1)])
+def test_holt_winters_kernel_matches_plain(cuda, b, t, period, alpha):
+    """Bit for bit: short and long seasons, alpha where hw_smooth's two
+    roundings of 1 - alpha differ, ragged lane and time tiles."""
+    rng = np.random.default_rng(b + t)
+    y = torch.as_tensor(rng.gamma(2.0, 50.0, (b, t)).astype(np.float32),
+                        device=cuda)
+    before = holt_winters.holt_winters_cuda.launches
+    got = holt_winters.holt_winters_cuda(y, period=period, alpha=alpha)
+    want = ref.holt_winters_ref(y, period=period, alpha=alpha)
+    torch.cuda.synchronize()
+    assert holt_winters.holt_winters_cuda.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_conformal_path_on_the_card(cuda):
+    """`calibrate` and `coverage` on a CUDA split launch the holt_winters
+    kernel once each and give the plain path's band."""
+    fcst = forecast_registry.make("holt_winters")
+    split = torch.as_tensor(scenarios.burst_storm(
+        n_workloads=300, minutes=400, seed=1).rates, device=cuda)
+    ops.reset_launch_counts()
+    band = conformal.calibrate(fcst, split, alpha=0.9)
+    cov = conformal.coverage(fcst, band, split[:, 200:])
+    assert ops.launch_counts()["holt_winters"] == 2
+    plain = conformal.calibrate(fcst, split.cpu(), alpha=0.9, device="cpu")
+    assert float(band.q) == float(plain.q)
+    assert float(band.scale) == float(plain.scale)
+    assert 0.0 < cov <= 1.0
+
+
+def _band(dev):
+    split = torch.as_tensor(scenarios.burst_storm(
+        n_workloads=64, minutes=240, seed=1).rates, device=dev)
+    return conformal.calibrate(forecast_registry.make("holt_winters"),
+                               split, alpha=0.9)
+
+
+@pytest.mark.parametrize("ci", [15, 7])
+@pytest.mark.parametrize("policy,kw", [
+    ("predictive", {}), ("predictive", dict(conservative=True)),
+    ("predictive", dict(band=True, conservative=True)), ("kpa", {}),
+    ("kpa", dict(panic_threshold=1.2))],
+    ids=["predictive", "conservative", "band", "kpa", "kpa_panicky"])
+def test_policy_episode_kernel_matches_plain(cuda, policy, kw, ci):
+    cfg = cluster.SimConfig(control_interval_sec=ci)
+    if kw.get("band"):
+        kw = dict(kw, band=_band(cuda))
+    ctrl = registry.make(policy, cfg, **kw)
+    rates = torch.as_tensor(scenarios.archetype_mix(
+        n_workloads=129, minutes=90, seed=1).rates, device=cuda)
+    got = episode_block.episode_block_cuda(rates, ctrl, cfg)
+    ops.reset_launch_counts()
+    want = ref.episode_block_ref(rates, ctrl, cfg)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict.fromkeys(ops.LAUNCHERS, 0)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, **EPISODE_TOL)
+
+
+@pytest.mark.parametrize("ci", [15, 7])
+@pytest.mark.parametrize("policy", ["aapa", "hybrid"])
+def test_band_archetype_episode_kernel_matches_plain(cuda, policy, ci):
+    """AAPA and hybrid with the conformal band and the seeded classifier:
+    MinuteOut and every lane's archetype sequence."""
+    cfg = cluster.SimConfig(control_interval_sec=ci)
+    ctrl = registry.make(policy, cfg, classify=_classifier(cuda),
+                         band=_band(cuda), stride_min=5)
+    rates = torch.as_tensor(scenarios.archetype_mix(
+        n_workloads=129, minutes=90, seed=1).rates, device=cuda)
+    got, got_arch = episode_block.aapa_episode_cuda(rates, ctrl, cfg)
+    ops.reset_launch_counts()
+    want, want_arch = ref.aapa_episode_ref(rates, ctrl, cfg)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict.fromkeys(ops.LAUNCHERS, 0)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, **EPISODE_TOL)
+    assert torch.equal(got_arch, want_arch)
+    assert len(torch.unique(want_arch)) >= 3

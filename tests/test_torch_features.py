@@ -4,13 +4,15 @@ version of the ``window_features`` kernel) against the JAX reference
 
 Tolerances: the 28 stat/time features at the reference's kernel
 tolerance, rtol/atol 5e-4 (tests/test_kernel_smoke.py); the 10 frequency
-features, which the port takes from a DFT summed in another order than
-``jnp.fft.rfft``, at rtol 1e-4 / atol 1e-5. The quantized features
-(multiples of 1/60 or 1/30) are bitwise equal, with one documented
-exception (ROADMAP §C): where the exact spectrum is flat (one spike on a
-constant background) or zero up to the mean's rounding (a constant
-window whose f32 mean is not exact), `dominant_freq` is the argmax of
-rounding noise in both packages, and the two differ.
+features at rtol 1e-4 / atol 1e-5 (XLA contracts some of their products
+into adds, the port does not). The power spectrum itself is the
+reference's bit for bit: the port runs the real FFT that ``jnp.fft.rfft``
+runs on the CPU (ducc0's radix passes) and XLA's complex abs, op for op.
+So the quantized features (multiples of 1/60 or 1/30) are bitwise equal
+everywhere, `dominant_freq` included where the exact spectrum is flat
+(one spike on a constant background) or zero up to the mean's rounding
+(a constant window whose f32 mean is not exact): there both packages
+pick the argmax of the same rounding noise.
 """
 import jax
 import jax.numpy as jnp
@@ -114,22 +116,17 @@ def test_freq_features_match_reference(reference, port):
 
 
 def test_quantized_features_bitwise(reference, port):
-    rows = np.setdiff1d(np.arange(len(port)), TIED)
     for k in QUANTIZED:
         np.testing.assert_array_equal(
-            port[rows, k], reference[rows, k],
+            port[:, k], reference[:, k],
             err_msg=t_features.FEATURE_NAMES[k])
-    for k in QUANTIZED:
-        if k != DOMINANT:
-            np.testing.assert_array_equal(port[list(TIED), k],
-                                          reference[list(TIED), k])
 
 
 def test_tied_spectra_dominant_freq_differs(windows, reference, port):
-    """The documented difference (ROADMAP §C): on a flat or rounding-only
-    spectrum both packages pick the dominant bin from rounding noise.
-    The port's spectrum there is flat (or zero) to f32 rounding, and its
-    dominant_freq differs from the reference's."""
+    """Once a documented difference (ROADMAP §C), now an equality: on a
+    flat or rounding-only spectrum both packages pick the dominant bin
+    from rounding noise, and since the port's spectrum is the
+    reference's bit for bit, they pick the same bin."""
     tied = list(TIED)
     power = t_features.power_spectrum(torch.as_tensor(windows[tied]))
     assert float(power[0].amax()) < 1e-18          # constant 5: noise only
@@ -139,7 +136,8 @@ def test_tied_spectra_dominant_freq_differs(windows, reference, port):
     np.testing.assert_array_equal(
         reference[tied, DOMINANT],
         np.float32([0, 4, 3, 0]) * np.float32(_numerics.recip(30)))
-    assert (port[tied, DOMINANT] != reference[tied, DOMINANT]).all()
+    np.testing.assert_array_equal(port[tied, DOMINANT],
+                                  reference[tied, DOMINANT])
 
 
 def test_extract_features_leading_dims_and_ops(windows, port):
@@ -164,10 +162,41 @@ def test_xla_sum_is_xla_order(n):
     np.testing.assert_array_equal(got, want)
 
 
-def test_dft_table_is_rounded_f64():
-    cos, sin = t_features.dft_table(60, torch.device("cpu")).numpy()
-    k, j = np.meshgrid(np.arange(31), np.arange(60), indexing="ij")
-    np.testing.assert_array_equal(
-        cos, np.cos(2 * np.pi * ((k * j) % 60) / 60).astype(np.float32))
-    np.testing.assert_array_equal(
-        sin, np.sin(2 * np.pi * ((k * j) % 60) / 60).astype(np.float32))
+def _reference_power(x):
+    return np.asarray(jax.jit(lambda w: jnp.abs(jnp.fft.rfft(
+        w - jnp.mean(w, axis=-1, keepdims=True), axis=-1)) ** 2)(
+            jnp.asarray(x)))[:, 1:]
+
+
+@pytest.mark.parametrize("n", [60, 45, 64, 50, 32, 27, 12, 5, 4])
+def test_power_spectrum_is_the_reference_bitwise(n):
+    """The port's |rfft|^2 against the reference's on random gamma
+    windows, the tied windows, all-zero and constant ones; the
+    radix-2, 3, 4 and 5 passes and every window width the FFT takes."""
+    rng = np.random.default_rng(n)
+    x = rng.gamma(2.0, 30.0, size=(300, n)).astype(np.float32)
+    x[:6] = [[0.0], [5.0], [0.0], [0.0], [20.0], [7.0]]
+    x[2, n // 2] = 100.0                 # the tied windows of TIED, at n
+    x[3, min(7, n - 1)] = 3.0
+    x[4, n - 3] = 90.0
+    got = t_features.power_spectrum(torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(got, _reference_power(x))
+
+
+def test_fft_twiddles_are_rounded_f64():
+    """Each pass's twiddles are cos/sin of 2*pi*j*l1*i/n from f64, rounded
+    once, in ducc0's layout; a length with a prime factor above 5 is
+    refused."""
+    plan = t_features.rfft_plan(60)
+    assert [p[:3] for p in plan] == [(5, 12, 1), (3, 4, 5), (4, 1, 15)]
+    for ip, l1, ido, wa in plan:
+        wa = np.asarray(wa, np.float32).reshape(ip - 1, ido - 1)
+        for j in range(1, ip):
+            i = np.arange(1, (ido - 1) // 2 + 1)
+            ang = 2 * np.pi * j * l1 * i / 60
+            np.testing.assert_array_equal(wa[j - 1, 0::2],
+                                          np.cos(ang).astype(np.float32))
+            np.testing.assert_array_equal(wa[j - 1, 1::2],
+                                          np.sin(ang).astype(np.float32))
+    with pytest.raises(NotImplementedError, match="radix"):
+        t_features.rfft_plan(14)

@@ -107,8 +107,12 @@ def test_smooth_matches_reference(series, name):
 
 
 def test_holt_winters_smooth_waits_for_its_kernel(series):
-    with pytest.raises(NotImplementedError, match="B5"):
-        t_registry.make("holt_winters").smooth(torch.as_tensor(series))
+    """Once a NotImplementedError, now the holt_winters kernel's path: on a
+    CPU tensor the plain `hw_smooth`, against the reference's smooth."""
+    want = np.asarray(ref_registry.make("holt_winters").smooth(
+        jnp.asarray(series)))
+    got = t_registry.make("holt_winters").smooth(torch.as_tensor(series))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 def test_registry_defaults_and_archetype_map():

@@ -17,8 +17,8 @@ from repro.sim import cluster as ref_cluster
 from repro_torch.core import gbdt as t_gbdt
 from repro_torch.core.calibration import BetaCalibration
 from repro_torch.core.pipeline import Classify
-from repro_torch.kernels import (episode_block, gbdt_tables, ops,
-                                 plant_block, ref, window_features)
+from repro_torch.kernels import (episode_block, gbdt_tables, holt_winters,
+                                 ops, plant_block, ref, window_features)
 from repro_torch.scaling import registry as t_registry
 from repro_torch.sim import cluster as t_cluster
 
@@ -107,8 +107,18 @@ def test_cpu_dispatch_runs_plain_versions_only():
         size=(7, 38)).astype(np.float32))
     assert torch.equal(ops.gbdt_logits(params, X),
                        ref.gbdt_logits_ref(params, X))
+    y = torch.as_tensor(np.random.default_rng(6).gamma(
+        2.0, 10.0, (3, 70)).astype(np.float32))
+    assert torch.equal(ops.holt_winters(y, period=7),
+                       ref.holt_winters_ref(y, period=7))
+    for name in ("predictive", "kpa", "hybrid"):
+        ctrl = t_registry.make(name, cfg)
+        for a, e in zip(ops.episode_block(rates, ctrl, cfg),
+                        ref.episode_block_ref(rates, ctrl, cfg)):
+            assert torch.equal(a, e)
     assert ops.launch_counts() == {"plant_block": 0, "episode_block": 0,
-                                   "window_features": 0, "gbdt_tables": 0}
+                                   "window_features": 0, "gbdt_tables": 0,
+                                   "holt_winters": 0}
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
@@ -122,9 +132,12 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         episode_block.episode_block_cuda(torch.ones(2, 3),
                                          t_registry.make("hpa", cfg), cfg)
+    for name in ("aapa", "predictive", "kpa", "hybrid"):
+        with pytest.raises(ValueError, match="CUDA"):
+            episode_block.episode_block_cuda(
+                torch.ones(2, 3), t_registry.make(name, cfg), cfg)
     with pytest.raises(ValueError, match="CUDA"):
-        episode_block.episode_block_cuda(torch.ones(2, 3),
-                                         t_registry.make("aapa", cfg), cfg)
+        holt_winters.holt_winters_cuda(torch.ones(2, 3))
     for freq in (False, True):
         with pytest.raises(ValueError, match="CUDA"):
             window_features.window_features_cuda(torch.ones(2, 60),

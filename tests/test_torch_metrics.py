@@ -154,12 +154,25 @@ def test_rei_and_sensitivity_match_reference():
         for a, e in zip(got, want):
             assert a.shape == (6, 4, 3)
             np.testing.assert_allclose(a.numpy(), np.asarray(e), rtol=1e-6)
-    b = t_core_rei.rei(0.05, 2000.0, 30.0)
+    b = t_core_rei.rei(0.05, 2000.0, 30.0, device="cpu")
     rb = ref_core_rei.rei(0.05, 2000.0, 30.0)
     assert b.rei == pytest.approx(rb.rei, rel=1e-6)
-    assert [s.rei for s in t_core_rei.sensitivity(0.05, 2000.0, 30.0)] == \
+    assert [s.rei for s in t_core_rei.sensitivity(
+        0.05, 2000.0, 30.0, device="cpu")] == \
         pytest.approx([s.rei for s in ref_core_rei.sensitivity(
             0.05, 2000.0, 30.0)], rel=1e-6)
+
+
+def test_core_rei_runs_on_the_card_unless_asked():
+    """`core.rei` defaults to the card like every other entry point: with
+    no CUDA device it raises rather than compute on the CPU."""
+    if torch.cuda.is_available():
+        assert t_core_rei.rei(0.05, 2000.0, 30.0).rei == pytest.approx(
+            t_core_rei.rei(0.05, 2000.0, 30.0, device="cpu").rei)
+        return
+    for fn in (t_core_rei.rei, t_core_rei.sensitivity):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(0.05, 2000.0, 30.0)
 
 
 def test_numpy_oracle_matches_reference_exactly():
