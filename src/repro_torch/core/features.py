@@ -21,11 +21,11 @@ module agree bit for bit:
   of the continuous features differ from the reference's in the last
   one or two ulp; the quantized ones (``QUANTIZED``) are exact.
 * The spectrum is the real FFT ``jnp.fft.rfft`` runs on the CPU (ducc0's
-  ``rfftp``: radix-4, 2, 3 and 5 passes, twiddles rounded once from
-  f64), then XLA's complex ``abs`` (max * sqrt(fma(r, r, 1)), r = min /
-  max) and the square, op for op in f32, so the power spectrum, and with
-  it every frequency feature's ties, is the reference's bit for bit.
-  Windows whose length has a prime factor above 5 are not supported.
+  ``rfftp``: radix-4, 2, 3 and 5 passes and the generic odd-factor
+  pass, twiddles rounded once from f64), then XLA's complex ``abs``
+  (max * sqrt(fma(r, r, 1)), r = min / max) and the square, op for op in
+  f32, so the power spectrum, and with it every frequency feature's ties,
+  is the reference's bit for bit at every window width.
 """
 from __future__ import annotations
 
@@ -201,14 +201,11 @@ def rfft_plan(n: int) -> tuple[tuple[int, int, int, tuple[float, ...]], ...]:
     """The passes of a forward real FFT of length `n`, in the order they
     run: (ip, l1, ido, twiddles) per pass, the twiddles cos and sin of
     2*pi*j*l1*i/n for j < ip, i <= (ido-1)/2, as ducc0's `wa` array
-    ([(ip-1) * (ido-1)]), computed in f64 and rounded once."""
-    fct = _factorize(n)
-    if any(f > 5 for f in fct):
-        raise NotImplementedError(
-            f"real FFT of length {n}: only radix-2/3/4/5 lengths are "
-            f"implemented (factors {fct})")
+    ([(ip-1) * (ido-1)]), and for a factor above 5 then ducc0's `csarr`
+    ([2 * ip]: cos and sin of 2*pi*m/ip, the upper half mirrored), all
+    computed in f64 and rounded once."""
     passes, l1 = [], n
-    for ip in reversed(fct):
+    for ip in reversed(_factorize(n)):
         ido = n // l1
         l1 //= ip
         wa = np.zeros((ip - 1, ido - 1))
@@ -217,8 +214,17 @@ def rfft_plan(n: int) -> tuple[tuple[int, int, int, tuple[float, ...]], ...]:
                 ang = 2.0 * np.pi * (j * l1 * i) / n
                 wa[j - 1, 2 * i - 2] = np.cos(ang)
                 wa[j - 1, 2 * i - 1] = np.sin(ang)
+        tw = [wa.reshape(-1)]
+        if ip > 5:
+            m = np.arange(1, (ip - 1) // 2 + 1)
+            cs = np.zeros((ip, 2))
+            cs[0, 0] = 1.0
+            cs[m, 0] = cs[ip - m, 0] = np.cos(2.0 * np.pi * m / ip)
+            cs[m, 1] = np.sin(2.0 * np.pi * m / ip)
+            cs[ip - m, 1] = -cs[m, 1]
+            tw.append(cs.reshape(-1))
         passes.append((ip, l1, ido, tuple(
-            float(v) for v in wa.astype(np.float32).reshape(-1))))
+            float(v) for v in np.concatenate(tw).astype(np.float32))))
     return tuple(passes)
 
 
@@ -235,10 +241,98 @@ def fft_tables(n: int, device: torch.device):
             plan)
 
 
+def _radfg(ip: int, l1: int, ido: int, wa, cc: list) -> list:
+    """ducc0's generic forward pass (radfg) for an odd factor ip > 5, on a
+    list of n columns laid out as `_radix_pass`'s: C1(a, b, c) =
+    cc[a + ido*(b + l1*c)] is rotated in place, the butterflies go to
+    CH2(a, j) = ch[a + idl1*j], and the result to CC(a, b, c) =
+    out[a + ido*(b + ip*c)]."""
+    cc, ch, out = list(cc), [None] * len(cc), [None] * len(cc)
+    ipph, idl1 = (ip + 1) // 2, ido * l1
+    cs = wa[(ip - 1) * (ido - 1):]                   # csarr
+
+    def c1(a, b, c):
+        return a + ido * (b + l1 * c)
+
+    for j in range(1, ipph) if ido > 1 else ():      # twiddle j and ip-j
+        jc = ip - j
+        is1, is2 = (j - 1) * (ido - 1), (jc - 1) * (ido - 1)
+        for k in range(l1):
+            for i in range(1, ido - 1, 2):
+                w1r, w1i = wa[is1 + i - 1], wa[is1 + i]
+                w2r, w2i = wa[is2 + i - 1], wa[is2 + i]
+                t1, t2 = cc[c1(i, k, j)], cc[c1(i + 1, k, j)]
+                t3, t4 = cc[c1(i, k, jc)], cc[c1(i + 1, k, jc)]
+                x1, x2 = w1r * t1 + w1i * t2, w1r * t2 - w1i * t1
+                x3, x4 = w2r * t3 + w2i * t4, w2r * t4 - w2i * t3
+                cc[c1(i, k, j)], cc[c1(i + 1, k, jc)] = x3 + x1, x3 - x1
+                cc[c1(i + 1, k, j)], cc[c1(i, k, jc)] = x2 + x4, x2 - x4
+    for j in range(1, ipph):
+        jc = ip - j
+        for k in range(l1):
+            t1, t2 = cc[c1(0, k, j)], cc[c1(0, k, jc)]
+            cc[c1(0, k, j)], cc[c1(0, k, jc)] = t1 + t2, t2 - t1
+    for l in range(1, ipph):
+        lc = ip - l
+        for ik in range(idl1):
+            ch[ik + idl1 * l] = (cc[ik] + cs[2 * l] * cc[ik + idl1]
+                                 + cs[4 * l] * cc[ik + 2 * idl1])
+            ch[ik + idl1 * lc] = (cs[2 * l + 1] * cc[ik + idl1 * (ip - 1)]
+                                  + cs[4 * l + 1] * cc[ik + idl1 * (ip - 2)])
+        iang, j = 2 * l, 3
+        while j < ipph:                  # groups of 4, then 2, then 1
+            g = 4 if j < ipph - 3 else (2 if j < ipph - 1 else 1)
+            ar = []
+            for _ in range(g):
+                iang += l
+                if iang > ip:
+                    iang -= ip
+                ar.append((cs[2 * iang], cs[2 * iang + 1]))
+            jc = ip - j
+            for ik in range(idl1):
+                re = ar[0][0] * cc[ik + idl1 * j]
+                im = ar[0][1] * cc[ik + idl1 * jc]
+                for t in range(1, g):
+                    re = re + ar[t][0] * cc[ik + idl1 * (j + t)]
+                    im = im + ar[t][1] * cc[ik + idl1 * (jc - t)]
+                ch[ik + idl1 * l] = ch[ik + idl1 * l] + re
+                ch[ik + idl1 * lc] = ch[ik + idl1 * lc] + im
+            j += g
+    for ik in range(idl1):
+        s = cc[ik]
+        for j in range(1, ipph):
+            s = s + cc[ik + idl1 * j]
+        ch[ik] = s
+
+    def put(a, b, c, v):
+        out[a + ido * (b + ip * c)] = v
+
+    def CH(a, b, c):
+        return ch[c1(a, b, c)]
+
+    for k in range(l1):
+        for i in range(ido):
+            put(i, 0, k, CH(i, k, 0))
+    for j in range(1, ipph):
+        jc, j2 = ip - j, 2 * j - 1
+        for k in range(l1):
+            put(ido - 1, j2, k, CH(0, k, j))
+            put(0, j2 + 1, k, CH(0, k, jc))
+            for i in range(1, ido - 1, 2):
+                ic = ido - i - 2
+                put(i, j2 + 1, k, CH(i, k, j) + CH(i, k, jc))
+                put(ic, j2, k, CH(i, k, j) - CH(i, k, jc))
+                put(i + 1, j2 + 1, k, CH(i + 1, k, j) + CH(i + 1, k, jc))
+                put(ic + 1, j2, k, CH(i + 1, k, jc) - CH(i + 1, k, j))
+    return out
+
+
 def _radix_pass(ip: int, l1: int, ido: int, wa, cc: list) -> list:
-    """One forward pass of ducc0's rfftp (radf2/3/4/5) on a list of n
-    columns: CC(a, b, c) = cc[a + ido*(b + l1*c)] in, CH(a, b, c) =
-    ch[a + ido*(b + ip*c)] out."""
+    """One forward pass of ducc0's rfftp (radf2/3/4/5, `_radfg` above 5) on
+    a list of n columns: CC(a, b, c) = cc[a + ido*(b + l1*c)] in,
+    CH(a, b, c) = ch[a + ido*(b + ip*c)] out."""
+    if ip > 5:
+        return _radfg(ip, l1, ido, wa, cc)
     ch = [None] * len(cc)
 
     def CC(a, b, c):

@@ -51,7 +51,8 @@ def calibrate(forecaster: Forecaster, y_calib, *, alpha: float = 0.9,
 
     The order statistic is exact (a sort, as the reference's); `scale`,
     the mean |y| over the whole split, is accumulated in f64 and rounded
-    once."""
+    once, within an ulp or so of the reference's f32 sum in XLA's 2-D
+    reduction order, which the port does not reproduce."""
     y = _series(y_calib, device)
     resid = _residuals(forecaster, y, burn_in)
     n = resid.numel()
@@ -78,7 +79,8 @@ def wrap(forecaster: Forecaster, band: ConformalBand, *,
     """Forecaster whose intervals carry the conformal band instead of the
     native residual-EWMA one; the band is calibrated at horizon 1 and
     widens by sqrt(h) unless disabled. Its `hyper` names the wrapped
-    forecaster (`inner`) and the band, which the episode kernel reads."""
+    forecaster (`inner`), the band and `widen_with_horizon`: the episode
+    kernel takes the interval's half-width from there."""
     def forecast(state: FState, horizon: int) -> Interval:
         point = forecaster.forecast(state, horizon).point
         half = band.q * (float(np.sqrt(np.float32(horizon)))
@@ -90,11 +92,6 @@ def wrap(forecaster: Forecaster, band: ConformalBand, *,
                       forecaster.update, forecast, forecaster.smooth,
                       dict(forecaster.hyper, inner=forecaster, band=band,
                            widen_with_horizon=widen_with_horizon))
-
-
-def unwrap(forecaster: Forecaster) -> Forecaster:
-    """The forecaster a `wrap` was made from (itself if not wrapped)."""
-    return forecaster.hyper.get("inner", forecaster)
 
 
 def confidence(band: ConformalBand) -> torch.Tensor:

@@ -157,8 +157,10 @@ repro_torch::FreqTables freq_tables(const torch::Tensor& tw,
   for (int64_t q = 0; q < n_pass; ++q) {
     const int64_t ip = plan[4 * q], l1 = plan[4 * q + 1];
     const int64_t ido = plan[4 * q + 2], off = plan[4 * q + 3];
-    TORCH_CHECK(ip >= 2 && ip <= 5 && l1 * ip * ido == W && off >= 0 &&
-                    off + (ip - 1) * (ido - 1) <= tw.size(0),
+    // a factor above 5 (ducc0's radfg) also takes csarr [2 * ip]
+    const int64_t n_tw = (ip - 1) * (ido - 1) + (ip > 5 ? 2 * ip : 0);
+    TORCH_CHECK(ip >= 2 && l1 * ip * ido == W && off >= 0 &&
+                    off + n_tw <= tw.size(0),
                 "FFT plan: pass ", q, " does not fit a window of ", W);
     prod *= ip;
     f.ip[q] = static_cast<int>(ip);
@@ -247,10 +249,11 @@ repro_torch::HWCoeffs hw_coeffs(const std::vector<double>& f) {
 
 // AAPA's hyperparameters. fhyper (33): Table III (16 floats: target_cpu,
 // cooldown_min, min_replicas, warm_pool by class), rps_per_replica, the 6
-// Holt-Winters coefficients, resid_rho, z, sqrt(horizon), trend_tbar,
+// Holt-Winters coefficients, resid_rho, z, sqrt_h, trend_tbar,
 // trend_tvar, trend_step, inv_log_nb, inv_nb, band_q, band_scale. ihyper
-// (6): stride_min, horizon_min, forecast_confidence, period, classify,
-// use_band. The classifier's tables are read only when classify is 1.
+// (7): stride_min, horizon_min, forecast_confidence, period, classify,
+// use_band, use_scale. The classifier's tables are read only when classify
+// is 1.
 repro_torch::AAPAHyper aapa_hyper(
     const std::vector<double>& fhyper, const std::vector<int64_t>& ihyper,
     const torch::Tensor& tw, const std::vector<int64_t>& plan,
@@ -258,8 +261,8 @@ repro_torch::AAPAHyper aapa_hyper(
     const torch::Tensor& thresh, const torch::Tensor& leaf,
     const torch::Tensor& base, const torch::Tensor& cal_a,
     const torch::Tensor& cal_b, const torch::Tensor& cal_c) {
-  TORCH_CHECK(fhyper.size() == 33 && ihyper.size() == 6,
-              "the AAPA policy takes 33 float and 6 int hyperparameters");
+  TORCH_CHECK(fhyper.size() == 33 && ihyper.size() == 7,
+              "the AAPA policy takes 33 float and 7 int hyperparameters");
   TORCH_CHECK(ihyper[0] >= 1 && ihyper[1] >= 1 && ihyper[3] >= 1,
               "stride, horizon and period >= 1");
   repro_torch::AAPAHyper h{};
@@ -288,6 +291,7 @@ repro_torch::AAPAHyper aapa_hyper(
   h.hw.period = static_cast<int>(ihyper[3]);
   h.classify = static_cast<int>(ihyper[4]);
   h.use_band = static_cast<int>(ihyper[5]);
+  h.use_scale = static_cast<int>(ihyper[6]);
   if (h.classify) {
     h.gbdt = gbdt_tables(edges, feat, thresh, leaf, base);
     TORCH_CHECK(h.gbdt.n_features == 38 && h.gbdt.n_classes == 4,
@@ -353,7 +357,7 @@ void episode_block_aapa(torch::Tensor rates, torch::Tensor out_,
 
 // rates [B, M] -> out [12, B, M]; scratch pipe [S, B] and season [period,
 // B]. fhyper (12): the 6 Holt-Winters coefficients, resid_rho, z,
-// sqrt(horizon), band_q, inv_cap, cooldown_sec; ihyper (4): period,
+// sqrt_h, band_q, inv_cap, cooldown_sec; ihyper (4): period,
 // horizon_min, use_band, conservative.
 void episode_block_predictive(torch::Tensor rates, torch::Tensor out_,
                               torch::Tensor pipe, torch::Tensor season,

@@ -115,7 +115,7 @@ __device__ __forceinline__ float select4(int idx, const float* v) {
 // (forecast/models.py, core/forecasting.py) and a GBDT + beta-calibration
 // classifier (core/pipeline.py::Classify) or the registry's constant one;
 // with a conformal band (forecast/conformal.py) the interval confidence
-// takes the band's half-width and scale.
+// takes the band's half-width, and the scale of the `band` argument.
 struct AAPA {
   using Hyper = AAPAHyper;
   struct State {
@@ -209,7 +209,7 @@ struct AAPA {
         const float lo = fmaxf(point - half, 0.0f);
         const float hi = point + half;
         const float width = fmaxf(hi - lo, 0.0f);
-        const float sc = fmaxf(h.use_band ? h.band_scale : point, 1.0f);
+        const float sc = fmaxf(h.use_scale ? h.band_scale : point, 1.0f);
         s.conf = s.conf * (sc / (sc + width));
       }
       // core/uncertainty.py::adjust on the Table III row

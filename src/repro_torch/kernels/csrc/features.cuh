@@ -148,12 +148,112 @@ __device__ inline void stat_time_features(const float* x, float* xs, int n,
   out[27] = n_peaks;
 }
 
-// One forward pass of ducc0's real FFT (rfftp: radf2, radf3, radf4, radf5)
-// from cc to ch, CC(a, b, c) = cc[a + ido*(b + l1*c)] in and CH(a, b, c) =
-// ch[a + ido*(b + ip*c)] out, wa the pass's twiddles [(ip-1) * (ido-1)]
-// (core/features.py::_radix_pass, op for op).
+// ducc0's generic forward pass (radfg) for an odd factor ip > 5
+// (core/features.py::_radfg, op for op): C1(a, b, c) = cc[a + ido*(b + l1*c)]
+// is rotated in place, the butterflies go to CH2(a, j) = ch[a + idl1*j], the
+// result to cc[a + ido*(b + ip*c)], which is then copied to ch. wa holds the
+// pass's twiddles [(ip-1) * (ido-1)], then csarr [2 * ip]. Kept out of line:
+// no path at the system's 60-sample windows runs it.
+static __device__ __noinline__ void radfg(int ip, int l1, int ido,
+                                          const float* wa, float* cc,
+                                          float* ch) {
+  const int ipph = (ip + 1) / 2, idl1 = ido * l1;
+  const float* cs = wa + (ip - 1) * (ido - 1);
+  auto c1 = [&](int a, int b, int c) { return a + ido * (b + l1 * c); };
+  if (ido > 1)
+    for (int j = 1; j < ipph; ++j) {  // twiddle j and ip - j
+      const int jc = ip - j;
+      const int is1 = (j - 1) * (ido - 1), is2 = (jc - 1) * (ido - 1);
+      for (int k = 0; k < l1; ++k)
+        for (int i = 1; i < ido - 1; i += 2) {
+          const float w1r = __ldg(wa + is1 + i - 1), w1i = __ldg(wa + is1 + i);
+          const float w2r = __ldg(wa + is2 + i - 1), w2i = __ldg(wa + is2 + i);
+          const float t1 = cc[c1(i, k, j)], t2 = cc[c1(i + 1, k, j)];
+          const float t3 = cc[c1(i, k, jc)], t4 = cc[c1(i + 1, k, jc)];
+          const float x1 = w1r * t1 + w1i * t2, x2 = w1r * t2 - w1i * t1;
+          const float x3 = w2r * t3 + w2i * t4, x4 = w2r * t4 - w2i * t3;
+          cc[c1(i, k, j)] = x3 + x1;
+          cc[c1(i + 1, k, jc)] = x3 - x1;
+          cc[c1(i + 1, k, j)] = x2 + x4;
+          cc[c1(i, k, jc)] = x2 - x4;
+        }
+    }
+  for (int j = 1; j < ipph; ++j)
+    for (int k = 0; k < l1; ++k) {
+      const float t1 = cc[c1(0, k, j)], t2 = cc[c1(0, k, ip - j)];
+      cc[c1(0, k, j)] = t1 + t2;
+      cc[c1(0, k, ip - j)] = t2 - t1;
+    }
+  for (int l = 1; l < ipph; ++l) {
+    const int lc = ip - l;
+    const float c2 = __ldg(cs + 2 * l), s2 = __ldg(cs + 2 * l + 1);
+    const float c4 = __ldg(cs + 4 * l), s4 = __ldg(cs + 4 * l + 1);
+    for (int ik = 0; ik < idl1; ++ik) {
+      ch[ik + idl1 * l] = cc[ik] + c2 * cc[ik + idl1] + c4 * cc[ik + 2 * idl1];
+      ch[ik + idl1 * lc] =
+          s2 * cc[ik + idl1 * (ip - 1)] + s4 * cc[ik + idl1 * (ip - 2)];
+    }
+    int iang = 2 * l;
+    for (int j = 3; j < ipph;) {  // groups of 4, then 2, then 1
+      const int g = j < ipph - 3 ? 4 : (j < ipph - 1 ? 2 : 1);
+      float ar[4], ai[4];
+      for (int t = 0; t < g; ++t) {
+        iang += l;
+        if (iang > ip) iang -= ip;
+        ar[t] = __ldg(cs + 2 * iang);
+        ai[t] = __ldg(cs + 2 * iang + 1);
+      }
+      const int jc = ip - j;
+      for (int ik = 0; ik < idl1; ++ik) {
+        float re = ar[0] * cc[ik + idl1 * j], im = ai[0] * cc[ik + idl1 * jc];
+        for (int t = 1; t < g; ++t) {
+          re = re + ar[t] * cc[ik + idl1 * (j + t)];
+          im = im + ai[t] * cc[ik + idl1 * (jc - t)];
+        }
+        ch[ik + idl1 * l] = ch[ik + idl1 * l] + re;
+        ch[ik + idl1 * lc] = ch[ik + idl1 * lc] + im;
+      }
+      j += g;
+    }
+  }
+  for (int ik = 0; ik < idl1; ++ik) {
+    float s = cc[ik];
+    for (int j = 1; j < ipph; ++j) s = s + cc[ik + idl1 * j];
+    ch[ik] = s;
+  }
+  auto CC = [&](int a, int b, int c) -> float& {
+    return cc[a + ido * (b + ip * c)];
+  };
+  auto CH = [&](int a, int b, int c) { return ch[c1(a, b, c)]; };
+  for (int k = 0; k < l1; ++k)
+    for (int i = 0; i < ido; ++i) CC(i, 0, k) = CH(i, k, 0);
+  for (int j = 1; j < ipph; ++j) {
+    const int jc = ip - j, j2 = 2 * j - 1;
+    for (int k = 0; k < l1; ++k) {
+      CC(ido - 1, j2, k) = CH(0, k, j);
+      CC(0, j2 + 1, k) = CH(0, k, jc);
+      for (int i = 1; i < ido - 1; i += 2) {
+        const int ic = ido - i - 2;
+        CC(i, j2 + 1, k) = CH(i, k, j) + CH(i, k, jc);
+        CC(ic, j2, k) = CH(i, k, j) - CH(i, k, jc);
+        CC(i + 1, j2 + 1, k) = CH(i + 1, k, j) + CH(i + 1, k, jc);
+        CC(ic + 1, j2, k) = CH(i + 1, k, jc) - CH(i + 1, k, j);
+      }
+    }
+  }
+  for (int q = 0; q < ip * idl1; ++q) ch[q] = cc[q];
+}
+
+// One forward pass of ducc0's real FFT (rfftp: radf2, radf3, radf4, radf5,
+// radfg above 5) from cc to ch, CC(a, b, c) = cc[a + ido*(b + l1*c)] in and
+// CH(a, b, c) = ch[a + ido*(b + ip*c)] out, wa the pass's twiddles
+// (core/features.py::_radix_pass, op for op). cc is scratch afterwards.
 __device__ inline void radix_pass(int ip, int l1, int ido, const float* wa,
-                                  const float* cc, float* ch) {
+                                  float* cc, float* ch) {
+  if (ip > 5) {
+    radfg(ip, l1, ido, wa, cc, ch);
+    return;
+  }
   constexpr float kTaui3 = 0.8660254037844386467637231707529362f;
   constexpr float kHsqt2 = 0.7071067811865475244008443621048490f;
   constexpr float kTr11 = 0.3090169943749474241022934171828191f;
@@ -307,9 +407,9 @@ __device__ __forceinline__ float complex_abs(float re, float im) {
   return hi == 0.0f ? 0.0f : h;
 }
 
-// x [n] (4 <= n <= kMaxWindow, prime factors 2, 3, 5) -> out [10]. The
-// power spectrum |rfft(x - mean)|^2 without the DC bin, computed as the
-// reference's jnp.fft.rfft (ducc0's radix passes), abs and square run on
+// x [n] (4 <= n <= kMaxWindow) -> out [10]. The power spectrum
+// |rfft(x - mean)|^2 without the DC bin, computed as the reference's
+// jnp.fft.rfft (ducc0's radix passes), abs and square run on
 // the CPU (core/features.py::power_spectrum).
 __device__ inline void freq_features(const float* x, int n, const FreqTables& f,
                               float* out) {

@@ -104,10 +104,14 @@ struct AAPAHyper {
   int forecast_confidence;     // Algorithm 1 conf *= interval confidence
   HWHyper hw;
   float z, sqrt_h;  // native band half-width z * resid * sqrt(horizon)
-  // a conformal band (forecast/conformal.py): half-width q * sqrt(horizon)
-  // and confidence scale max(band_scale, 1) in place of the native band's
+  // a conformal band (forecast/conformal.py): half-width band_q * sqrt_h
+  // (sqrt_h 1 for a band that does not widen)
   int use_band;
-  float band_q, band_scale;
+  float band_q;
+  // confidence scale max(band_scale, 1) in place of max(point, 1): the
+  // scale of the band passed as aapa_controller's `band`
+  int use_scale;
+  float band_scale;
   // linear trend over the last 30 minutes: tbar, tvar and the step
   // (29 - tbar + horizon) to the forecast minute
   float trend_tbar, trend_tvar, trend_step;
@@ -131,7 +135,7 @@ struct PredictiveHyper {
   HWHyper hw;
   int horizon_min;
   float z, sqrt_h;      // native band half-width z * resid * sqrt(horizon)
-  int use_band;         // a conformal band's q * sqrt(horizon) instead
+  int use_band;         // a conformal band's q * sqrt_h instead
   float band_q;
   int conservative;     // scale to the band's upper edge, not the point
   float inv_cap;        // f32 reciprocal of rps_per_replica * target

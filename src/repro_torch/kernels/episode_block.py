@@ -7,7 +7,7 @@ its closure through a jaxpr; a CUDA kernel cannot, so each policy is a
 device function chosen at compile time and the launcher is picked by the
 controller's name: all five registered policies (HPA, predictive, KPA,
 AAPA, hybrid). The forecasting policies take the Holt-Winters forecaster,
-native or with a conformal band (read from the controller's `hyper`);
+native or with a conformal band (read from the forecaster's `hyper`);
 AAPA and hybrid classify with a GBDT + beta-calibration classifier
 (``core.pipeline.Classify``) or the registry's constant default. Plain
 version: ``kernels.ref.episode_block_ref``; ``kernels.ops.episode_block``
@@ -22,7 +22,6 @@ from repro_torch.core import calibration, features
 from repro_torch.core.archetypes import table_iii_arrays
 from repro_torch.core.pipeline import Classify
 from repro_torch.forecast import api as fapi
-from repro_torch.forecast import conformal
 from repro_torch.kernels import _build
 from repro_torch.kernels.gbdt_tables import table_args
 from repro_torch.sim.cluster import MinuteOut, recip
@@ -56,20 +55,27 @@ def _launch_hpa(ext, rates, out, cfg, hyper, ci, arch_out):
         hyper["tolerance"], hyper["cooldown_sec"])
 
 
-def _holt_winters(hyper) -> dict:
-    """The hyperparameters of a forecasting policy's Holt-Winters
-    forecaster, band-wrapped or not; raises for any other forecaster and
-    for a band that does not widen with the horizon."""
-    fcst = hyper["forecaster"]
-    inner = conformal.unwrap(fcst)
+def _holt_winters(fcst, horizon: int) -> tuple[dict, int, float, float]:
+    """A forecasting policy's forecaster as the kernel takes it: (the
+    Holt-Winters hyperparameters, use_band, band_q, sqrt_h). The interval
+    half-width is q * sqrt_h with a conformal band (the outermost `wrap`'s,
+    the one the forecaster's `forecast` applies; sqrt_h is 1 for a band
+    that does not widen), z * resid * sqrt_h without. Raises for any
+    forecaster but Holt-Winters."""
+    inner = fcst
+    while "inner" in inner.hyper:
+        inner = inner.hyper["inner"]
     if inner.name != "holt_winters":
         raise NotImplementedError(
             f"episode_block's forecasting policies run the holt_winters "
             f"forecaster, not {fcst.name!r}")
-    if not fcst.hyper.get("widen_with_horizon", True):
-        raise NotImplementedError(
-            "episode_block widens a conformal band with sqrt(horizon)")
-    return inner.hyper
+    band = fcst.hyper.get("band")
+    sqrt_h = float(np.sqrt(np.float32(horizon)))
+    if band is None:
+        return inner.hyper, 0, 0.0, sqrt_h
+    if not fcst.hyper["widen_with_horizon"]:
+        sqrt_h = 1.0
+    return inner.hyper, 1, float(band.q), sqrt_h
 
 
 def _hw_floats(hw) -> list[float]:
@@ -80,14 +86,12 @@ def _hw_floats(hw) -> list[float]:
             _f32(fapi.RESID_RHO)]
 
 
-def _band_floats(band) -> list[float]:
-    """(q, scale) of a conformal band, zeros without one."""
-    return [0.0, 0.0] if band is None else [float(band.q), float(band.scale)]
-
-
 def _launch_aapa(ext, rates, out, cfg, hyper, ci, arch_out, guard=()):
     from repro_torch.scaling.registry import default_classify
-    hw = _holt_winters(hyper)
+    horizon = int(hyper["horizon_min"])
+    hw, use_band, band_q, sqrt_h = _holt_winters(hyper["forecaster"],
+                                                 horizon)
+    scale = hyper["conf_scale"]
     cls = hyper["classify"]
     if cfg.history_len != HISTORY:
         raise NotImplementedError(
@@ -111,19 +115,18 @@ def _launch_aapa(ext, rates, out, cfg, hyper, ci, arch_out, guard=()):
         raise NotImplementedError(
             "episode_block's AAPA policy takes core.pipeline.Classify or "
             "the registry's default_classify")
-    period, horizon = int(hw["period"]), int(hyper["horizon_min"])
+    period = int(hw["period"])
     tab = table_iii_arrays()
     tbar, tvar = features.trend_constants(TREND_WINDOW)
     inv_log_nb, inv_nb = features.freq_constants(HISTORY)
-    band = hyper["band"]
     fh = [*tab["target_cpu"], *tab["cooldown_min"], *tab["min_replicas"],
           *tab["warm_pool"], _f32(cfg.rps_per_replica), *_hw_floats(hw),
-          _f32(fapi.NATIVE_Z), float(np.sqrt(np.float32(horizon))), tbar,
-          tvar, _f32((TREND_WINDOW - 1) - tbar + horizon), inv_log_nb,
-          inv_nb, *_band_floats(band)]
+          _f32(fapi.NATIVE_Z), sqrt_h, tbar, tvar,
+          _f32((TREND_WINDOW - 1) - tbar + horizon), inv_log_nb, inv_nb,
+          band_q, 0.0 if scale is None else float(scale)]
     ih = [int(hyper["stride_min"]), horizon,
-          int(hyper["forecast_confidence"]), period, kind,
-          int(band is not None)]
+          int(hyper["forecast_confidence"]), period, kind, use_band,
+          int(scale is not None)]
     pipe = torch.empty((cfg.startup_sec, B), dtype=torch.float32,
                        device=dev)
     scratch = torch.empty((HISTORY + period, B), dtype=torch.float32,
@@ -143,14 +146,13 @@ def _launch_hybrid(ext, rates, out, cfg, hyper, ci, arch_out):
 
 def _launch_predictive(ext, rates, out, cfg, hyper, ci, arch_out):
     del arch_out                      # predictive carries no archetype
-    hw = _holt_winters(hyper)
-    period, horizon = int(hw["period"]), int(hyper["horizon_min"])
-    band = hyper["band"]
-    fh = [*_hw_floats(hw), _f32(fapi.NATIVE_Z),
-          float(np.sqrt(np.float32(horizon))), _band_floats(band)[0],
+    horizon = int(hyper["horizon_min"])
+    hw, use_band, band_q, sqrt_h = _holt_winters(hyper["forecaster"],
+                                                 horizon)
+    period = int(hw["period"])
+    fh = [*_hw_floats(hw), _f32(fapi.NATIVE_Z), sqrt_h, band_q,
           hyper["inv_cap"], hyper["cooldown_sec"]]
-    ih = [period, horizon, int(band is not None),
-          int(hyper["conservative"])]
+    ih = [period, horizon, use_band, int(hyper["conservative"])]
     B, dev = rates.shape[0], rates.device
     pipe = torch.empty((cfg.startup_sec, B), dtype=torch.float32,
                        device=dev)

@@ -12,7 +12,6 @@ import torch
 
 from repro_torch.core import features, forecasting, gbdt
 from repro_torch.core.pipeline import Classify
-from repro_torch.forecast import conformal
 from repro_torch.scaling import policies
 from repro_torch.sim import cluster
 
@@ -51,20 +50,14 @@ def _plain_controller(controller, cfg):
     """`controller`, or for an AAPA or hybrid controller with a GBDT
     classifier (``core.pipeline.Classify``) the same controller rebuilt on
     `cfg` (the episode kernel reads `cfg` too) with the classifier's
-    logits from `gbdt_logits_ref`."""
+    logits from `gbdt_logits_ref`; its forecaster and band are the
+    controller's own."""
     h = controller.hyper
     if (controller.name not in ("aapa", "hybrid")
             or not isinstance(h["classify"], Classify)):
         return controller
-    cls = dataclasses.replace(h["classify"], logits=gbdt_logits_ref)
-    kw = dict(stride_min=h["stride_min"], horizon_min=h["horizon_min"],
-              forecaster=conformal.unwrap(h["forecaster"]), band=h["band"],
-              forecast_confidence=h["forecast_confidence"])
-    if controller.name == "hybrid":
-        return policies.hybrid_controller(
-            cfg, cls, guard_target=h["guard_target"],
-            max_down_frac=h["max_down_frac"], **kw)
-    return policies.aapa_controller(cfg, cls, **kw)
+    return policies.rebuild(controller, cfg, classify=dataclasses.replace(
+        h["classify"], logits=gbdt_logits_ref))
 
 
 def holt_winters_ref(y, *, period: int = 60, alpha: float = 0.1,

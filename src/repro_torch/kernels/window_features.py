@@ -24,9 +24,9 @@ MIN_W, MAX_W = 3, 64
 def window_features_cuda(windows: torch.Tensor, *,
                          freq: bool = False) -> torch.Tensor:
     """Launch the kernel: windows [N, W] (contiguous float32 on CUDA,
-    3 <= W <= 64) -> features [N, 28]; with `freq` (W >= 4, prime
-    factors 2, 3 and 5 only) the 38 features [N, 38], the 10 frequency
-    features after the 28. Raises on any other input."""
+    3 <= W <= 64) -> features [N, 28]; with `freq` (W >= 4) the 38
+    features [N, 38], the 10 frequency features after the 28. Raises on
+    any other input."""
     if windows.device.type != "cuda":
         raise ValueError("window_features kernel needs a CUDA tensor, got "
                          f"{windows.device}")

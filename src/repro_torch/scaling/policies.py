@@ -127,7 +127,7 @@ def predictive_controller(cfg, *, target: float = 0.70,
     the point forecast (pay replicas for forecast uncertainty)."""
     fcst = _resolve_forecaster(forecaster, band)
     hyper = dict(target=target, horizon_min=int(horizon_min),
-                 forecaster=fcst, band=band, conservative=bool(conservative),
+                 forecaster=fcst, conservative=bool(conservative),
                  inv_cap=recip(cfg.rps_per_replica * target),
                  cooldown_sec=_f32(cooldown_min * 60.0))
 
@@ -183,10 +183,18 @@ def aapa_controller(
     is given."""
     if forecast_confidence is None:
         forecast_confidence = band is not None
-    hyper = dict(stride_min=int(stride_min), horizon_min=int(horizon_min),
-                 forecaster=_resolve_forecaster(forecaster, band), band=band,
-                 forecast_confidence=bool(forecast_confidence),
-                 classify=classify, table=table_iii_arrays())
+    return _aapa(cfg, dict(
+        stride_min=int(stride_min), horizon_min=int(horizon_min),
+        forecaster=_resolve_forecaster(forecaster, band),
+        conf_scale=None if band is None else band.scale,
+        forecast_confidence=bool(forecast_confidence), classify=classify,
+        table=table_iii_arrays()))
+
+
+def _aapa(cfg, hyper: dict) -> Controller:
+    """The AAPA controller of a complete `hyper` dict: the forecaster as
+    `decide` runs it (band-wrapped or not) and `conf_scale`, the scale of
+    the interval confidence (None: the point forecast's)."""
 
     def init(lanes: tuple[int, ...] = (), device="cuda"):
         dev = _device.resolve(device)
@@ -205,9 +213,7 @@ def aapa_controller(
         arch, conf = hyper["classify"](F.extract_features(hist))
         if hyper["forecast_confidence"]:
             iv = fcst.forecast(fst, hyper["horizon_min"])
-            band = hyper["band"]
-            conf = conf * fapi.interval_confidence(
-                iv, None if band is None else band.scale)
+            conf = conf * fapi.interval_confidence(iv, hyper["conf_scale"])
         adj = uncertainty.adjust(conf, _select4(arch, *tab["target_cpu"]),
                                  _select4(arch, *tab["cooldown_min"]),
                                  _select4(arch, *tab["min_replicas"]))
@@ -333,11 +339,17 @@ def hybrid_controller(cfg, classify, *, guard_target: float = 0.85,
     most `max_down_frac` of the current fleet. State and classification
     cadence are ``aapa_controller``'s; only `decide` is wrapped."""
     base = aapa_controller(cfg, classify, **aapa_kw)
-    hyper = dict(base.hyper, guard_target=guard_target,
-                 max_down_frac=max_down_frac,
-                 inv_guard=recip(guard_target),
-                 inv_rps_guard=recip(cfg.rps_per_replica * guard_target),
-                 down_keep=_f32(1.0 - max_down_frac))
+    return _hybrid(cfg, dict(
+        base.hyper, guard_target=guard_target, max_down_frac=max_down_frac,
+        inv_guard=recip(guard_target),
+        inv_rps_guard=recip(cfg.rps_per_replica * guard_target),
+        down_keep=_f32(1.0 - max_down_frac)))
+
+
+def _hybrid(cfg, hyper: dict) -> Controller:
+    """The hybrid controller of a complete `hyper` dict (AAPA's and the
+    guard's f32 values)."""
+    base = _aapa(cfg, hyper)
 
     def decide(state, obs: Obs):
         state, desired, cool = base.decide(state, obs)
@@ -354,3 +366,11 @@ def hybrid_controller(cfg, classify, *, guard_target: float = 0.85,
 
     return Controller("hybrid", base.init, base.on_minute, decide,
                       hyper=hyper)
+
+
+def rebuild(controller: Controller, cfg, **changes) -> Controller:
+    """An AAPA or hybrid controller made anew from its `hyper` dict with
+    `changes` applied, its plant constants taken from `cfg` as the episode
+    kernel takes them (the plain episode swaps in the plain classifier)."""
+    make = {"aapa": _aapa, "hybrid": _hybrid}[controller.name]
+    return make(cfg, dict(controller.hyper, **changes))

@@ -122,7 +122,7 @@ def test_calibrate_coverage_wrap_confidence_match_reference(split, name,
     # the wrapped forecaster: same point, band half-width q * sqrt(h)
     rw, tw = ref_conformal.wrap(rf, rband), t_conformal.wrap(tf, tband)
     assert tw.name == rw.name == f"conformal[{name}]"
-    assert t_conformal.unwrap(tw) is tf
+    assert tw.hyper["inner"] is tf and tw.hyper["band"] is tband
 
     def ref_run(series):
         def body(st, v):

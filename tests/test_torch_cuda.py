@@ -138,7 +138,7 @@ def _classifier(dev, seed=0, rounds=60, depth=4):
 
 
 @pytest.mark.parametrize("freq", [False, True])
-@pytest.mark.parametrize("width", [60, 45])
+@pytest.mark.parametrize("width", [60, 45, 49, 63])
 def test_window_features_kernel_matches_plain(cuda, width, freq):
     """The 28 features, and with `freq` all 38 (the classification path's
     launch, `ops.extract_features_fused`), bit for bit."""
@@ -245,16 +245,27 @@ def _band(dev):
                                split, alpha=0.9)
 
 
+def _wrapped(dev, widen=True):
+    """Holt-Winters wrapped in the band, as a `forecaster=` argument."""
+    return conformal.wrap(forecast_registry.make("holt_winters"), _band(dev),
+                          widen_with_horizon=widen)
+
+
 @pytest.mark.parametrize("ci", [15, 7])
 @pytest.mark.parametrize("policy,kw", [
     ("predictive", {}), ("predictive", dict(conservative=True)),
-    ("predictive", dict(band=True, conservative=True)), ("kpa", {}),
-    ("kpa", dict(panic_threshold=1.2))],
-    ids=["predictive", "conservative", "band", "kpa", "kpa_panicky"])
+    ("predictive", dict(band=True, conservative=True)),
+    ("predictive", dict(forecaster="wrapped", conservative=True)),
+    ("predictive", dict(forecaster="unwidened", conservative=True)),
+    ("kpa", {}), ("kpa", dict(panic_threshold=1.2))],
+    ids=["predictive", "conservative", "band", "wrapped", "unwidened", "kpa",
+         "kpa_panicky"])
 def test_policy_episode_kernel_matches_plain(cuda, policy, kw, ci):
     cfg = cluster.SimConfig(control_interval_sec=ci)
     if kw.get("band"):
         kw = dict(kw, band=_band(cuda))
+    if kw.get("forecaster"):
+        kw = dict(kw, forecaster=_wrapped(cuda, kw["forecaster"] == "wrapped"))
     ctrl = registry.make(policy, cfg, **kw)
     rates = torch.as_tensor(scenarios.archetype_mix(
         n_workloads=129, minutes=90, seed=1).rates, device=cuda)
@@ -268,13 +279,19 @@ def test_policy_episode_kernel_matches_plain(cuda, policy, kw, ci):
 
 
 @pytest.mark.parametrize("ci", [15, 7])
+@pytest.mark.parametrize("wrapped", [False, True], ids=["band", "wrapped"])
 @pytest.mark.parametrize("policy", ["aapa", "hybrid"])
-def test_band_archetype_episode_kernel_matches_plain(cuda, policy, ci):
-    """AAPA and hybrid with the conformal band and the seeded classifier:
-    MinuteOut and every lane's archetype sequence."""
+def test_band_archetype_episode_kernel_matches_plain(cuda, policy, wrapped,
+                                                     ci):
+    """AAPA and hybrid with the conformal band (as `band=`, or as a
+    wrapped forecaster with the forecast confidence on: the band's
+    half-width, the point's scale) and the seeded classifier: MinuteOut
+    and every lane's archetype sequence."""
     cfg = cluster.SimConfig(control_interval_sec=ci)
+    kw = (dict(forecaster=_wrapped(cuda), forecast_confidence=True)
+          if wrapped else dict(band=_band(cuda)))
     ctrl = registry.make(policy, cfg, classify=_classifier(cuda),
-                         band=_band(cuda), stride_min=5)
+                         stride_min=5, **kw)
     rates = torch.as_tensor(scenarios.archetype_mix(
         n_workloads=129, minutes=90, seed=1).rates, device=cuda)
     got, got_arch = episode_block.aapa_episode_cuda(rates, ctrl, cfg)

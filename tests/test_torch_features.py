@@ -168,11 +168,13 @@ def _reference_power(x):
             jnp.asarray(x)))[:, 1:]
 
 
-@pytest.mark.parametrize("n", [60, 45, 64, 50, 32, 27, 12, 5, 4])
+@pytest.mark.parametrize(
+    "n", [60, 45, 64, 50, 32, 27, 12, 5, 4, 7, 14, 21, 28, 49, 61, 63])
 def test_power_spectrum_is_the_reference_bitwise(n):
     """The port's |rfft|^2 against the reference's on random gamma
     windows, the tied windows, all-zero and constant ones; the
-    radix-2, 3, 4 and 5 passes and every window width the FFT takes."""
+    radix-2, 3, 4 and 5 passes and the generic odd-factor pass (7, 49 =
+    7 x 7 with twiddles, the prime 61), alone and after the others."""
     rng = np.random.default_rng(n)
     x = rng.gamma(2.0, 30.0, size=(300, n)).astype(np.float32)
     x[:6] = [[0.0], [5.0], [0.0], [0.0], [20.0], [7.0]]
@@ -185,8 +187,8 @@ def test_power_spectrum_is_the_reference_bitwise(n):
 
 def test_fft_twiddles_are_rounded_f64():
     """Each pass's twiddles are cos/sin of 2*pi*j*l1*i/n from f64, rounded
-    once, in ducc0's layout; a length with a prime factor above 5 is
-    refused."""
+    once, in ducc0's layout; a factor above 5 appends csarr, cos/sin of
+    2*pi*m/ip with the upper half mirrored."""
     plan = t_features.rfft_plan(60)
     assert [p[:3] for p in plan] == [(5, 12, 1), (3, 4, 5), (4, 1, 15)]
     for ip, l1, ido, wa in plan:
@@ -198,5 +200,12 @@ def test_fft_twiddles_are_rounded_f64():
                                           np.cos(ang).astype(np.float32))
             np.testing.assert_array_equal(wa[j - 1, 1::2],
                                           np.sin(ang).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="radix"):
-        t_features.rfft_plan(14)
+    plan = t_features.rfft_plan(14)
+    assert [p[:3] for p in plan] == [(7, 2, 1), (2, 1, 7)]
+    cs = np.asarray(plan[0][3], np.float32).reshape(7, 2)
+    m = np.arange(1, 4)
+    want = np.stack([np.cos(2 * np.pi * m / 7), np.sin(2 * np.pi * m / 7)],
+                    -1).astype(np.float32)
+    np.testing.assert_array_equal(cs[0], [1.0, 0.0])
+    np.testing.assert_array_equal(cs[m], want)
+    np.testing.assert_array_equal(cs[7 - m], want * [1, -1])

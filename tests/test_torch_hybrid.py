@@ -26,6 +26,8 @@ from repro.forecast import registry as ref_fregistry
 from repro.scaling import registry as ref_registry
 from repro.sim import cluster as ref_cluster
 from repro_torch import interop
+from repro_torch.forecast import conformal as t_conformal
+from repro_torch.forecast import registry as t_fregistry
 from repro_torch.kernels import ref
 from repro_torch.scaling import registry as t_registry
 from repro_torch.scaling import scenarios as t_scenarios
@@ -79,8 +81,23 @@ def classifier(tmp_path_factory):
             .make_classify())
 
 
-def _hyper(kw, band):
-    return {k: (band if v == "band" else v) for k, v in kw.items()}
+def _hyper(kw, band, wrap, forecaster):
+    """`kw` with "band" standing for the band and "wrapped" /
+    "unwidened" for Holt-Winters wrapped in it, widening with sqrt(h) or
+    not (no `band=` argument: the confidence scale is the point's)."""
+    wrapped = {"wrapped": True, "unwidened": False}
+    return {k: (band if v == "band" else
+                wrap(forecaster("holt_winters"), band,
+                     widen_with_horizon=wrapped[v]) if v in wrapped else v)
+            for k, v in kw.items()}
+
+
+def _ref_hyper(kw, bands):
+    return _hyper(kw, bands[0], ref_conformal.wrap, ref_fregistry.make)
+
+
+def _port_hyper(kw, bands):
+    return _hyper(kw, bands[1], t_conformal.wrap, t_fregistry.make)
 
 
 def _assert_minute_out(got, want):
@@ -105,24 +122,57 @@ def _reference_minutes(cfg, ctrl, rates):
 @pytest.mark.parametrize("ci", CIS)
 @pytest.mark.parametrize("policy,kw", [
     ("hybrid", {}), ("hybrid", dict(band="band", max_down_frac=0.5)),
-    ("aapa", dict(band="band"))], ids=["hybrid", "hybrid_band", "aapa_band"])
+    ("aapa", dict(band="band")),
+    ("aapa", dict(forecaster="wrapped", forecast_confidence=True)),
+    ("hybrid", dict(forecaster="unwidened", forecast_confidence=True))],
+    ids=["hybrid", "hybrid_band", "aapa_band", "aapa_wrapped",
+         "hybrid_unwidened"])
 def test_archetype_policy_episode_matches_reference(bands, classifier,
                                                     policy, kw, ci):
     """hybrid with the seeded GBDT (native band, and with the conformal
-    band) and AAPA with the band: MinuteOut and the archetype sequence of
-    every lane; the GBDT moves lanes between archetypes."""
+    band), AAPA with the band, and both with a band-wrapped forecaster
+    and no `band=` (the half-width the band's, the confidence scale the
+    point's): MinuteOut and the archetype sequence of every lane; the
+    GBDT moves lanes between archetypes."""
     rcfg = ref_cluster.SimConfig(control_interval_sec=ci)
     tcfg = t_cluster.SimConfig(control_interval_sec=ci)
     rc = ref_registry.make(policy, rcfg, classify=classifier[0],
-                           **_hyper(kw, bands[0]))
+                           **_ref_hyper(kw, bands))
     tc = t_registry.make(policy, tcfg, classify=classifier[1],
-                         **_hyper(kw, bands[1]))
+                         **_port_hyper(kw, bands))
     want_out, want_arch = _reference_minutes(rcfg, rc, _rates())
     got_out, got_arch = ref.aapa_episode_ref(torch.as_tensor(_rates()), tc,
                                              tcfg)
     _assert_minute_out(got_out, want_out)
     np.testing.assert_array_equal(got_arch.numpy(), want_arch)
     assert len(np.unique(want_arch)) >= 3
+
+
+@pytest.mark.parametrize("ci", [15, 7])
+@pytest.mark.parametrize("policy", ["aapa", "hybrid"])
+def test_own_band_episode_matches_reference(classifier, policy, ci):
+    """The whole uncertainty path in each package: the port calibrates its
+    own band (its `calibrate` on the CPU) and runs its AAPA or hybrid with
+    it, the reference does the same with its own; the band's scale (a
+    mean over the split, summed in another order) feeds Algorithm 1's
+    ceil decisions, and the episodes and archetypes agree."""
+    split = t_scenarios.burst_storm(n_workloads=16, minutes=240,
+                                    seed=2).rates
+    rband = ref_conformal.calibrate(ref_fregistry.make("holt_winters"),
+                                    jnp.asarray(split), alpha=0.9)
+    tband = t_conformal.calibrate(t_fregistry.make("holt_winters"), split,
+                                  alpha=0.9, device="cpu")
+    np.testing.assert_allclose(float(tband.scale), float(rband.scale),
+                               rtol=1e-5)
+    rcfg = ref_cluster.SimConfig(control_interval_sec=ci)
+    tcfg = t_cluster.SimConfig(control_interval_sec=ci)
+    rc = ref_registry.make(policy, rcfg, classify=classifier[0], band=rband)
+    tc = t_registry.make(policy, tcfg, classify=classifier[1], band=tband)
+    want_out, want_arch = _reference_minutes(rcfg, rc, _rates())
+    got_out, got_arch = ref.aapa_episode_ref(torch.as_tensor(_rates()), tc,
+                                             tcfg)
+    _assert_minute_out(got_out, want_out)
+    np.testing.assert_array_equal(got_arch.numpy(), want_arch)
 
 
 @pytest.mark.parametrize("ci", [15, 7])

@@ -24,6 +24,7 @@ from repro.scaling import registry as ref_registry
 from repro.sim import cluster as ref_cluster
 from repro_torch import interop
 from repro_torch.forecast import conformal as t_conformal
+from repro_torch.forecast import registry as t_fregistry
 from repro_torch.kernels import episode_block
 from repro_torch.scaling import policies as t_policies
 from repro_torch.scaling import registry as t_registry
@@ -59,7 +60,8 @@ def bands():
                                          device="cpu")
 
 
-#: case -> (policy, hyperparameters; "band" stands for the band)
+#: case -> (policy, hyperparameters; "band" stands for the band,
+#: "wrapped" / "unwidened" for Holt-Winters wrapped in it)
 CASES = {
     "predictive": ("predictive", {}),
     "predictive_band": ("predictive", dict(band="band")),
@@ -67,14 +69,30 @@ CASES = {
                                                    conservative=True)),
     "predictive_conservative_native": ("predictive",
                                        dict(conservative=True)),
+    "predictive_conservative_wrapped": ("predictive", dict(
+        forecaster="wrapped", conservative=True)),
+    "predictive_conservative_unwidened": ("predictive", dict(
+        forecaster="unwidened", conservative=True)),
     "kpa": ("kpa", {}),
     "kpa_panicky": ("kpa", dict(panic_threshold=1.2, stable_window_s=120.0,
                                 cooldown_min=0.5)),
 }
 
 
-def _hyper(kw, band):
-    return {k: (band if v == "band" else v) for k, v in kw.items()}
+def _hyper(kw, band, wrap, forecaster):
+    wrapped = {"wrapped": True, "unwidened": False}
+    return {k: (band if v == "band" else
+                wrap(forecaster("holt_winters"), band,
+                     widen_with_horizon=wrapped[v]) if v in wrapped else v)
+            for k, v in kw.items()}
+
+
+def _ref_hyper(kw, bands):
+    return _hyper(kw, bands[0], ref_conformal.wrap, ref_fregistry.make)
+
+
+def _port_hyper(kw, bands):
+    return _hyper(kw, bands[1], t_conformal.wrap, t_fregistry.make)
 
 
 def _assert_minute_out(got, want):
@@ -89,8 +107,8 @@ def test_policy_episode_matches_reference(bands, case, ci):
     policy, kw = CASES[case]
     rcfg = ref_cluster.SimConfig(control_interval_sec=ci)
     tcfg = t_cluster.SimConfig(control_interval_sec=ci)
-    rc = ref_registry.make(policy, rcfg, **_hyper(kw, bands[0]))
-    tc = t_registry.make(policy, tcfg, **_hyper(kw, bands[1]))
+    rc = ref_registry.make(policy, rcfg, **_ref_hyper(kw, bands))
+    tc = t_registry.make(policy, tcfg, **_port_hyper(kw, bands))
     want = ref_cluster.make_simulator(rc, rcfg, decide_kernel=False,
                                       plant_kernel=False)(
         jnp.asarray(_rates()))
@@ -116,7 +134,8 @@ def test_hyperparameters_are_the_kernel_arguments(bands):
     p = t_registry.make("predictive", cfg, band=bands[1], target=0.6)
     assert p.hyper["inv_cap"] == float(np.float32(1) / np.float32(12.0))
     assert p.hyper["forecaster"].name == "conformal[holt_winters]"
-    assert p.hyper["band"] is bands[1]
+    assert p.hyper["forecaster"].hyper["band"] is bands[1]
+    assert "band" not in p.hyper
     k = t_registry.make("kpa", cfg)
     assert k.hyper["a_s"] == float(np.float32(7 / 60))
     assert k.hyper["a_p"] == 1.0
@@ -135,8 +154,8 @@ def test_policy_state_handoff_from_reference(bands):
     for name, kw in (("predictive", dict(band="band", conservative=True)),
                      ("kpa", {})):
         rcfg, tcfg = ref_cluster.SimConfig(), t_cluster.SimConfig()
-        rc = ref_registry.make(name, rcfg, **_hyper(kw, bands[0]))
-        tc = t_registry.make(name, tcfg, **_hyper(kw, bands[1]))
+        rc = ref_registry.make(name, rcfg, **_ref_hyper(kw, bands))
+        tc = t_registry.make(name, tcfg, **_port_hyper(kw, bands))
 
         def run(carry, rs):
             return jax.lax.scan(
@@ -160,24 +179,51 @@ def test_policy_state_handoff_from_reference(bands):
 
 def test_episode_kernel_launchers_cover_every_policy():
     """Every registered policy has a compiled episode-kernel policy; other
-    forecasters and an unwidened band stay outside the kernel (the
-    launcher raises before it builds or launches anything)."""
+    forecasters stay outside the kernel (the launcher raises before it
+    builds or launches anything)."""
     cfg = t_cluster.SimConfig()
     assert set(episode_block._POLICIES) == set(t_registry.available())
     rates = torch.ones(2, 3)
     for name in ("predictive", "aapa", "hybrid"):
         ctrl = t_registry.make(name, cfg, forecaster="ewma")
         with pytest.raises(NotImplementedError, match="holt_winters"):
-            episode_block._holt_winters(ctrl.hyper)
-    band = t_conformal.ConformalBand(torch.tensor(2.0), 0.9,
-                                     torch.tensor(9.0))
-    fc = t_conformal.wrap(t_registry.make("predictive", cfg).hyper[
-        "forecaster"], band, widen_with_horizon=False)
-    with pytest.raises(NotImplementedError, match="sqrt"):
-        episode_block._holt_winters(dict(forecaster=fc))
+            episode_block._holt_winters(ctrl.hyper["forecaster"], 15)
     with pytest.raises(ValueError, match="CUDA"):
         episode_block.aapa_episode_cuda(rates, t_registry.make("hybrid",
                                                                cfg), cfg)
     with pytest.raises(ValueError, match="aapa or hybrid"):
         episode_block.aapa_episode_cuda(rates, t_registry.make("kpa", cfg),
                                         cfg)
+
+
+def test_episode_kernel_takes_the_band_of_the_forecaster():
+    """The kernel's interval half-width comes from the forecaster the
+    plain episode runs, and its confidence scale from the `band=`
+    argument: a wrapped forecaster without `band=` gives the same
+    q * sqrt(h) as `band=band` and the point's scale; an unwidened band
+    q * 1; the outermost of two wraps wins."""
+    cfg = t_cluster.SimConfig()
+    band = t_conformal.ConformalBand(torch.tensor(2.5), 0.9,
+                                     torch.tensor(9.0))
+    hw = t_fregistry.make("holt_winters")
+    sqrt15 = float(np.sqrt(np.float32(15)))
+    for name in ("predictive", "aapa"):
+        by_arg = t_registry.make(name, cfg, band=band)
+        wrapped = t_registry.make(name, cfg,
+                                  forecaster=t_conformal.wrap(hw, band))
+        want = (hw.hyper, 1, 2.5, sqrt15)
+        assert episode_block._holt_winters(by_arg.hyper["forecaster"],
+                                           15) == want
+        assert episode_block._holt_winters(wrapped.hyper["forecaster"],
+                                           15) == want
+    assert t_registry.make("aapa", cfg, band=band).hyper[
+        "conf_scale"] is band.scale
+    assert t_registry.make("aapa", cfg, forecaster=t_conformal.wrap(
+        hw, band)).hyper["conf_scale"] is None
+    flat = t_conformal.wrap(hw, band, widen_with_horizon=False)
+    assert episode_block._holt_winters(flat, 15) == (hw.hyper, 1, 2.5, 1.0)
+    outer = t_conformal.ConformalBand(torch.tensor(4.0), 0.8,
+                                      torch.tensor(3.0))
+    assert episode_block._holt_winters(t_conformal.wrap(flat, outer),
+                                       15) == (hw.hyper, 1, 4.0, sqrt15)
+    assert episode_block._holt_winters(hw, 15) == (hw.hyper, 0, 0.0, sqrt15)
