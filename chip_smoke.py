@@ -70,11 +70,21 @@ and prints no result line):
     archetypes exact for aapa and hybrid.
 14. A 100,000 x 1440 Table IV row (episode + pooled metrics + REI) for
     each of those five policies, with the episode kernel's time per
-    25,000-lane launch against its bound.
+    25,000-lane launch against its bound, split into the pre-pass
+    (``policy_signals``) and the plant pass where the policy has one.
+15. The pre-pass kernels against their plain version
+    (``ref.policy_signals_ref``) bit for bit on the 25,000 x 1440 chunk:
+    AAPA with the band and the forecast confidence (every signal, slot
+    and per-minute archetype), and predictive conservative with the band.
+16. For information: the plant pass over all 100,000 lanes in one launch
+    against four 25,000-lane launches (HPA's episode, AAPA's plant pass),
+    and each kernel entry's registers, stack and shared memory from
+    ``cuobjdump --dump-resource-usage`` of the built extension.
 
 Phases 4, 5, 8, 10, 12 and 14 each reset the kernels' launch counts just
 before they run and read them just after; a path whose kernel was never
-launched fails. Kernel-vs-plain comparisons and timing launches are not
+launched fails (the predictive, AAPA and hybrid rows: the pre-pass and
+the plant pass). Kernel-vs-plain comparisons and timing launches are not
 counted. The plain runs of phases 8, 9, 11 and 13 are checked to launch
 no kernel (the plain AAPA and hybrid episodes classify through the plain
 GBDT).
@@ -134,6 +144,10 @@ HYBRID_GUARD_OPS = 11
 PRED_OPS_PER_HEAD = 9
 PRED_OPS_PER_MINUTE = 20 + 4 * 15 + 6
 KPA_OPS_PER_HEAD = 32
+# The pre-pass's bytes per lane-minute: one rate in, and out the three
+# signals (AAPA, hybrid) or one (predictive); per reclassification slot
+# the archetype and Algorithm 1's three parameters.
+PREPASS_SLOT_BYTES = 16
 # holt_winters: the forecast (2 adds) and hw_step (13) per series and step
 HW_OPS_PER_STEP = 15
 HW_TOL = dict(rtol=1e-4, atol=1e-3)
@@ -300,15 +314,74 @@ def aapa_episode_ops(B: int, M: int, heads: int, stride: int, downs: float,
     the plant as for HPA, the decide per head, on_minute per minute, and
     per reclassification the 38 features, the trees, the calibration and
     (with `confidence`) the interval confidence."""
-    t = cls.params.tables
-    n_edges = cls.params.bin_edges.shape[1]
-    reclass = (stat_feature_ops(60) + freq_feature_ops(60)
-               + gbdt_ops(38, n_edges, t.feat.shape[0], cls.params.depth)
-               + AAPA_CAL_OPS + (AAPA_CONF_OPS if confidence else 0))
     return episode_ops(B, M, heads, downs, S,
                        AAPA_OPS_PER_HEAD + (HYBRID_GUARD_OPS if guard
                                             else 0),
-                       AAPA_OPS_PER_MINUTE, reclass, stride)
+                       AAPA_OPS_PER_MINUTE,
+                       reclassification_ops(cls, confidence), stride)
+
+
+def reclassification_ops(cls, confidence: bool) -> int:
+    """Operations of one reclassification: the 38 features, the trees,
+    the calibration and (with `confidence`) the interval confidence."""
+    t = cls.params.tables
+    n_edges = cls.params.bin_edges.shape[1]
+    return (stat_feature_ops(60) + freq_feature_ops(60)
+            + gbdt_ops(38, n_edges, t.feat.shape[0], cls.params.depth)
+            + AAPA_CAL_OPS + (AAPA_CONF_OPS if confidence else 0))
+
+
+def prepass_bound(ctrl, B: int, M: int, cls) -> tuple[float, str]:
+    """The pre-pass's bound: rates in, signals out; the forecaster per
+    minute (and AAPA's trend, mean and reclassifications)."""
+    if ctrl.name == "predictive":
+        return bound_ms(4.0 * B * M * 2, float(B) * M * PRED_OPS_PER_MINUTE)
+    stride = int(ctrl.hyper["stride_min"])
+    return bound_ms(4.0 * B * M * 4 + PREPASS_SLOT_BYTES * B * (M // stride),
+                    float(B) * M * AAPA_OPS_PER_MINUTE + float(B) * (
+                        M // stride) * reclassification_ops(
+                        cls, bool(ctrl.hyper["forecast_confidence"])))
+
+
+def split_ms(rates, ctrl, cfg) -> dict:
+    """Per-launch times of the episode (CUDA events, 3 launches after a
+    warm-up): the whole episode and, where the policy has a pre-pass, the
+    pre-pass and the plant pass alone."""
+    from repro_torch.kernels import episode_block, ops, policy_signals
+    ms = cuda_ms(lambda: ops.episode_block(rates, ctrl, cfg), iters=3)[0]
+    if ctrl.name not in policy_signals.POLICIES:
+        return dict(ms=ms, prepass_ms=None, plant_ms=ms)
+    pre = cuda_ms(lambda: policy_signals.policy_signals_cuda(
+        rates, ctrl, cfg), iters=3)[0]
+    sig = policy_signals.policy_signals_cuda(rates, ctrl, cfg)
+    plant = cuda_ms(lambda: episode_block.plant_pass_cuda(rates, ctrl, cfg,
+                                                          sig), iters=3)[0]
+    return dict(ms=ms, prepass_ms=pre, plant_ms=plant)
+
+
+def resource_usage(so: Path) -> dict[str, dict[str, int]]:
+    """Registers, stack, shared and local memory of every kernel entry in
+    the built extension (``cuobjdump --dump-resource-usage``), by
+    demangled name."""
+    import re
+    import shutil
+    bindir = Path("/usr/local/cuda/bin")
+    tool = shutil.which("cuobjdump") or str(bindir / "cuobjdump")
+    dump = subprocess.run([tool, "--dump-resource-usage", str(so)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    found = re.findall(r"Function (\S+):\s+REG:(\d+)\s+STACK:(\d+)\s+"
+                       r"SHARED:(\d+)\s+LOCAL:(\d+)", dump)
+    if not found:
+        raise RuntimeError(f"no kernel entries in cuobjdump's output:\n"
+                           f"{dump[:2000]}")
+    filt = shutil.which("cu++filt") or str(bindir / "cu++filt")
+    names = subprocess.run([filt], input="\n".join(f[0] for f in found),
+                           capture_output=True, text=True, check=True,
+                           timeout=60).stdout.split("\n")
+    return {name.strip(): dict(reg=int(r), stack=int(st), shared=int(sh),
+                               local=int(lo))
+            for name, (_, r, st, sh, lo) in zip(names, found)}
 
 
 def launch_free(fn, what: str):
@@ -411,9 +484,12 @@ def fleet_row(controller, cfg, rates, w_chunk: int, label: str):
     row_s = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    if counts["episode_block"] == 0:
-        raise RuntimeError(f"{label} launched no episode_block kernel: "
-                           f"{counts}")
+    from repro_torch.kernels import policy_signals
+    if counts["episode_block"] == 0 or (
+            controller.name in policy_signals.POLICIES
+            and counts["policy_signals"] == 0):
+        raise RuntimeError(f"{label} launched no episode_block kernel or no "
+                           f"pre-pass: {counts}")
     if tuple(out.served.shape) != (W, M):
         raise RuntimeError(f"MinuteOut shape {tuple(out.served.shape)}")
     for name, v in (*pool._asdict().items(), *score._asdict().items()):
@@ -725,15 +801,16 @@ def main() -> int:
         f"max_abs_err={chunk_err}; lane-minutes by archetype {arch_hist}")
     aapa_downs = float(got[0].downs.double().sum())
     del got, want
-    aapa_ms = cuda_ms(lambda: ops.episode_block(chunk, actrl, cfg),
-                      iters=3)[0]
+    aapa_split = split_ms(chunk, actrl, cfg)
+    aapa_ms = aapa_split["ms"]
     stride = int(actrl.hyper["stride_min"])
     aapa_bound, aapa_by = bound_ms(
         13.0 * 4 * w_chunk * M,
         aapa_episode_ops(w_chunk, M, heads, stride, aapa_downs, cls,
                          cfg.startup_sec))
-    log(f"[timing] episode_block<AAPA> {w_chunk}x{M}: {aapa_ms} ms, plain "
-        f"{aapa_plain_s * 1e3} ms (one run, host clock), bound "
+    log(f"[timing] episode_block<AAPA> {w_chunk}x{M}: {aapa_ms} ms (pre-pass "
+        f"{aapa_split['prepass_ms']} ms, plant pass {aapa_split['plant_ms']} "
+        f"ms), plain {aapa_plain_s * 1e3} ms (one run, host clock), bound "
         f"{aapa_bound} ms ({aapa_by})")
 
     # ---- 10. the AAPA fleet: Table IV row
@@ -866,8 +943,8 @@ def main() -> int:
         ctrl = registry.make(name, cfg, **kw)
         counts, _, pdowns = fleet_row(ctrl, cfg, fleet_rates, w_chunk,
                                       f"{label} fleet")
-        ms = cuda_ms(lambda: ops.episode_block(chunk, ctrl, cfg),
-                     iters=3)[0]
+        split = split_ms(chunk, ctrl, cfg)
+        ms = split["ms"]
         ms240 = cuda_ms(lambda: ops.episode_block(short, ctrl, cfg),
                         iters=3)[0]
         if name == "predictive":
@@ -884,11 +961,82 @@ def main() -> int:
                                      confidence=True)
         bnd, by = bound_ms(13.0 * 4 * w_chunk * M, n_ops)
         pol_rows[label] = dict(launches=counts["episode_block"], ms=ms,
+                               prepass_ms=split["prepass_ms"],
+                               plant_ms=split["plant_ms"],
+                               prepass_launches=counts["policy_signals"],
                                ms_240=ms240, bound_ms=bnd, bound_by=by)
         log(f"[timing] episode_block<{label}> {w_chunk}x{M}: {ms} ms "
-            f"({w_chunk}x240: {ms240} ms), plain {w_chunk}x240 "
-            f"{pol_plain_s[label] * 1e3} ms (one run, host clock), bound "
-            f"{bnd} ms ({by})")
+            f"(pre-pass {split['prepass_ms']} ms, plant pass "
+            f"{split['plant_ms']} ms; {w_chunk}x240: {ms240} ms), plain "
+            f"{w_chunk}x240 {pol_plain_s[label] * 1e3} ms (one run, host "
+            f"clock), bound {bnd} ms ({by})")
+
+    # ---- 15. the pre-pass kernels vs their plain version on the chunk
+    from repro_torch.kernels import policy_signals
+    sig_err = 0.0
+    for label in ("aapa_band", "predictive_conservative_band"):
+        name, kw = pols[label]
+        ctrl = registry.make(name, cfg, **kw)
+        arch = name in episode_block.ARCHETYPE_POLICIES
+        got = policy_signals.policy_signals_cuda(chunk, ctrl, cfg,
+                                                 minute_arch=arch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = launch_free(lambda: ref.policy_signals_ref(
+            chunk, ctrl, cfg, minute_arch=arch), f"policy_signals {label}")
+        torch.cuda.synchronize()
+        sig_plain_s = time.perf_counter() - t0
+        for field, a, e in zip(policy_signals.Signals._fields, got, want):
+            if (a is None) != (e is None) or (
+                    a is not None and not torch.equal(a, e)):
+                raise RuntimeError(f"policy_signals {label}: {field} differs "
+                                   "from the plain version")
+        log(f"[policy_signals<{label}>] {w_chunk}x{M} equals the plain "
+            f"version bit for bit (plain {sig_plain_s:.1f} s, host clock)")
+        if name == "aapa":
+            pre_plain_ms = sig_plain_s * 1e3
+            pre_ctrl = ctrl
+        del got, want
+    pre_ms = pol_rows["aapa_band"]["prepass_ms"]
+    pre_bound, pre_by = prepass_bound(pre_ctrl, w_chunk, M, cls)
+    log(f"[timing] policy_signals<aapa_band> {w_chunk}x{M}: {pre_ms} ms, "
+        f"plain {pre_plain_ms} ms (one run, host clock), bound {pre_bound} "
+        f"ms ({pre_by})")
+
+    # ---- 16. one launch over the fleet, and each kernel's resources
+    hctrl = registry.make("hpa", cfg)
+    wide_hpa = cuda_ms(lambda: ops.episode_block(fleet_rates, hctrl, cfg),
+                       iters=1)[0]
+    four_hpa = cuda_ms(lambda: [ops.episode_block(
+        fleet_rates[i:i + w_chunk], hctrl, cfg) for i in range(0, W, w_chunk)],
+        iters=1)[0]
+    sig_all = policy_signals.policy_signals_cuda(fleet_rates, actrl, cfg)
+    sig_chunks = [policy_signals.policy_signals_cuda(
+        fleet_rates[i:i + w_chunk], actrl, cfg) for i in range(0, W, w_chunk)]
+    wide_aapa = cuda_ms(lambda: episode_block.plant_pass_cuda(
+        fleet_rates, actrl, cfg, sig_all), iters=1)[0]
+    four_aapa = cuda_ms(lambda: [episode_block.plant_pass_cuda(
+        fleet_rates[i:i + w_chunk], actrl, cfg, sig) for i, sig in zip(
+            range(0, W, w_chunk), sig_chunks)], iters=1)[0]
+    del sig_all, sig_chunks
+    log(f"[wide] {W}x{M} in one launch against {W // w_chunk} launches of "
+        f"{w_chunk}: HPA episode {wide_hpa} / {four_hpa} ms, AAPA plant pass "
+        f"{wide_aapa} / {four_aapa} ms")
+    usage = resource_usage(next(_build.BUILD_DIR.glob("*.so")))
+    for entry, u in sorted(usage.items()):
+        log(f"[resources] REG {u['reg']:3d} STACK {u['stack']:5d} SHARED "
+            f"{u['shared']:6d} LOCAL {u['local']:5d}  {entry[:110]}")
+    plant_entries = {p: [u for e, u in usage.items()
+                         if "episode_kernel" in e and f"::{p}>" in e]
+                     for p in ("HPA", "AAPA", "Hybrid")}
+    for p, us in plant_entries.items():
+        if len(us) != 1:
+            raise RuntimeError(f"no single episode_kernel<{p}> entry in "
+                               f"{sorted(usage)}")
+    if any(plant_entries[p][0]["stack"] > plant_entries["HPA"][0]["stack"]
+           for p in ("AAPA", "Hybrid")):
+        raise RuntimeError(f"the AAPA or hybrid plant pass holds more stack "
+                           f"than HPA's: {plant_entries}")
 
     kernels = [
         dict(name="plant_block", route="cuda",
@@ -907,8 +1055,15 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/episode_block.cu",
              replaces="src/repro/kernels/episode_block.py:210",
              launches=aapa_counts["episode_block"], max_abs_err=aapa_err,
-             ms=aapa_ms, plain_ms=aapa_plain_s * 1e3, bound_ms=aapa_bound,
-             bound_by=aapa_by, library_ms=None),
+             ms=aapa_ms, prepass_ms=aapa_split["prepass_ms"],
+             plant_ms=aapa_split["plant_ms"], plain_ms=aapa_plain_s * 1e3,
+             bound_ms=aapa_bound, bound_by=aapa_by, library_ms=None),
+        dict(name="policy_signals", policy="aapa_band", route="cuda",
+             source="src/repro_torch/kernels/csrc/policy_signals.cu",
+             replaces="src/repro/kernels/episode_block.py:210",
+             launches=aapa_counts["policy_signals"], max_abs_err=0.0,
+             ms=pre_ms, plain_ms=pre_plain_ms, bound_ms=pre_bound,
+             bound_by=pre_by, library_ms=None),
         dict(name="window_features", route="cuda",
              source="src/repro_torch/kernels/csrc/window_features.cu",
              replaces="src/repro/kernels/window_features.py:163",
@@ -933,7 +1088,8 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/episode_block.cu",
              replaces="src/repro/kernels/episode_block.py:210",
              launches=row["launches"], max_abs_err=pol_err[label],
-             ms=row["ms"], ms_240=row["ms_240"],
+             ms=row["ms"], prepass_ms=row["prepass_ms"],
+             plant_ms=row["plant_ms"], ms_240=row["ms_240"],
              plain_ms=pol_plain_s[label] * 1e3,
              plain_shape=f"{w_chunk}x240", bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=None)

@@ -17,8 +17,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "binding.cpp", CSRC / "plant_block.cu",
-           CSRC / "episode_block.cu", CSRC / "window_features.cu",
-           CSRC / "gbdt_tables.cu", CSRC / "holt_winters.cu")
+           CSRC / "episode_block.cu", CSRC / "policy_signals.cu",
+           CSRC / "window_features.cu", CSRC / "gbdt_tables.cu",
+           CSRC / "holt_winters.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false")
 

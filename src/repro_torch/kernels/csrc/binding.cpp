@@ -74,38 +74,6 @@ void plant_block(std::vector<torch::Tensor> state, torch::Tensor pipeline,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// rates [B, M] -> out [12, B, M]; scratch pipe [S, B] and buf [buf_len, B]
-void episode_block_hpa(torch::Tensor rates, torch::Tensor out_,
-                       torch::Tensor pipe, torch::Tensor buf, int64_t ci,
-                       double rps, double service, double slo, double cap,
-                       double inv_tau, double max_replicas,
-                       double initial_replicas, double inv_target,
-                       double tolerance, double cooldown_sec) {
-  TORCH_CHECK(rates.dim() == 2 && pipe.dim() == 2 && buf.dim() == 2,
-              "rates, pipe and buf must be 2-d");
-  const int64_t B = rates.size(0), M = rates.size(1);
-  const int64_t S = pipe.size(0), L = buf.size(0);
-  TORCH_CHECK(B > 0 && M > 0 && S > 0 && L > 0, "empty episode block");
-  TORCH_CHECK(ci >= 1 && ci <= 60, "control interval must be in [1, 60]");
-  check(rates, "rates", {B, M});
-  check(out_, "out", {12, B, M});
-  check(pipe, "pipe", {S, B});
-  check(buf, "buf", {L, B});
-  repro_torch::EpisodeCfg cfg{plant_cfg(rps, service, slo, cap, inv_tau),
-                              static_cast<float>(max_replicas),
-                              static_cast<float>(initial_replicas),
-                              static_cast<int>(S), static_cast<int>(ci)};
-  repro_torch::HPAHyper hyper{static_cast<float>(inv_target),
-                              static_cast<float>(tolerance),
-                              static_cast<float>(cooldown_sec),
-                              static_cast<int>(L)};
-  const c10::cuda::CUDAGuard guard(rates.device());
-  repro_torch::episode_block_hpa_launch(
-      in(rates), out(out_), out(pipe), out(buf), static_cast<int>(B),
-      static_cast<int>(M), cfg, hyper, at::cuda::getCurrentCUDAStream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
-}
-
 // tables: edges [F, E], feat/thresh [T, 2^depth - 1] int32, leaf [T,
 // 2^depth], base [K]
 repro_torch::GBDTTables gbdt_tables(const torch::Tensor& edges,
@@ -216,27 +184,62 @@ void gbdt_logits(torch::Tensor X, torch::Tensor out_, torch::Tensor edges,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// The dynamic shared memory a plant-pass block needs for S pipeline slots
+// and a policy ring of ring_len slots, and what a block can have on the
+// device: (bytes, limit). The launcher refuses a launch that does not fit.
+std::vector<int64_t> episode_smem(int64_t S, int64_t ring_len,
+                                  int64_t device) {
+  TORCH_CHECK(S >= 1 && S <= 1 << 20 && ring_len >= 0 && ring_len <= 1 << 20,
+              "startup_sec and the policy ring must be below 2^20 slots");
+  return {repro_torch::episode_smem_bytes(static_cast<int>(S),
+                                          static_cast<int>(ring_len)),
+          static_cast<int64_t>(
+              at::cuda::getDeviceProperties(static_cast<c10::DeviceIndex>(
+                  device))->sharedMemPerBlockOptin)};
+}
+
 // The episode's shapes and SimConfig: rates [B, M] and out [12, B, M]
-// checked, S from pipe [S, B].
+// checked, S pipeline slots.
 repro_torch::EpisodeCfg episode_cfg(const torch::Tensor& rates,
-                                    const torch::Tensor& out_,
-                                    const torch::Tensor& pipe, int64_t ci,
-                                    double rps, double service, double slo,
-                                    double cap, double inv_tau,
+                                    const torch::Tensor& out_, int64_t S,
+                                    int64_t ci, double rps, double service,
+                                    double slo, double cap, double inv_tau,
                                     double max_replicas,
                                     double initial_replicas) {
-  TORCH_CHECK(rates.dim() == 2 && pipe.dim() == 2,
-              "rates and pipe must be 2-d");
-  const int64_t B = rates.size(0), M = rates.size(1), S = pipe.size(0);
+  TORCH_CHECK(rates.dim() == 2, "rates must be [B, M]");
+  const int64_t B = rates.size(0), M = rates.size(1);
   TORCH_CHECK(B > 0 && M > 0 && S > 0, "empty episode block");
   TORCH_CHECK(ci >= 1 && ci <= 60, "control interval must be in [1, 60]");
   check(rates, "rates", {B, M});
   check(out_, "out", {12, B, M});
-  check(pipe, "pipe", {S, B});
   return {plant_cfg(rps, service, slo, cap, inv_tau),
           static_cast<float>(max_replicas),
           static_cast<float>(initial_replicas), static_cast<int>(S),
           static_cast<int>(ci)};
+}
+
+// rates [B, M] -> out [12, B, M]; S pipeline slots and a window of
+// buf_len decisions
+void episode_block_hpa(torch::Tensor rates, torch::Tensor out_, int64_t S,
+                       int64_t ci, double rps, double service, double slo,
+                       double cap, double inv_tau, double max_replicas,
+                       double initial_replicas, double inv_target,
+                       double tolerance, double cooldown_sec,
+                       int64_t buf_len) {
+  TORCH_CHECK(buf_len >= 1, "the stabilization window needs a slot");
+  const repro_torch::EpisodeCfg cfg =
+      episode_cfg(rates, out_, S, ci, rps, service, slo, cap, inv_tau,
+                  max_replicas, initial_replicas);
+  const repro_torch::HPAHyper hyper{static_cast<float>(inv_target),
+                                    static_cast<float>(tolerance),
+                                    static_cast<float>(cooldown_sec),
+                                    static_cast<int>(buf_len)};
+  const c10::cuda::CUDAGuard guard(rates.device());
+  repro_torch::episode_block_hpa_launch(
+      in(rates), out(out_), static_cast<int>(rates.size(0)),
+      static_cast<int>(rates.size(1)), cfg, hyper,
+      at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 // Holt-Winters: alpha, beta, gamma, 1 - alpha, 1 - beta, 1 - gamma at
@@ -247,13 +250,12 @@ repro_torch::HWCoeffs hw_coeffs(const std::vector<double>& f) {
           static_cast<float>(f[4]), static_cast<float>(f[5])};
 }
 
-// AAPA's hyperparameters. fhyper (33): Table III (16 floats: target_cpu,
-// cooldown_min, min_replicas, warm_pool by class), rps_per_replica, the 6
-// Holt-Winters coefficients, resid_rho, z, sqrt_h, trend_tbar,
-// trend_tvar, trend_step, inv_log_nb, inv_nb, band_q, band_scale. ihyper
-// (7): stride_min, horizon_min, forecast_confidence, period, classify,
-// use_band, use_scale. The classifier's tables are read only when classify
-// is 1.
+// AAPA's minute-hook hyperparameters. fhyper (28): Table III (12 floats:
+// target_cpu, cooldown_min, min_replicas by class), the 6 Holt-Winters
+// coefficients, resid_rho, z, sqrt_h, trend_tbar, trend_tvar, trend_step,
+// inv_log_nb, inv_nb, band_q, band_scale. ihyper (7): stride_min,
+// horizon_min, forecast_confidence, period, classify, use_band, use_scale.
+// The classifier's tables are read only when classify is 1.
 repro_torch::AAPAHyper aapa_hyper(
     const std::vector<double>& fhyper, const std::vector<int64_t>& ihyper,
     const torch::Tensor& tw, const std::vector<int64_t>& plan,
@@ -261,8 +263,8 @@ repro_torch::AAPAHyper aapa_hyper(
     const torch::Tensor& thresh, const torch::Tensor& leaf,
     const torch::Tensor& base, const torch::Tensor& cal_a,
     const torch::Tensor& cal_b, const torch::Tensor& cal_c) {
-  TORCH_CHECK(fhyper.size() == 33 && ihyper.size() == 7,
-              "the AAPA policy takes 33 float and 7 int hyperparameters");
+  TORCH_CHECK(fhyper.size() == 28 && ihyper.size() == 7,
+              "the AAPA policy takes 28 float and 7 int hyperparameters");
   TORCH_CHECK(ihyper[0] >= 1 && ihyper[1] >= 1 && ihyper[3] >= 1,
               "stride, horizon and period >= 1");
   repro_torch::AAPAHyper h{};
@@ -270,21 +272,19 @@ repro_torch::AAPAHyper aapa_hyper(
     h.target_cpu[k] = static_cast<float>(fhyper[k]);
     h.cooldown_min[k] = static_cast<float>(fhyper[4 + k]);
     h.min_replicas[k] = static_cast<float>(fhyper[8 + k]);
-    h.warm_pool[k] = static_cast<float>(fhyper[12 + k]);
   }
   const auto f = [&](int i) { return static_cast<float>(fhyper[i]); };
-  h.rps_per_replica = f(16);
   h.hw.c = hw_coeffs(
-      std::vector<double>(fhyper.begin() + 17, fhyper.begin() + 23));
-  h.hw.resid_rho = f(23);
-  h.z = f(24);
-  h.sqrt_h = f(25);
-  h.trend_tbar = f(26);
-  h.trend_tvar = f(27);
-  h.trend_step = f(28);
-  h.band_q = f(31);
-  h.band_scale = f(32);
-  h.freq = freq_tables(tw, plan, 60, fhyper[29], fhyper[30]);
+      std::vector<double>(fhyper.begin() + 12, fhyper.begin() + 18));
+  h.hw.resid_rho = f(18);
+  h.z = f(19);
+  h.sqrt_h = f(20);
+  h.trend_tbar = f(21);
+  h.trend_tvar = f(22);
+  h.trend_step = f(23);
+  h.band_q = f(26);
+  h.band_scale = f(27);
+  h.freq = freq_tables(tw, plan, 60, fhyper[24], fhyper[25]);
   h.stride_min = static_cast<int>(ihyper[0]);
   h.horizon_min = static_cast<int>(ihyper[1]);
   h.forecast_confidence = static_cast<int>(ihyper[2]);
@@ -304,77 +304,66 @@ repro_torch::AAPAHyper aapa_hyper(
   return h;
 }
 
-// rates [B, M] -> out [12, B, M] and, if arch_out has B * M elements, the
-// archetype after each minute into it; scratch pipe [S, B] and scratch
-// [60 + period, B]. With guard (3 floats: f32 reciprocals of guard_target
-// and rps_per_replica * guard_target, f32(1 - max_down_frac)) the hybrid
-// policy runs, without it (empty) AAPA.
-void episode_block_aapa(torch::Tensor rates, torch::Tensor out_,
-                        torch::Tensor pipe, torch::Tensor scratch,
-                        torch::Tensor arch_out, int64_t ci,
-                        double rps, double service, double slo, double cap,
-                        double inv_tau, double max_replicas,
-                        double initial_replicas, std::vector<double> fhyper,
-                        std::vector<int64_t> ihyper, std::vector<double> guard,
-                        torch::Tensor tw, std::vector<int64_t> plan,
-                        torch::Tensor edges, torch::Tensor feat,
-                        torch::Tensor thresh, torch::Tensor leaf,
-                        torch::Tensor base, torch::Tensor cal_a,
-                        torch::Tensor cal_b, torch::Tensor cal_c) {
-  const repro_torch::EpisodeCfg cfg =
-      episode_cfg(rates, out_, pipe, ci, rps, service, slo, cap, inv_tau,
-                  max_replicas, initial_replicas);
+// The AAPA and hybrid pre-pass: rates [B, M] -> rps [3, M, B], arch [R,
+// B] int32, adj [3, R, B] (R = M / stride + 1) and, if minute_arch has B *
+// M elements, the archetype after each minute into it. Scratch: cls_arch
+// [B, R] int32 and cls_conf [B, R], season [period, B].
+void policy_signals_aapa(torch::Tensor rates, torch::Tensor rps,
+                         torch::Tensor arch, torch::Tensor adj,
+                         torch::Tensor minute_arch, torch::Tensor cls_arch,
+                         torch::Tensor cls_conf, torch::Tensor season,
+                         std::vector<double> fhyper,
+                         std::vector<int64_t> ihyper, torch::Tensor tw,
+                         std::vector<int64_t> plan, torch::Tensor edges,
+                         torch::Tensor feat, torch::Tensor thresh,
+                         torch::Tensor leaf, torch::Tensor base,
+                         torch::Tensor cal_a, torch::Tensor cal_b,
+                         torch::Tensor cal_c) {
   const repro_torch::AAPAHyper h =
       aapa_hyper(fhyper, ihyper, tw, plan, edges, feat, thresh, leaf, base,
                  cal_a, cal_b, cal_c);
+  TORCH_CHECK(rates.dim() == 2, "rates must be [B, M]");
   const int64_t B = rates.size(0), M = rates.size(1);
-  TORCH_CHECK(scratch.dim() == 2, "scratch must be 2-d");
-  check(scratch, "scratch", {60 + h.hw.period, B});
-  int* arch = nullptr;
-  if (arch_out.numel() > 0) {
-    check_i32(arch_out, "arch_out", {B, M});
-    arch = arch_out.data_ptr<int>();
+  const int64_t R = M / h.stride_min + 1;
+  TORCH_CHECK(B > 0 && M > 0, "empty episode block");
+  check(rates, "rates", {B, M});
+  check(rps, "rps", {3, M, B});
+  check_i32(arch, "arch", {R, B});
+  check(adj, "adj", {3, R, B});
+  check_i32(cls_arch, "cls_arch", {B, R});
+  check(cls_conf, "cls_conf", {B, R});
+  check(season, "season", {h.hw.period, B});
+  int* per_minute = nullptr;
+  if (minute_arch.numel() > 0) {
+    check_i32(minute_arch, "minute_arch", {B, M});
+    per_minute = minute_arch.data_ptr<int>();
   }
-  TORCH_CHECK(guard.empty() || guard.size() == 3,
-              "the hybrid guard takes 3 floats");
-  const c10::cuda::CUDAGuard device_guard(rates.device());
-  if (guard.empty()) {
-    repro_torch::episode_block_aapa_launch(
-        in(rates), out(out_), out(pipe), out(scratch), arch,
-        static_cast<int>(B), static_cast<int>(M), cfg, h,
-        at::cuda::getCurrentCUDAStream());
-  } else {
-    const repro_torch::HybridHyper hh{h, static_cast<float>(guard[0]),
-                                      static_cast<float>(guard[1]),
-                                      static_cast<float>(guard[2])};
-    repro_torch::episode_block_hybrid_launch(
-        in(rates), out(out_), out(pipe), out(scratch), arch,
-        static_cast<int>(B), static_cast<int>(M), cfg, hh,
-        at::cuda::getCurrentCUDAStream());
-  }
+  const c10::cuda::CUDAGuard guard(rates.device());
+  repro_torch::policy_signals_aapa_launch(
+      in(rates), out(rps), arch.data_ptr<int>(), out(adj), per_minute,
+      cls_arch.data_ptr<int>(), out(cls_conf), out(season),
+      static_cast<int>(B), static_cast<int>(M), h,
+      at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// rates [B, M] -> out [12, B, M]; scratch pipe [S, B] and season [period,
-// B]. fhyper (12): the 6 Holt-Winters coefficients, resid_rho, z,
-// sqrt_h, band_q, inv_cap, cooldown_sec; ihyper (4): period,
-// horizon_min, use_band, conservative.
-void episode_block_predictive(torch::Tensor rates, torch::Tensor out_,
-                              torch::Tensor pipe, torch::Tensor season,
-                              int64_t ci, double rps, double service,
-                              double slo, double cap, double inv_tau,
-                              double max_replicas, double initial_replicas,
-                              std::vector<double> fhyper,
-                              std::vector<int64_t> ihyper) {
-  const repro_torch::EpisodeCfg cfg =
-      episode_cfg(rates, out_, pipe, ci, rps, service, slo, cap, inv_tau,
-                  max_replicas, initial_replicas);
-  TORCH_CHECK(fhyper.size() == 12 && ihyper.size() == 4,
-              "the predictive policy takes 12 float and 4 int "
+// The predictive pre-pass: rates [B, M] -> need [M, B]; scratch season
+// [period, B]. fhyper (11): the 6 Holt-Winters coefficients, resid_rho,
+// z, sqrt_h, band_q, inv_cap; ihyper (4): period, horizon_min, use_band,
+// conservative.
+void policy_signals_predictive(torch::Tensor rates, torch::Tensor need,
+                               torch::Tensor season,
+                               std::vector<double> fhyper,
+                               std::vector<int64_t> ihyper) {
+  TORCH_CHECK(fhyper.size() == 11 && ihyper.size() == 4,
+              "the predictive policy takes 11 float and 4 int "
               "hyperparameters");
   TORCH_CHECK(ihyper[0] >= 1 && ihyper[1] >= 1, "period and horizon >= 1");
+  TORCH_CHECK(rates.dim() == 2, "rates must be [B, M]");
   const int64_t B = rates.size(0), M = rates.size(1);
-  TORCH_CHECK(season.dim() == 2, "season must be 2-d");
+  TORCH_CHECK(B > 0 && M > 0, "empty episode block");
+  check(rates, "rates", {B, M});
+  check(need, "need", {M, B});
   check(season, "season", {ihyper[0], B});
   repro_torch::PredictiveHyper h{};
   h.hw.c = hw_coeffs(fhyper);
@@ -384,27 +373,112 @@ void episode_block_predictive(torch::Tensor rates, torch::Tensor out_,
   h.sqrt_h = static_cast<float>(fhyper[8]);
   h.band_q = static_cast<float>(fhyper[9]);
   h.inv_cap = static_cast<float>(fhyper[10]);
-  h.cooldown_sec = static_cast<float>(fhyper[11]);
   h.horizon_min = static_cast<int>(ihyper[1]);
   h.use_band = static_cast<int>(ihyper[2]);
   h.conservative = static_cast<int>(ihyper[3]);
   const c10::cuda::CUDAGuard guard(rates.device());
-  repro_torch::episode_block_predictive_launch(
-      in(rates), out(out_), out(pipe), out(season), static_cast<int>(B),
-      static_cast<int>(M), cfg, h, at::cuda::getCurrentCUDAStream());
+  repro_torch::policy_signals_predictive_launch(
+      in(rates), out(need), out(season), static_cast<int>(B),
+      static_cast<int>(M), h, at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// rates [B, M] -> out [12, B, M]; scratch pipe [S, B]. fhyper (8):
-// service_sec, a_s, a_p, inv_tgt, panic_threshold, stable_window_s, dt,
-// cooldown_sec.
-void episode_block_kpa(torch::Tensor rates, torch::Tensor out_,
-                       torch::Tensor pipe, int64_t ci, double rps,
-                       double service, double slo, double cap,
-                       double inv_tau, double max_replicas,
+// The pre-pass's signals for the plant pass: rps [K, M, B] and, with a
+// stride (AAPA, hybrid), arch [R, B] int32 and adj [3, R, B].
+repro_torch::PolicySignals policy_signals(const torch::Tensor& rates,
+                                          const torch::Tensor& rps,
+                                          int64_t K, const torch::Tensor* arch,
+                                          const torch::Tensor* adj,
+                                          int64_t stride) {
+  const int64_t B = rates.size(0), M = rates.size(1);
+  check(rps, "rps", {K, M, B});
+  repro_torch::PolicySignals g{in(rps), nullptr, nullptr, 0};
+  if (arch != nullptr) {
+    const int64_t R = M / stride + 1;
+    check_i32(*arch, "arch", {R, B});
+    check(*adj, "adj", {3, R, B});
+    g.arch = arch->data_ptr<int>();
+    g.adj = in(*adj);
+    g.R = static_cast<int>(R);
+  }
+  return g;
+}
+
+// rates [B, M] -> out [12, B, M] from the AAPA pre-pass's signals (rps
+// [3, M, B], arch [R, B], adj [3, R, B]). fhyper (5): Table III's warm
+// pool by class, rps_per_replica. With guard (3 floats: f32 reciprocals of
+// guard_target and rps_per_replica * guard_target, f32(1 - max_down_frac))
+// the hybrid policy runs, without it (empty) AAPA.
+void episode_block_aapa(torch::Tensor rates, torch::Tensor out_,
+                        torch::Tensor rps, torch::Tensor arch,
+                        torch::Tensor adj, int64_t S, int64_t ci, double rps_,
+                        double service, double slo, double cap,
+                        double inv_tau, double max_replicas,
+                        double initial_replicas, std::vector<double> fhyper,
+                        int64_t stride, std::vector<double> guard) {
+  const repro_torch::EpisodeCfg cfg =
+      episode_cfg(rates, out_, S, ci, rps_, service, slo, cap, inv_tau,
+                  max_replicas, initial_replicas);
+  TORCH_CHECK(fhyper.size() == 5, "the AAPA plant pass takes 5 floats");
+  TORCH_CHECK(stride >= 1, "stride >= 1");
+  TORCH_CHECK(guard.empty() || guard.size() == 3,
+              "the hybrid guard takes 3 floats");
+  const repro_torch::PolicySignals g =
+      policy_signals(rates, rps, 3, &arch, &adj, stride);
+  repro_torch::AAPAPlantHyper h{};
+  for (int k = 0; k < 4; ++k) h.warm_pool[k] = static_cast<float>(fhyper[k]);
+  h.rps_per_replica = static_cast<float>(fhyper[4]);
+  h.stride_min = static_cast<int>(stride);
+  const int B = static_cast<int>(rates.size(0));
+  const int M = static_cast<int>(rates.size(1));
+  const c10::cuda::CUDAGuard device_guard(rates.device());
+  if (guard.empty()) {
+    repro_torch::episode_block_aapa_launch(in(rates), out(out_), g, B, M,
+                                           cfg, h,
+                                           at::cuda::getCurrentCUDAStream());
+  } else {
+    const repro_torch::HybridPlantHyper hh{h, static_cast<float>(guard[0]),
+                                           static_cast<float>(guard[1]),
+                                           static_cast<float>(guard[2])};
+    repro_torch::episode_block_hybrid_launch(
+        in(rates), out(out_), g, B, M, cfg, hh,
+        at::cuda::getCurrentCUDAStream());
+  }
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// rates [B, M] -> out [12, B, M] from the predictive pre-pass's need [M,
+// B]; inv_cap and cooldown_sec
+void episode_block_predictive(torch::Tensor rates, torch::Tensor out_,
+                              torch::Tensor need, int64_t S, int64_t ci,
+                              double rps, double service, double slo,
+                              double cap, double inv_tau,
+                              double max_replicas, double initial_replicas,
+                              double inv_cap, double cooldown_sec) {
+  const repro_torch::EpisodeCfg cfg =
+      episode_cfg(rates, out_, S, ci, rps, service, slo, cap, inv_tau,
+                  max_replicas, initial_replicas);
+  const repro_torch::PolicySignals g =
+      policy_signals(rates, need.view({1, need.size(0), need.size(1)}), 1,
+                     nullptr, nullptr, 1);
+  const repro_torch::PredictivePlantHyper h{static_cast<float>(inv_cap),
+                                            static_cast<float>(cooldown_sec)};
+  const c10::cuda::CUDAGuard guard(rates.device());
+  repro_torch::episode_block_predictive_launch(
+      in(rates), out(out_), g, static_cast<int>(rates.size(0)),
+      static_cast<int>(rates.size(1)), cfg, h,
+      at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// rates [B, M] -> out [12, B, M]. fhyper (8): service_sec, a_s, a_p,
+// inv_tgt, panic_threshold, stable_window_s, dt, cooldown_sec.
+void episode_block_kpa(torch::Tensor rates, torch::Tensor out_, int64_t S,
+                       int64_t ci, double rps, double service, double slo,
+                       double cap, double inv_tau, double max_replicas,
                        double initial_replicas, std::vector<double> fhyper) {
   const repro_torch::EpisodeCfg cfg =
-      episode_cfg(rates, out_, pipe, ci, rps, service, slo, cap, inv_tau,
+      episode_cfg(rates, out_, S, ci, rps, service, slo, cap, inv_tau,
                   max_replicas, initial_replicas);
   TORCH_CHECK(fhyper.size() == 8,
               "the kpa policy takes 8 float hyperparameters");
@@ -413,7 +487,7 @@ void episode_block_kpa(torch::Tensor rates, torch::Tensor out_,
                                 f(4), f(5), f(6), f(7)};
   const c10::cuda::CUDAGuard guard(rates.device());
   repro_torch::episode_block_kpa_launch(
-      in(rates), out(out_), out(pipe), static_cast<int>(rates.size(0)),
+      in(rates), out(out_), static_cast<int>(rates.size(0)),
       static_cast<int>(rates.size(1)), cfg, h,
       at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
@@ -445,10 +519,16 @@ void holt_winters(torch::Tensor y, torch::Tensor out_,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("plant_block", &plant_block, "plant_block CUDA kernel");
+  m.def("episode_smem", &episode_smem,
+        "episode_block's shared memory per block and the device's limit");
   m.def("episode_block_hpa", &episode_block_hpa,
         "episode_block CUDA kernel, HPA policy");
   m.def("episode_block_aapa", &episode_block_aapa,
         "episode_block CUDA kernel, AAPA or (with a guard) hybrid policy");
+  m.def("policy_signals_aapa", &policy_signals_aapa,
+        "policy_signals CUDA kernels, AAPA and hybrid pre-pass");
+  m.def("policy_signals_predictive", &policy_signals_predictive,
+        "policy_signals CUDA kernel, predictive pre-pass");
   m.def("episode_block_predictive", &episode_block_predictive,
         "episode_block CUDA kernel, predictive policy");
   m.def("episode_block_kpa", &episode_block_kpa,

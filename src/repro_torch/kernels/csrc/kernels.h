@@ -45,12 +45,6 @@ void plant_block_launch(const float* ready, const float* pipeline,
                         float* pipe_sum_out, float* ticks, int B, int S,
                         int T, PlantCfg cfg, cudaStream_t stream);
 
-// rates [B, M] -> out [12, B, M] (MinuteOut field order). Scratch:
-// pipe [S, B] startup-pipeline ring, buf [buf_len, B] HPA window ring.
-void episode_block_hpa_launch(const float* rates, float* out, float* pipe,
-                              float* buf, int B, int M, EpisodeCfg cfg,
-                              HPAHyper hyper, cudaStream_t stream);
-
 // A GBDT ensemble's flattened node tables (core/gbdt.py::NodeTables) on
 // the card; tree t = round * n_classes + class.
 struct GBDTTables {
@@ -95,11 +89,11 @@ struct HWHyper {
   float resid_rho;
 };
 
-// scaling/policies.py::aapa_controller with the Holt-Winters forecaster.
+// scaling/policies.py::aapa_controller's minute hook with the
+// Holt-Winters forecaster, as the pre-pass runs it.
 struct AAPAHyper {
   // Table III by class id (core/archetypes.py::table_iii_arrays)
-  float target_cpu[4], cooldown_min[4], min_replicas[4], warm_pool[4];
-  float rps_per_replica;
+  float target_cpu[4], cooldown_min[4], min_replicas[4];
   int stride_min, horizon_min;
   int forecast_confidence;     // Algorithm 1 conf *= interval confidence
   HWHyper hw;
@@ -121,16 +115,8 @@ struct AAPAHyper {
   FreqTables freq;
 };
 
-// scaling/policies.py::hybrid_controller: AAPA's hyperparameters and the
-// guard: f32 reciprocals of guard_target and rps_per_replica *
-// guard_target, and f32(1 - max_down_frac)
-struct HybridHyper {
-  AAPAHyper aapa;
-  float inv_guard, inv_rps_guard, down_keep;
-};
-
-// scaling/policies.py::predictive_controller with the Holt-Winters
-// forecaster
+// scaling/policies.py::predictive_controller's forecast need with the
+// Holt-Winters forecaster, as the pre-pass runs it
 struct PredictiveHyper {
   HWHyper hw;
   int horizon_min;
@@ -139,7 +125,43 @@ struct PredictiveHyper {
   float band_q;
   int conservative;     // scale to the band's upper edge, not the point
   float inv_cap;        // f32 reciprocal of rps_per_replica * target
+};
+
+// What the plant pass's decide reads of each policy's hyperparameters
+// (the rest went into the pre-pass's signals):
+// scaling/policies.py::aapa_decide: Table III's warm pool by class id,
+// rps_per_replica, and the reclassification stride
+struct AAPAPlantHyper {
+  float warm_pool[4];
+  float rps_per_replica;
+  int stride_min;
+};
+
+// scaling/policies.py::hybrid_guard around AAPA's decide: f32 reciprocals
+// of guard_target and rps_per_replica * guard_target, f32(1 -
+// max_down_frac)
+struct HybridPlantHyper {
+  AAPAPlantHyper aapa;
+  float inv_guard, inv_rps_guard, down_keep;
+};
+
+// scaling/policies.py::predictive_decide
+struct PredictivePlantHyper {
+  float inv_cap;        // f32 reciprocal of rps_per_replica * target
   float cooldown_sec;
+};
+
+// The pre-pass's signals as the plant pass reads them, laid out so that a
+// warp's reads at one minute coalesce: rps [K, M, B], what decide reads
+// during minute m (AAPA and hybrid: fc_rps, trend_rps, mean_rps; predictive:
+// need_pred); arch [R, B] and adj [3, R, B] (cpu_adj, cool_adj_min,
+// minrep_adj), the archetype and Algorithm 1's parameters in effect from
+// minute r * stride_min (slot 0: the initial state), R = M / stride + 1.
+struct PolicySignals {
+  const float* rps;
+  const int* arch;
+  const float* adj;
+  int R;
 };
 
 // scaling/policies.py::kpa_controller
@@ -156,31 +178,47 @@ void holt_winters_launch(const float* y, float* out, float* season_scratch,
                          int B, int T, int period, HWCoeffs c,
                          cudaStream_t stream);
 
-// rates [B, M] -> out [12, B, M], and, when arch_out is not null, the
-// archetype each lane carries after each minute into arch_out [B, M].
-// Scratch: pipe [S, B] startup-pipeline ring, scratch [60 + period, B]:
-// the rate-history ring, then the Holt-Winters season. The hybrid policy
-// takes the same arguments and scratch.
-void episode_block_aapa_launch(const float* rates, float* out, float* pipe,
-                               float* scratch, int* arch_out, int B, int M,
-                               EpisodeCfg cfg, AAPAHyper hyper,
-                               cudaStream_t stream);
-void episode_block_hybrid_launch(const float* rates, float* out, float* pipe,
-                                 float* scratch, int* arch_out, int B, int M,
-                                 EpisodeCfg cfg, HybridHyper hyper,
-                                 cudaStream_t stream);
+// The pre-pass (policy_signals.cu). AAPA and hybrid: rates [B, M] ->
+// signals rps [3, M, B], arch [R, B], adj [3, R, B] and, when minute_arch
+// is not null, the archetype each lane carries after each minute into
+// minute_arch [B, M]. Scratch: cls_arch and cls_conf [B, R] (the
+// classifier's raw output, read only when the hyperparameters' classify
+// is 1), season [period, B].
+void policy_signals_aapa_launch(const float* rates, float* rps, int* arch,
+                                float* adj, int* minute_arch, int* cls_arch,
+                                float* cls_conf, float* season, int B, int M,
+                                AAPAHyper hyper, cudaStream_t stream);
+// Predictive: rates [B, M] -> need [M, B]; scratch season [period, B].
+void policy_signals_predictive_launch(const float* rates, float* need,
+                                      float* season, int B, int M,
+                                      PredictiveHyper hyper,
+                                      cudaStream_t stream);
 
-// rates [B, M] -> out [12, B, M]; scratch pipe [S, B] and season [period, B]
-void episode_block_predictive_launch(const float* rates, float* out,
-                                     float* pipe, float* season, int B,
-                                     int M, EpisodeCfg cfg,
-                                     PredictiveHyper hyper,
-                                     cudaStream_t stream);
-
-// rates [B, M] -> out [12, B, M]; scratch pipe [S, B]
-void episode_block_kpa_launch(const float* rates, float* out, float* pipe,
-                              int B, int M, EpisodeCfg cfg, KPAHyper hyper,
+// The plant pass (episode_block.cu): rates [B, M] -> out [12, B, M]
+// (MinuteOut field order), reading the pre-pass's signals where the policy
+// has them. Its dynamic shared memory, which holds the startup pipeline
+// (S slots) and the policy's ring (HPA's window: buf_len slots), is
+// episode_smem_bytes(S, ring_len) per block of 32 lanes.
+int episode_smem_bytes(int S, int ring_len);
+void episode_block_hpa_launch(const float* rates, float* out, int B, int M,
+                              EpisodeCfg cfg, HPAHyper hyper,
                               cudaStream_t stream);
+void episode_block_kpa_launch(const float* rates, float* out, int B, int M,
+                              EpisodeCfg cfg, KPAHyper hyper,
+                              cudaStream_t stream);
+void episode_block_predictive_launch(const float* rates, float* out,
+                                     PolicySignals sig, int B, int M,
+                                     EpisodeCfg cfg,
+                                     PredictivePlantHyper hyper,
+                                     cudaStream_t stream);
+void episode_block_aapa_launch(const float* rates, float* out,
+                               PolicySignals sig, int B, int M,
+                               EpisodeCfg cfg, AAPAPlantHyper hyper,
+                               cudaStream_t stream);
+void episode_block_hybrid_launch(const float* rates, float* out,
+                                 PolicySignals sig, int B, int M,
+                                 EpisodeCfg cfg, HybridPlantHyper hyper,
+                                 cudaStream_t stream);
 
 // windows [N, W] (3 <= W <= 64) -> features [N, 28]; with freq (the FFT
 // plan for W, 4 <= W <= 64) all 38 features [N, 38]

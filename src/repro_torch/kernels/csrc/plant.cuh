@@ -2,17 +2,18 @@
 //
 // `flow_tick` is src/repro/sim/cluster.py::_flow_tick op for op, in the
 // same order. The build passes -fmad=false and no fast-math flag, so every
-// product and quotient rounds on its own (IEEE `/`) and agrees bit for bit
-// with the plain PyTorch version (repro_torch/sim/cluster.py), which runs
-// one rounding per op as well.
+// product and quotient rounds on its own (IEEE `/`, through fdiv where a
+// zero dividend is common: an idle queue, no arrivals) and agrees bit for
+// bit with the plain PyTorch version (repro_torch/sim/cluster.py), which
+// runs one rounding per op as well.
 #pragma once
 
 #include "kernels.h"
+#include "numerics.cuh"
 
 namespace repro_torch {
 
 constexpr float kEps = 1e-9f;
-constexpr float kInv60 = 1.0f / 60.0f;  // the reference's `/ 60.0`
 
 struct TickOut {
   float served, violated, cold, resp, util;
@@ -28,12 +29,12 @@ __device__ __forceinline__ TickOut flow_tick(const PlantCfg& c, float ready,
   const float new_queue = work - served;
   const float wait_aged = wait_sum + queue;
   const float work_c = fmaxf(work, kEps);
-  const float mean_age = wait_aged / work_c;
-  wait_sum = wait_aged * new_queue / work_c;
+  const float mean_age = fdiv(wait_aged, work_c);
+  wait_sum = fdiv(wait_aged * new_queue, work_c);
   const float thr_c = fmaxf(throughput, kEps);
-  const float util = served / thr_c;
+  const float util = fdiv(served, thr_c);
   float resp = c.service_sec / fmaxf(1.0f - util, 0.05f) + mean_age +
-               (0.5f * new_queue) / thr_c;
+               fdiv(0.5f * new_queue, thr_c);
   resp = fminf(resp, c.resp_cap_sec);
   resp = served > 0.0f ? resp : 0.0f;
   TickOut t;

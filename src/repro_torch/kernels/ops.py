@@ -1,8 +1,8 @@
 """Kernel dispatch by the tensors' device.
 
 CUDA tensors go to the hand-written kernel (``plant_block``,
-``episode_block``, ``window_features``, ``gbdt_tables``,
-``holt_winters``), CPU tensors to
+``episode_block`` with its pre-pass ``policy_signals``,
+``window_features``, ``gbdt_tables``, ``holt_winters``), CPU tensors to
 its plain PyTorch version (``kernels.ref``), which is the only CPU path.
 Any other device raises.
 """
@@ -14,12 +14,14 @@ from repro_torch.kernels import episode_block as _episode
 from repro_torch.kernels import gbdt_tables as _gbdt
 from repro_torch.kernels import holt_winters as _hw
 from repro_torch.kernels import plant_block as _plant
+from repro_torch.kernels import policy_signals as _signals
 from repro_torch.kernels import ref
 from repro_torch.kernels import window_features as _wf
 
 #: every kernel launcher, by kernel name (each counts its own launches)
 LAUNCHERS = {"plant_block": _plant.plant_tick_block_cuda,
              "episode_block": _episode.episode_block_cuda,
+             "policy_signals": _signals.policy_signals_cuda,
              "window_features": _wf.window_features_cuda,
              "gbdt_tables": _gbdt.gbdt_logits_cuda,
              "holt_winters": _hw.holt_winters_cuda}
@@ -49,10 +51,19 @@ def plant_tick_block(ready, pipeline, queue, wait_sum, util_ema, cooldown,
 
 
 def episode_block(rates, controller, cfg):
-    """Whole episodes: rates [B, M] -> MinuteOut of [B, M], plant ticks
-    and `controller.decide` inside one kernel launch on the card."""
+    """Whole episodes: rates [B, M] -> MinuteOut of [B, M]; on the card
+    the policy's pre-pass (predictive, AAPA, hybrid), then plant ticks and
+    `controller.decide` inside one kernel launch."""
     fn = (_episode.episode_block_cuda if _route(rates) == "cuda"
           else ref.episode_block_ref)
+    return fn(rates, controller, cfg)
+
+
+def policy_signals(rates, controller, cfg):
+    """What the minute hooks of a predictive, AAPA or hybrid controller
+    give decide, from rates [B, M] alone: ``policy_signals.Signals``."""
+    fn = (_signals.policy_signals_cuda if _route(rates) == "cuda"
+          else ref.policy_signals_ref)
     return fn(rates, controller, cfg)
 
 

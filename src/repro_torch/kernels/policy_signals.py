@@ -1,0 +1,199 @@
+"""``policy_signals`` CUDA kernels: the pre-pass of the predictive, AAPA
+and hybrid episodes (source ``csrc/policy_signals.cu``).
+
+A policy's minute hook reads only the input rates (``cluster.
+_finish_minute`` hands ``on_minute`` the rate history), so what the hook
+gives ``decide`` is a function of the rates and the hyperparameters
+alone: the forecaster's peak forecast (predictive: the replicas it
+needs), and AAPA's and hybrid's 30-minute trend, 15-minute mean and, at
+each reclassification, the archetype and Algorithm 1's parameters. The
+pre-pass computes them for every lane and minute, in parallel where the
+work is independent (a reclassification is one window), before the
+episode kernel's plant pass (``kernels.episode_block``) reads them.
+
+Plain version: ``kernels.ref.policy_signals_ref``;
+``kernels.ops.policy_signals`` dispatches between the two by device.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import calibration, features
+from repro_torch.core.archetypes import table_iii_arrays
+from repro_torch.core.pipeline import Classify
+from repro_torch.forecast import api as fapi
+from repro_torch.kernels import _build
+from repro_torch.kernels.gbdt_tables import table_args
+
+HISTORY = 60      # the AAPA policy's feature window (SimConfig.history_len)
+TREND_WINDOW = 30
+
+#: the policies whose episodes run the pre-pass
+POLICIES = ("predictive", "aapa", "hybrid")
+
+
+class Signals(NamedTuple):
+    """What a policy's minute hook gives decide, for B lanes and M
+    minutes, laid out [minute or slot, lane] as the plant pass reads it.
+
+    `rps` [K, M, B] float32: what decide reads during minute m, per
+    second (AAPA and hybrid: fc_rps, trend_rps, mean_rps of
+    ``policies.aapa_rate_signals``; predictive: need_pred of
+    ``policies.predictive_need``). AAPA and hybrid only: `arch` [R, B]
+    int32 and `adj` [3, R, B] float32 (cpu_adj, cool_adj_min, minrep_adj),
+    the archetype and Algorithm 1's parameters in effect from minute
+    r * stride_min (slot 0: the initial state), R = `n_slots(M, stride)`;
+    and when asked, `minute_arch` [B, M] int32, the archetype each lane
+    carries after each minute."""
+    rps: torch.Tensor
+    arch: torch.Tensor | None = None
+    adj: torch.Tensor | None = None
+    minute_arch: torch.Tensor | None = None
+
+
+def n_slots(M: int, stride: int) -> int:
+    """Reclassification slots of an M-minute episode: the initial state
+    and one every `stride` minutes up to the hook after the last minute."""
+    return M // stride + 1
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+def holt_winters(fcst, horizon: int) -> tuple[dict, int, float, float]:
+    """A forecasting policy's forecaster as the kernels take it: (the
+    Holt-Winters hyperparameters, use_band, band_q, sqrt_h). The interval
+    half-width is q * sqrt_h with a conformal band (the outermost `wrap`'s,
+    the one the forecaster's `forecast` applies; sqrt_h is 1 for a band
+    that does not widen), z * resid * sqrt_h without. Raises for any
+    forecaster but Holt-Winters."""
+    inner = fcst
+    while "inner" in inner.hyper:
+        inner = inner.hyper["inner"]
+    if inner.name != "holt_winters":
+        raise NotImplementedError(
+            f"episode_block's forecasting policies run the holt_winters "
+            f"forecaster, not {fcst.name!r}")
+    band = fcst.hyper.get("band")
+    sqrt_h = float(np.sqrt(np.float32(horizon)))
+    if band is None:
+        return inner.hyper, 0, 0.0, sqrt_h
+    if not fcst.hyper["widen_with_horizon"]:
+        sqrt_h = 1.0
+    return inner.hyper, 1, float(band.q), sqrt_h
+
+
+def _hw_floats(hw) -> list[float]:
+    """alpha, beta, gamma and 1 - each as the in-episode forecaster takes
+    them: Python floats rounded to f32 (hw_step), and RESID_RHO."""
+    return [*(_f32(hw[k]) for k in ("alpha", "beta", "gamma")),
+            *(_f32(1.0 - hw[k]) for k in ("alpha", "beta", "gamma")),
+            _f32(fapi.RESID_RHO)]
+
+
+def _check_rates(rates: torch.Tensor) -> None:
+    if rates.device.type != "cuda":
+        raise ValueError("the episode kernels need a CUDA tensor, got "
+                         f"{rates.device}")
+    if (rates.dim() != 2 or rates.dtype != torch.float32
+            or not rates.is_contiguous() or min(rates.shape) < 1):
+        raise ValueError("rates: expected a non-empty contiguous float32 "
+                         f"[B, M] tensor, got {tuple(rates.shape)} "
+                         f"{rates.dtype}")
+
+
+def _aapa(ext, rates, hyper, cfg, minute_arch: bool) -> Signals:
+    from repro_torch.scaling.registry import default_classify
+    horizon = int(hyper["horizon_min"])
+    hw, use_band, band_q, sqrt_h = holt_winters(hyper["forecaster"], horizon)
+    scale = hyper["conf_scale"]
+    cls = hyper["classify"]
+    if cfg.history_len != HISTORY:
+        raise NotImplementedError(
+            f"episode_block's AAPA policy takes history_len {HISTORY}, got "
+            f"{cfg.history_len}")
+    B, M = rates.shape
+    dev = rates.device
+    if isinstance(cls, Classify):
+        if cls.params.device != dev:
+            raise ValueError(f"classifier on {cls.params.device}, rates on "
+                             f"{dev}")
+        tables = table_args(cls.params)
+        coeffs = calibration.coefficients(cls.cal)
+        kind = 1
+    elif cls is default_classify:     # the kernel reads no table
+        zf = torch.zeros(1, dtype=torch.float32, device=dev)
+        zi = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+        tables, coeffs = (zf, zi, zi, zf, zf), (zf, zf, zf)
+        kind = 0
+    else:
+        raise NotImplementedError(
+            "episode_block's AAPA policy takes core.pipeline.Classify or "
+            "the registry's default_classify")
+    period = int(hw["period"])
+    stride = int(hyper["stride_min"])
+    tab = table_iii_arrays()
+    tbar, tvar = features.trend_constants(TREND_WINDOW)
+    inv_log_nb, inv_nb = features.freq_constants(HISTORY)
+    fh = [*tab["target_cpu"], *tab["cooldown_min"], *tab["min_replicas"],
+          *_hw_floats(hw), _f32(fapi.NATIVE_Z), sqrt_h, tbar, tvar,
+          _f32((TREND_WINDOW - 1) - tbar + horizon), inv_log_nb, inv_nb,
+          band_q, 0.0 if scale is None else float(scale)]
+    ih = [stride, horizon, int(hyper["forecast_confidence"]), period, kind,
+          use_band, int(scale is not None)]
+    R = n_slots(M, stride)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    sig = Signals(rps=torch.empty((3, M, B), **f32),
+                  arch=torch.empty((R, B), **i32),
+                  adj=torch.empty((3, R, B), **f32),
+                  minute_arch=torch.empty((B, M), **i32) if minute_arch
+                  else None)
+    ext.policy_signals_aapa(
+        rates, sig.rps, sig.arch, sig.adj,
+        sig.minute_arch if minute_arch else torch.empty(0, **i32),
+        torch.empty((B, R), **i32), torch.empty((B, R), **f32),
+        torch.empty((period, B), **f32), fh, ih,
+        *features.fft_tables(HISTORY, dev), *tables, *coeffs)
+    return sig
+
+
+def _predictive(ext, rates, hyper) -> Signals:
+    horizon = int(hyper["horizon_min"])
+    hw, use_band, band_q, sqrt_h = holt_winters(hyper["forecaster"], horizon)
+    period = int(hw["period"])
+    fh = [*_hw_floats(hw), _f32(fapi.NATIVE_Z), sqrt_h, band_q,
+          hyper["inv_cap"]]
+    ih = [period, horizon, use_band, int(hyper["conservative"])]
+    B, M = rates.shape
+    need = torch.empty((1, M, B), dtype=torch.float32, device=rates.device)
+    ext.policy_signals_predictive(
+        rates, need[0], torch.empty((period, B), dtype=torch.float32,
+                                    device=rates.device), fh, ih)
+    return Signals(rps=need)
+
+
+def policy_signals_cuda(rates: torch.Tensor, controller, cfg, *,
+                        minute_arch: bool = False) -> Signals:
+    """Launch the pre-pass: rates [B, M] (contiguous float32 on CUDA) ->
+    `Signals` of a predictive, AAPA or hybrid controller (with
+    `minute_arch`, AAPA's and hybrid's archetype after each minute too).
+    Raises on any other input or policy."""
+    _check_rates(rates)
+    if controller.name == "predictive":
+        sig = _predictive(_build.extension(), rates, controller.hyper)
+    elif controller.name in ("aapa", "hybrid"):
+        sig = _aapa(_build.extension(), rates, controller.hyper, cfg,
+                    minute_arch)
+    else:
+        raise ValueError(f"policy {controller.name!r} has no pre-pass; "
+                         f"pre-passes: {POLICIES}")
+    policy_signals_cuda.launches += 1
+    return sig
+
+
+policy_signals_cuda.launches = 0

@@ -138,20 +138,33 @@ def predictive_controller(cfg, *, target: float = 0.70,
         return PredState(fc=fcst.update(state.fc, hist[..., -1]))
 
     def decide(state: PredState, obs: Obs):
-        iv = fcst.forecast(state.fc, hyper["horizon_min"])
-        pred = (iv.hi if hyper["conservative"] else iv.point).clamp_min(0.0)
-        need_pred = pred * recip(60.0) * hyper["inv_cap"]
-        need_now = obs.rate_rps * hyper["inv_cap"]
-        desired = torch.ceil(torch.maximum(need_pred, need_now))
-        # scale to zero when neither live traffic nor forecast needs pods
-        idle = ((desired < 1.0) & (obs.queue <= 0.0)
-                & (obs.rate_rps <= 1e-6))
-        desired = torch.where(idle, torch.zeros_like(desired),
-                              desired.clamp_min(1.0))
-        return state, desired, torch.full_like(desired,
-                                               hyper["cooldown_sec"])
+        return (state, *predictive_decide(
+            hyper, predictive_need(hyper, state.fc), obs))
 
     return Controller("predictive", init, on_minute, decide, hyper=hyper)
+
+
+def predictive_need(hyper: dict, fstate: fapi.FState) -> torch.Tensor:
+    """The replicas the horizon's forecast needs: what the predictive
+    policy's decide reads of its forecaster. The forecaster observes only
+    the rates, so this is a function of the rates alone (the episode
+    kernel computes it in its pre-pass)."""
+    iv = hyper["forecaster"].forecast(fstate, hyper["horizon_min"])
+    pred = (iv.hi if hyper["conservative"] else iv.point).clamp_min(0.0)
+    return pred * recip(60.0) * hyper["inv_cap"]
+
+
+def predictive_decide(hyper: dict, need_pred: torch.Tensor, obs: Obs):
+    """The predictive policy's decision from its forecast need: (desired,
+    cooldown request)."""
+    need_now = obs.rate_rps * hyper["inv_cap"]
+    desired = torch.ceil(torch.maximum(need_pred, need_now))
+    # scale to zero when neither live traffic nor forecast needs pods
+    idle = ((desired < 1.0) & (obs.queue <= 0.0)
+            & (obs.rate_rps <= 1e-6))
+    desired = torch.where(idle, torch.zeros_like(desired),
+                          desired.clamp_min(1.0))
+    return desired, torch.full_like(desired, hyper["cooldown_sec"])
 
 
 # ------------------------------------------------------------------ AAPA ----
@@ -221,39 +234,53 @@ def _aapa(cfg, hyper: dict) -> Controller:
                          adj.min_replicas)
 
     def decide(state: AAPAState, obs: Obs):
-        fcst, tab = hyper["forecaster"], hyper["table"]
-        horizon = hyper["horizon_min"]
-        cpu = state.cpu_adj.clamp_min(0.05)
-        cap = cfg.rps_per_replica * cpu
-        # reactive component (archetype-specific utilization target)
-        ratio = obs.util_ema / cpu
-        reactive = torch.ceil(obs.ready_total * ratio)
-        reactive = torch.where((ratio - 1.0).abs() <= 0.1, obs.ready_total,
-                               reactive)
-
-        # strategy components (paper Table III)
-        warm = _select4(state.arch, *tab["warm_pool"])
-        need_now = torch.ceil(obs.rate_rps / cap)
-        spike_d = need_now + warm + state.minrep_adj
-
-        fc_pred = fcst.forecast(state.fc, horizon).point.clamp_min(
-            0.0) * recip(60.0)
-        periodic_d = torch.ceil(fc_pred / cap)
-
-        trend_pred = fc.linear_trend_forecast(
-            obs.rate_history[..., -30:], horizon) * recip(60.0)
-        ramp_d = torch.ceil(torch.maximum(trend_pred, obs.rate_rps) / cap)
-
-        mean_rps = xla_sum(obs.rate_history[..., -15:]) * recip(
-            15.0) * recip(60.0)
-        stat_d = torch.ceil(mean_rps / cap)
-
-        strat = _select4(state.arch, periodic_d, spike_d, stat_d, ramp_d)
-        desired = torch.maximum(torch.maximum(reactive, strat),
-                                state.minrep_adj.clamp_min(1.0))
-        return state, desired, state.cool_adj_min * 60.0
+        return (state, *aapa_decide(cfg, hyper, state, obs,
+                                    *aapa_rate_signals(hyper, state.fc,
+                                                       obs.rate_history)))
 
     return Controller("aapa", init, on_minute, decide, hyper=hyper)
+
+
+def aapa_rate_signals(hyper: dict, fstate: fapi.FState, rate_history):
+    """(fc_rps, trend_rps, mean_rps): what AAPA's decide reads of its
+    forecaster and of the rate history, per second (the horizon's peak
+    forecast, the 30-minute trend, the 15-minute mean). The forecaster
+    observes only the rates, so these are functions of the rates alone
+    (the episode kernel computes them in its pre-pass)."""
+    horizon = hyper["horizon_min"]
+    fc_rps = hyper["forecaster"].forecast(fstate, horizon).point.clamp_min(
+        0.0) * recip(60.0)
+    trend_rps = fc.linear_trend_forecast(rate_history[..., -30:],
+                                         horizon) * recip(60.0)
+    mean_rps = xla_sum(rate_history[..., -15:]) * recip(15.0) * recip(60.0)
+    return fc_rps, trend_rps, mean_rps
+
+
+def aapa_decide(cfg, hyper: dict, state: AAPAState, obs: Obs, fc_rps,
+                trend_rps, mean_rps):
+    """AAPA's decision from its state's archetype and Algorithm 1
+    parameters and the rate signals: (desired, cooldown request)."""
+    tab = hyper["table"]
+    cpu = state.cpu_adj.clamp_min(0.05)
+    cap = cfg.rps_per_replica * cpu
+    # reactive component (archetype-specific utilization target)
+    ratio = obs.util_ema / cpu
+    reactive = torch.ceil(obs.ready_total * ratio)
+    reactive = torch.where((ratio - 1.0).abs() <= 0.1, obs.ready_total,
+                           reactive)
+
+    # strategy components (paper Table III)
+    warm = _select4(state.arch, *tab["warm_pool"])
+    need_now = torch.ceil(obs.rate_rps / cap)
+    spike_d = need_now + warm + state.minrep_adj
+    periodic_d = torch.ceil(fc_rps / cap)
+    ramp_d = torch.ceil(torch.maximum(trend_rps, obs.rate_rps) / cap)
+    stat_d = torch.ceil(mean_rps / cap)
+
+    strat = _select4(state.arch, periodic_d, spike_d, stat_d, ramp_d)
+    desired = torch.maximum(torch.maximum(reactive, strat),
+                            state.minrep_adj.clamp_min(1.0))
+    return desired, state.cool_adj_min * 60.0
 
 
 # ------------------------------------------------------------------- KPA ----
@@ -353,19 +380,22 @@ def _hybrid(cfg, hyper: dict) -> Controller:
 
     def decide(state, obs: Obs):
         state, desired, cool = base.decide(state, obs)
-        # reactive floor from live utilization
-        floor = torch.maximum(
-            torch.ceil(obs.ready_total * obs.util_ema * hyper["inv_guard"]),
-            torch.ceil(obs.rate_rps * hyper["inv_rps_guard"]))
-        guarded = torch.maximum(desired, floor)
-        # bounded scale-down step
-        step_floor = torch.ceil(obs.ready_total * hyper["down_keep"])
-        guarded = torch.where(guarded < obs.ready_total,
-                              torch.maximum(guarded, step_floor), guarded)
-        return state, guarded, cool
+        return state, hybrid_guard(hyper, desired, obs), cool
 
     return Controller("hybrid", base.init, base.on_minute, decide,
                       hyper=hyper)
+
+
+def hybrid_guard(hyper: dict, desired, obs: Obs):
+    """The hybrid policy's guard around AAPA's decision: a reactive floor
+    from live utilization and a bounded scale-down step."""
+    floor = torch.maximum(
+        torch.ceil(obs.ready_total * obs.util_ema * hyper["inv_guard"]),
+        torch.ceil(obs.rate_rps * hyper["inv_rps_guard"]))
+    guarded = torch.maximum(desired, floor)
+    step_floor = torch.ceil(obs.ready_total * hyper["down_keep"])
+    return torch.where(guarded < obs.ready_total,
+                       torch.maximum(guarded, step_floor), guarded)
 
 
 def rebuild(controller: Controller, cfg, **changes) -> Controller:

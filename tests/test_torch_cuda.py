@@ -16,7 +16,8 @@ from repro_torch.data import azure_synth, windows
 from repro_torch.forecast import conformal
 from repro_torch.forecast import registry as forecast_registry
 from repro_torch.kernels import (episode_block, gbdt_tables, holt_winters,
-                                 ops, plant_block, ref, window_features)
+                                 ops, plant_block, policy_signals, ref,
+                                 window_features)
 from repro_torch.scaling import registry, scenarios
 from repro_torch.sim import cluster
 
@@ -76,18 +77,21 @@ def test_episode_block_kernel_matches_plain(cuda, ci):
 
 def test_default_path_is_the_episode_kernel(cuda):
     """`make_simulator` on its default device launches one episode kernel
-    per chunk, and chunking changes no bit."""
+    per chunk (after one pre-pass per chunk for AAPA), and chunking
+    changes no bit."""
     cfg = cluster.SimConfig()
-    ctrl = registry.make("hpa", cfg)
     rates = _rates(1, cuda, w=256)
-    ops.reset_launch_counts()
-    chunked = cluster.make_simulator(ctrl, cfg, w_chunk=64)(rates)
-    assert ops.launch_counts() == {"plant_block": 0, "episode_block": 4,
-                                   "window_features": 0, "gbdt_tables": 0,
-                                   "holt_winters": 0}
-    whole = cluster.make_simulator(ctrl, cfg)(rates)
-    for a, b in zip(chunked, whole):
-        assert torch.equal(a, b)
+    for name, pre in (("hpa", 0), ("aapa", 4)):
+        ctrl = registry.make(name, cfg)
+        ops.reset_launch_counts()
+        chunked = cluster.make_simulator(ctrl, cfg, w_chunk=64)(rates)
+        assert ops.launch_counts() == {"plant_block": 0, "episode_block": 4,
+                                       "policy_signals": pre,
+                                       "window_features": 0,
+                                       "gbdt_tables": 0, "holt_winters": 0}
+        whole = cluster.make_simulator(ctrl, cfg)(rates)
+        for a, b in zip(chunked, whole):
+            assert torch.equal(a, b)
 
 
 def test_unfused_path_launches_plant_block(cuda):
@@ -97,6 +101,7 @@ def test_unfused_path_launches_plant_block(cuda):
     ops.reset_launch_counts()
     unfused = cluster.simulate(rates, ctrl, cfg, decide_kernel=False)
     assert ops.launch_counts() == {"plant_block": 5 * 4, "episode_block": 0,
+                                   "policy_signals": 0,
                                    "window_features": 0, "gbdt_tables": 0,
                                    "holt_winters": 0}
     fused = cluster.simulate(rates, ctrl, cfg)
@@ -303,3 +308,112 @@ def test_band_archetype_episode_kernel_matches_plain(cuda, policy, wrapped,
         torch.testing.assert_close(a, e, **EPISODE_TOL)
     assert torch.equal(got_arch, want_arch)
     assert len(torch.unique(want_arch)) >= 3
+
+
+def _controller(policy, cfg, dev):
+    """The policy of a template case: predictive conservative with the
+    band, AAPA with the seeded GBDT reclassifying every 5 minutes with the
+    forecast confidence on, hybrid with the GBDT and the band."""
+    kw = {"predictive": lambda: dict(band=_band(dev), conservative=True),
+          "aapa": lambda: dict(classify=_classifier(dev), stride_min=5,
+                               forecast_confidence=True),
+          "hybrid": lambda: dict(classify=_classifier(dev),
+                                 band=_band(dev))}.get(policy, dict)()
+    return registry.make(policy, cfg, **kw)
+
+
+@pytest.mark.parametrize("policy,kw", [
+    ("aapa", dict(stride_min=10)), ("aapa", dict(stride_min=2)),
+    ("aapa", dict(stride_min=10, forecast_confidence=True)),
+    ("aapa", dict(classify=None)), ("aapa", dict(band=True)),
+    ("hybrid", dict(band=True, stride_min=5)), ("predictive", {}),
+    ("predictive", dict(band=True, conservative=True))],
+    ids=["aapa_s10", "aapa_s2", "aapa_conf", "aapa_default", "aapa_band",
+         "hybrid_band", "predictive", "predictive_conservative_band"])
+def test_policy_signals_kernel_matches_plain(cuda, policy, kw):
+    """The pre-pass kernels against `policy_signals_ref`, bit for bit: the
+    per-minute signals, the slots, and the archetype after every minute;
+    293 lanes (not a multiple of the block) x 97 minutes."""
+    cfg = cluster.SimConfig()
+    kw = dict(kw)
+    if policy != "predictive" and kw.pop("classify", True) is not None:
+        kw["classify"] = _classifier(cuda)
+    if kw.get("band"):
+        kw["band"] = _band(cuda)
+    ctrl = registry.make(policy, cfg, **kw)
+    rates = torch.as_tensor(scenarios.archetype_mix(
+        n_workloads=293, minutes=97, seed=2).rates, device=cuda)
+    arch = policy != "predictive"
+    before = policy_signals.policy_signals_cuda.launches
+    got = policy_signals.policy_signals_cuda(rates, ctrl, cfg,
+                                             minute_arch=arch)
+    assert policy_signals.policy_signals_cuda.launches == before + 1
+    ops.reset_launch_counts()
+    want = ref.policy_signals_ref(rates, ctrl, cfg, minute_arch=arch)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict.fromkeys(ops.LAUNCHERS, 0)
+    for name, a, e in zip(policy_signals.Signals._fields, got, want):
+        assert (a is None) == (e is None), name
+        assert a is None or torch.equal(a, e), name
+
+
+@pytest.mark.parametrize("ci,startup", [(15, 30), (30, 60), (7, 60)])
+@pytest.mark.parametrize("b,m", [(1, 90), (33, 121), (1000, 61)])
+@pytest.mark.parametrize("policy", ["hpa", "kpa", "predictive", "aapa",
+                                    "hybrid"])
+def test_episode_templates_ragged_shapes(cuda, policy, b, m, ci, startup):
+    """Every template of the episode kernel against its plain episode at
+    lane counts that are not a multiple of the 32-lane block and minute
+    counts that are not a multiple of the 8-minute tile, with the
+    archetypes of AAPA and hybrid exact."""
+    cfg = cluster.SimConfig(control_interval_sec=ci, startup_sec=startup)
+    ctrl = _controller(policy, cfg, cuda)
+    rates = torch.as_tensor(scenarios.archetype_mix(
+        n_workloads=b, minutes=m, seed=b + m).rates, device=cuda)
+    if policy in episode_block.ARCHETYPE_POLICIES:
+        got, got_arch = episode_block.aapa_episode_cuda(rates, ctrl, cfg)
+        want, want_arch = ref.aapa_episode_ref(rates, ctrl, cfg)
+        assert torch.equal(got_arch, want_arch)
+    else:
+        got = episode_block.episode_block_cuda(rates, ctrl, cfg)
+        want = ref.episode_block_ref(rates, ctrl, cfg)
+    torch.cuda.synchronize()
+    for a, e in zip(got, want):
+        assert torch.equal(a, e)
+
+
+def test_plant_pass_matches_plain(cuda):
+    """The plant pass alone, from the pre-pass's signals, against
+    `plant_pass_ref` on the same signals."""
+    cfg = cluster.SimConfig(control_interval_sec=7)
+    ctrl = _controller("hybrid", cfg, cuda)
+    rates = torch.as_tensor(scenarios.archetype_mix(
+        n_workloads=129, minutes=90, seed=1).rates, device=cuda)
+    sig = policy_signals.policy_signals_cuda(rates, ctrl, cfg)
+    before = episode_block.episode_block_cuda.launches
+    got = episode_block.plant_pass_cuda(rates, ctrl, cfg, sig)
+    assert episode_block.episode_block_cuda.launches == before + 1
+    want = ref.plant_pass_ref(rates, ctrl, cfg, sig)
+    torch.cuda.synchronize()
+    for a, e in zip(got, want):
+        assert torch.equal(a, e)
+    with pytest.raises(ValueError, match="signals"):
+        episode_block.plant_pass_cuda(rates, ctrl, cfg, None)
+
+
+def test_startup_pipeline_too_large_for_shared_memory_raises(cuda):
+    """The pipeline and HPA's window live in shared memory at 32 lanes a
+    block; a startup_sec whose ring does not fit is refused, never moved
+    to global memory."""
+    rates = _rates(6, cuda, w=40, m=3)
+    for policy in ("hpa", "kpa"):
+        cfg = cluster.SimConfig(startup_sec=4000)
+        with pytest.raises(RuntimeError, match="shared memory"):
+            episode_block.episode_block_cuda(
+                rates, registry.make(policy, cfg), cfg)
+    cfg = cluster.SimConfig(startup_sec=1500)    # fits: 1500 + 20 slots
+    got = episode_block.episode_block_cuda(rates, registry.make("hpa", cfg),
+                                           cfg)
+    want = ref.episode_block_ref(rates, registry.make("hpa", cfg), cfg)
+    for a, e in zip(got, want):
+        assert torch.equal(a, e)

@@ -117,6 +117,7 @@ def test_cpu_dispatch_runs_plain_versions_only():
                         ref.episode_block_ref(rates, ctrl, cfg)):
             assert torch.equal(a, e)
     assert ops.launch_counts() == {"plant_block": 0, "episode_block": 0,
+                                   "policy_signals": 0,
                                    "window_features": 0, "gbdt_tables": 0,
                                    "holt_winters": 0}
 

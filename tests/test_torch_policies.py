@@ -25,7 +25,7 @@ from repro.sim import cluster as ref_cluster
 from repro_torch import interop
 from repro_torch.forecast import conformal as t_conformal
 from repro_torch.forecast import registry as t_fregistry
-from repro_torch.kernels import episode_block
+from repro_torch.kernels import episode_block, policy_signals
 from repro_torch.scaling import policies as t_policies
 from repro_torch.scaling import registry as t_registry
 from repro_torch.scaling import scenarios as t_scenarios
@@ -187,7 +187,7 @@ def test_episode_kernel_launchers_cover_every_policy():
     for name in ("predictive", "aapa", "hybrid"):
         ctrl = t_registry.make(name, cfg, forecaster="ewma")
         with pytest.raises(NotImplementedError, match="holt_winters"):
-            episode_block._holt_winters(ctrl.hyper["forecaster"], 15)
+            policy_signals.holt_winters(ctrl.hyper["forecaster"], 15)
     with pytest.raises(ValueError, match="CUDA"):
         episode_block.aapa_episode_cuda(rates, t_registry.make("hybrid",
                                                                cfg), cfg)
@@ -212,18 +212,18 @@ def test_episode_kernel_takes_the_band_of_the_forecaster():
         wrapped = t_registry.make(name, cfg,
                                   forecaster=t_conformal.wrap(hw, band))
         want = (hw.hyper, 1, 2.5, sqrt15)
-        assert episode_block._holt_winters(by_arg.hyper["forecaster"],
+        assert policy_signals.holt_winters(by_arg.hyper["forecaster"],
                                            15) == want
-        assert episode_block._holt_winters(wrapped.hyper["forecaster"],
+        assert policy_signals.holt_winters(wrapped.hyper["forecaster"],
                                            15) == want
     assert t_registry.make("aapa", cfg, band=band).hyper[
         "conf_scale"] is band.scale
     assert t_registry.make("aapa", cfg, forecaster=t_conformal.wrap(
         hw, band)).hyper["conf_scale"] is None
     flat = t_conformal.wrap(hw, band, widen_with_horizon=False)
-    assert episode_block._holt_winters(flat, 15) == (hw.hyper, 1, 2.5, 1.0)
+    assert policy_signals.holt_winters(flat, 15) == (hw.hyper, 1, 2.5, 1.0)
     outer = t_conformal.ConformalBand(torch.tensor(4.0), 0.8,
                                       torch.tensor(3.0))
-    assert episode_block._holt_winters(t_conformal.wrap(flat, outer),
+    assert policy_signals.holt_winters(t_conformal.wrap(flat, outer),
                                        15) == (hw.hyper, 1, 4.0, sqrt15)
-    assert episode_block._holt_winters(hw, 15) == (hw.hyper, 0, 0.0, sqrt15)
+    assert policy_signals.holt_winters(hw, 15) == (hw.hyper, 0, 0.0, sqrt15)
