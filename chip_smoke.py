@@ -45,9 +45,10 @@ and prints no result line):
    each kernel's time.
 9. The ``episode_block`` kernel's AAPA policy (that classifier inside)
    against its plain version: ``archetype_mix`` 1024 x 120 at ci 7
-   (remainder block) with stride 10 and 2, and one 25,000 x 1440 chunk
-   of the AAPA fleet; all 12 MinuteOut fields at the episode tolerance
-   and the archetype of every lane after every minute exactly.
+   (remainder block) with stride 10 and 2, and the first 480 minutes of
+   one 25,000-lane chunk of the AAPA fleet; all 12 MinuteOut fields at
+   the episode tolerance and the archetype of every lane after every
+   minute exactly.
 10. The AAPA fleet: the same 100,000 x 1440 ``burst_storm`` rates as the
     HPA row through ``make_simulator(w_chunk=25_000)``, pooled metrics
     and REI, timed, then once more under ``torch.profiler``.
@@ -80,14 +81,37 @@ and prints no result line):
     against four 25,000-lane launches (HPA's episode, AAPA's plant pass),
     and each kernel entry's registers, stack and shared memory from
     ``cuobjdump --dump-resource-usage`` of the built extension.
+17. Every registry forecaster in the episode: predictive, predictive
+    conservative with the band, AAPA (phase 8's classifier, the forecast
+    confidence on) and hybrid with the band, each under linear trend,
+    seasonal naive and EWMA, on ``archetype_mix`` 4,096 x 240, equal to
+    their plain episodes bit for bit, archetypes included.
+18. The pre-pass's new minute walks (predictive conservative with the
+    band and AAPA, under each of those forecasters) against
+    ``ref.policy_signals_ref`` bit for bit on the 25,000 x 1440 chunk,
+    and each walk's time per launch (CUDA events) against its bound.
+19. The Table IV evaluation matrix (``evals.matrix.make_runner``) on the
+    card at three sizes: ``benchmarks/bench_autoscaling.py``'s SPEC (4
+    ``archetype_pure`` scenarios x 5 seeds x 32 workloads x 1440 min
+    under HPA, predictive and AAPA) and SWEEP_SPEC (predictive under the
+    four forecasters, ``archetype_mix`` 8 x 1440), both rebuilt here, and
+    a fleet-size matrix (HPA, kpa, predictive, AAPA and hybrid x the four
+    forecasters: 14 controller lanes x (``burst_storm``,
+    ``diurnal_ramp``) x 50,000 workloads x 1440 min, pooled mode,
+    ``w_chunk`` 25,000): wall, lane-minutes/s, peak memory, launches;
+    the fleet matrix once more under ``torch.profiler``.
+20. A small matrix (the reference's acceptance matrix's shape) on the
+    card against the port's plain matrix on the CPU: rtol 2e-6 (the
+    reference's tolerance for reordered pooling), counts exact.
 
-Phases 4, 5, 8, 10, 12 and 14 each reset the kernels' launch counts just
-before they run and read them just after; a path whose kernel was never
-launched fails (the predictive, AAPA and hybrid rows: the pre-pass and
-the plant pass). Kernel-vs-plain comparisons and timing launches are not
-counted. The plain runs of phases 8, 9, 11 and 13 are checked to launch
-no kernel (the plain AAPA and hybrid episodes classify through the plain
-GBDT).
+Phases 4, 5, 8, 10, 12, 14 and 19 each reset the kernels' launch counts
+just before they run and read them just after; a path whose kernel was
+never launched fails (the predictive, AAPA and hybrid rows: the pre-pass
+and the plant pass; the matrices: every policy's minute walk under every
+forecaster). Kernel-vs-plain comparisons and timing launches are not
+counted. The plain runs of phases 8, 9, 11, 13, 17, 18 and 20 are checked
+to launch no kernel (the plain AAPA and hybrid episodes classify through
+the plain GBDT).
 
 Output: progress lines, then a JSON line of per-kernel numbers, then the
 ``nvidia-smi`` line, then the result line
@@ -118,6 +142,10 @@ F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 PLANT_OPS_PER_TICK = 34
 EPISODE_OPS_PER_TICK = 42
 EPISODE_OPS_PER_HEAD = 52
+
+# minutes of the AAPA fleet chunk that phase 9 holds against the plain
+# episode
+AAPA_PLAIN_MINUTES = 480
 
 PLANT_TOL = dict(rtol=1e-5, atol=1e-5)
 EPISODE_TOL = dict(rtol=3e-6, atol=1e-4)
@@ -341,6 +369,138 @@ def prepass_bound(ctrl, B: int, M: int, cls) -> tuple[float, str]:
                     float(B) * M * AAPA_OPS_PER_MINUTE + float(B) * (
                         M // stride) * reclassification_ops(
                         cls, bool(ctrl.hyper["forecast_confidence"])))
+
+
+def forecaster_ops(name: str, horizon: int, window: int = 30) -> int:
+    """Operations of one forecaster update and the horizon's peak per
+    minute (forecasters.cuh): the residual EWMA (5) and the model's own;
+    Holt-Winters' recurrence and a step of its peak (AAPA_OPS_PER_MINUTE's
+    20 + 4 a step); linear trend's two XLA-order sums over the window
+    (5 a slot) and its two line values; seasonal naive's store and a
+    phase, a load and a max per step of the peak; the EWMA's 3."""
+    return {"holt_winters": 20 + 4 * horizon,
+            "linear_trend": 5 + 5 * window + 10,
+            "seasonal_naive": 5 + 3 + 3 * horizon,
+            "ewma": 5 + 3 + 1}[name]
+
+
+def walk_bound(ctrl, B: int, M: int, cls) -> tuple[float, str]:
+    """`prepass_bound` of a predictive or AAPA pre-pass under any
+    registry forecaster: the Holt-Winters forecaster's share of the
+    minute's operations replaced by the walk's own."""
+    from repro_torch.kernels import policy_signals
+    horizon = int(ctrl.hyper["horizon_min"])
+    name = policy_signals.forecaster_name(ctrl)
+    window = int(ctrl.hyper["forecaster"].hyper.get("window", 30))
+    delta = forecaster_ops(name, horizon, window) - forecaster_ops(
+        "holt_winters", horizon)
+    if ctrl.name == "predictive":
+        return bound_ms(4.0 * B * M * 2, float(B) * M * (
+            PRED_OPS_PER_MINUTE + delta))
+    stride = int(ctrl.hyper["stride_min"])
+    return bound_ms(4.0 * B * M * 4 + PREPASS_SLOT_BYTES * B * (M // stride),
+                    float(B) * M * (AAPA_OPS_PER_MINUTE + delta) + float(B) * (
+                        M // stride) * reclassification_ops(
+                        cls, bool(ctrl.hyper["forecast_confidence"])))
+
+
+def bench_spec(matrix):
+    """``benchmarks/bench_autoscaling.py``'s SPEC, built here: Fig 2's
+    archetype-pure scenarios x 5 seeds x 32 workloads x one day under HPA,
+    predictive and AAPA."""
+    from repro_torch.core.archetypes import ARCHETYPE_NAMES
+    return matrix.spec(
+        "bench_autoscaling_fig2", policies=("hpa", "predictive", "aapa"),
+        forecasters=("holt_winters",),
+        scenarios=tuple(("archetype_pure", {"kind": k})
+                        for k in ARCHETYPE_NAMES),
+        seeds=tuple(range(1000, 1005)), n_workloads=32, minutes=1440)
+
+
+def sweep_spec(matrix):
+    """``benchmarks/bench_autoscaling.py``'s SWEEP_SPEC, built here: the
+    generic predictive policy under every registry forecaster."""
+    from repro_torch.forecast import registry as forecast_registry
+    return matrix.spec(
+        "bench_forecaster_sweep", policies=("predictive",),
+        forecasters=tuple(forecast_registry.available()),
+        scenarios=(("archetype_mix", {}),), seeds=(4242,), n_workloads=8,
+        minutes=1440)
+
+
+def fleet_spec(matrix):
+    """The fleet-size matrix: every policy x every forecaster over a day
+    of 50,000 workloads of synchronized bursts and of diurnal growth."""
+    from repro_torch.forecast import registry as forecast_registry
+    return matrix.spec(
+        "fleet_policy_forecaster", policies=("hpa", "kpa", "predictive",
+                                             "aapa", "hybrid"),
+        forecasters=tuple(forecast_registry.available()),
+        scenarios=(("burst_storm", {}), ("diurnal_ramp", {})), seeds=(0,),
+        n_workloads=50_000, minutes=1440)
+
+
+def accept_spec(matrix):
+    """The shape of the reference's acceptance matrix
+    (tests/test_evals.py ACCEPT_SPEC)."""
+    return matrix.spec(
+        "t_matrix", policies=("hpa", "kpa", "predictive", "aapa"),
+        forecasters=("holt_winters", "ewma"),
+        scenarios=(("burst_storm", {}), ("idle_wake", {}),
+                   ("archetype_mix", {})), seeds=(0, 1), n_workloads=2,
+        minutes=60)
+
+
+def run_matrix(matrix, sp, cls, label: str, profile: bool = False, **kw):
+    """One matrix on the card, timed from rates on the host to metrics,
+    with the launch counts reset just before it and read just after;
+    fails if an episode or pre-pass kernel did not run or a metric is not
+    finite. With `profile`, runs it once more under torch.profiler.
+    Returns (pooled, per-workload, counts, walks)."""
+    from repro_torch.kernels import ops, policy_signals
+    t0 = time.perf_counter()
+    rates = matrix.build_rates(sp)
+    gen_s = time.perf_counter() - t0
+    runner = matrix.make_runner(sp, cls, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pool, per_w = runner(rates)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    walks = dict(policy_signals.policy_signals_cuda.by_walk)
+    peak = torch.cuda.max_memory_allocated()
+    S, Z, F, P = sp.shape
+    if tuple(pool.slo_violation_rate.shape) != (S, Z, F, P):
+        raise RuntimeError(f"{label}: pooled shape "
+                           f"{tuple(pool.slo_violation_rate.shape)}")
+    for name, v in pool._asdict().items():
+        if not torch.isfinite(v).all():
+            raise RuntimeError(f"{label}: non-finite {name}")
+    forecasting = [p for p in sp.policies
+                   if p in policy_signals.POLICIES]
+    if counts["episode_block"] == 0 or (forecasting and (
+            counts["policy_signals"] == 0 or len(walks) != len(
+                forecasting) * F)):
+        raise RuntimeError(f"{label}: launches {counts}, walks {walks}")
+    lanes = S * Z * sp.n_workloads
+    runs = sum(1 for f in range(F) for p in sp.policies
+               if f == 0 or p in policy_signals.POLICIES)
+    log(f"[matrix {label}] {S}x{Z}x{F}x{P} cells, {sp.n_workloads} "
+        f"workloads x {sp.minutes} min ({runs} controller lanes): wall "
+        f"{wall:.4f} s ({runs * lanes * sp.minutes / wall:.6g} lane-minutes"
+        f"/s), rates generated in {gen_s:.1f} s, peak device memory {peak} "
+        f"bytes, launches {counts}, pre-pass walks {walks}")
+    log(f"[matrix {label}] mean over cells: slo_violation_rate "
+        f"{float(pool.slo_violation_rate.mean())} replica_minutes "
+        f"{float(pool.replica_minutes.mean())} scaling_actions "
+        f"{float(pool.scaling_actions.mean())}")
+    if profile:
+        profile_row(lambda: (runner(rates), torch.cuda.synchronize()),
+                    f"matrix {label}")
+    return pool, per_w, counts, walks
 
 
 def split_ms(rates, ctrl, cfg) -> dict:
@@ -784,23 +944,29 @@ def main() -> int:
     log(f"[episode_block<AAPA>] archetype_mix 1024x120 ci=7 stride 10/2 "
         f"matches the plain version (archetypes exact), "
         f"max_abs_err={aapa_err}")
+    # the plain check runs the chunk's first AAPA_PLAIN_MINUTES minutes
+    # (the plain episode is host-bound: a whole day takes ~75 s)
     actrl = registry.make("aapa", cfg, classify=cls)
     got = episode_block.aapa_episode_cuda(chunk, actrl, cfg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = launch_free(lambda: ref.aapa_episode_ref(chunk, actrl, cfg),
-                       f"aapa {w_chunk}x{M}")
-    torch.cuda.synchronize()
-    aapa_plain_s = time.perf_counter() - t0
-    chunk_err = assert_episode(got, want, f"aapa {w_chunk}x{M}")
-    aapa_err = max(aapa_err, chunk_err)
     arch_hist = torch.bincount(got[1].reshape(-1).long(),
                                minlength=4).tolist()
-    log(f"[episode_block<AAPA>] fleet chunk {w_chunk}x{M} ci=15 stride 10 "
-        f"matches the plain version (archetypes exact), "
-        f"max_abs_err={chunk_err}; lane-minutes by archetype {arch_hist}")
     aapa_downs = float(got[0].downs.double().sum())
-    del got, want
+    head = chunk[:, :AAPA_PLAIN_MINUTES].contiguous()
+    got = episode_block.aapa_episode_cuda(head, actrl, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = launch_free(lambda: ref.aapa_episode_ref(head, actrl, cfg),
+                       f"aapa {w_chunk}x{AAPA_PLAIN_MINUTES}")
+    torch.cuda.synchronize()
+    aapa_plain_s = time.perf_counter() - t0
+    chunk_err = assert_episode(got, want,
+                               f"aapa {w_chunk}x{AAPA_PLAIN_MINUTES}")
+    aapa_err = max(aapa_err, chunk_err)
+    log(f"[episode_block<AAPA>] fleet chunk {w_chunk}x{AAPA_PLAIN_MINUTES} "
+        f"ci=15 stride 10 matches the plain version (archetypes exact), "
+        f"max_abs_err={chunk_err}; lane-minutes by archetype over the day "
+        f"{arch_hist}")
+    del got, want, head
     aapa_split = split_ms(chunk, actrl, cfg)
     aapa_ms = aapa_split["ms"]
     stride = int(actrl.hyper["stride_min"])
@@ -810,8 +976,8 @@ def main() -> int:
                          cfg.startup_sec))
     log(f"[timing] episode_block<AAPA> {w_chunk}x{M}: {aapa_ms} ms (pre-pass "
         f"{aapa_split['prepass_ms']} ms, plant pass {aapa_split['plant_ms']} "
-        f"ms), plain {aapa_plain_s * 1e3} ms (one run, host clock), bound "
-        f"{aapa_bound} ms ({aapa_by})")
+        f"ms), plain {w_chunk}x{AAPA_PLAIN_MINUTES} {aapa_plain_s * 1e3} ms "
+        f"(one run, host clock), bound {aapa_bound} ms ({aapa_by})")
 
     # ---- 10. the AAPA fleet: Table IV row
     aapa_counts, aapa_path, _ = fleet_row(actrl, cfg, fleet_rates, w_chunk,
@@ -1038,6 +1204,114 @@ def main() -> int:
         raise RuntimeError(f"the AAPA or hybrid plant pass holds more stack "
                            f"than HPA's: {plant_entries}")
 
+    # ---- 17. every registry forecaster in the episode, bit for bit
+    from repro_torch.evals import matrix
+    from repro_torch.forecast import registry as forecast_registry
+    new_fcs = [f for f in forecast_registry.available()
+               if f != "holt_winters"]
+    fmix = torch.as_tensor(scenarios.archetype_mix(
+        n_workloads=4096, minutes=240, seed=5).rates, device=dev)
+    fc_cases = {
+        "predictive": ("predictive", {}),
+        "predictive_conservative_band": ("predictive",
+                                         dict(band=band, conservative=True)),
+        "aapa_conf": ("aapa", dict(classify=cls, forecast_confidence=True)),
+        "hybrid_band": ("hybrid", dict(classify=cls, band=band)),
+    }
+    t0 = time.perf_counter()
+    for fname in new_fcs:
+        for label, (name, kw) in fc_cases.items():
+            ctrl = registry.make(name, cfg, forecaster=fname, **kw)
+            arch = name in episode_block.ARCHETYPE_POLICIES
+            got = (episode_block.aapa_episode_cuda if arch
+                   else ops.episode_block)(fmix, ctrl, cfg)
+            want = launch_free(lambda: (
+                ref.aapa_episode_ref if arch else ref.episode_block_ref)(
+                    fmix, ctrl, cfg), f"{label}[{fname}]")
+            outs = zip(got[0], want[0]) if arch else zip(got, want)
+            if not all(torch.equal(a, e) for a, e in outs) or (
+                    arch and not torch.equal(got[1], want[1])):
+                raise RuntimeError(f"episode {label}[{fname}] 4096x240 "
+                                   "differs from its plain version")
+            del got, want
+    torch.cuda.synchronize()
+    log(f"[forecasters] {len(new_fcs) * len(fc_cases)} episodes "
+        f"({', '.join(fc_cases)} x {', '.join(new_fcs)}) on archetype_mix "
+        f"4096x240 equal their plain versions bit for bit, archetypes "
+        f"included ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- 18. the new pre-pass walks vs plain on the chunk, and their times
+    walk_rows = {}
+    for fname in new_fcs:
+        for label in ("predictive_conservative_band", "aapa_conf"):
+            name, kw = fc_cases[label]
+            ctrl = registry.make(name, cfg, forecaster=fname, **kw)
+            arch = name == "aapa"
+            got = policy_signals.policy_signals_cuda(chunk, ctrl, cfg,
+                                                     minute_arch=arch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = launch_free(lambda: ref.policy_signals_ref(
+                chunk, ctrl, cfg, minute_arch=arch),
+                f"policy_signals {label}[{fname}]")
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            for field, a, e in zip(policy_signals.Signals._fields, got,
+                                   want):
+                if (a is None) != (e is None) or (
+                        a is not None and not torch.equal(a, e)):
+                    raise RuntimeError(f"policy_signals {label}[{fname}]: "
+                                       f"{field} differs from the plain "
+                                       "version")
+            del got, want
+            ms = cuda_ms(lambda: policy_signals.policy_signals_cuda(
+                chunk, ctrl, cfg), iters=3)[0]
+            bnd, by = walk_bound(ctrl, w_chunk, M, cls)
+            walk_rows[f"{name}:{fname}"] = dict(
+                label=label, ms=ms, plain_ms=plain_s * 1e3, bound_ms=bnd,
+                bound_by=by)
+            log(f"[policy_signals<{name}:{fname}>] {label} {w_chunk}x{M} "
+                f"equals the plain version bit for bit; {ms} ms per launch,"
+                f" plain {plain_s * 1e3} ms (one run, host clock), bound "
+                f"{bnd} ms ({by})")
+
+    # ---- 19. the Table IV matrix on the card at three sizes
+    run_matrix(matrix, bench_spec(matrix), cls, "SPEC")
+    run_matrix(matrix, sweep_spec(matrix), cls, "SWEEP_SPEC")
+    fleet_pool, _, fleet_counts, fleet_walks = run_matrix(
+        matrix, fleet_spec(matrix), cls, "fleet", profile=True,
+        per_workload=False, w_chunk=w_chunk)
+    for walk in walk_rows:
+        if fleet_walks.get(walk, 0) == 0:
+            raise RuntimeError(f"the fleet matrix launched no {walk} walk: "
+                               f"{fleet_walks}")
+
+    # ---- 20. a small matrix on the card against the plain matrix on the CPU
+    small = accept_spec(matrix)
+    small_rates = matrix.build_rates(small)
+    card = matrix.make_runner(small, device="cuda")(small_rates)
+    plain = launch_free(lambda: matrix.make_runner(small, device="cpu")(
+        small_rates), "matrix on the CPU")
+    counts_exact = ("scaling_actions", "oscillations",
+                    "mean_action_interval_min", "overprovision_rate")
+    small_err = 0.0
+    for mode, got, want in (("pooled", card[0], plain[0]),
+                            ("per workload", card[1], plain[1])):
+        for field, a, e in zip(got._fields, got, want):
+            a = a.cpu()
+            if field in counts_exact:
+                if not torch.equal(a, e):
+                    raise RuntimeError(f"matrix {mode} {field}: the card's "
+                                       "counts differ from the CPU's")
+            else:
+                torch.testing.assert_close(
+                    a, e, rtol=2e-6, atol=0.0,
+                    msg=lambda m: f"matrix {mode} {field}: {m}")
+            small_err = max(small_err, float((a - e).abs().max()))
+    log(f"[matrix small] {small.shape} x {small.n_workloads} x "
+        f"{small.minutes} on the card matches the plain matrix on the CPU "
+        f"(rtol 2e-6, counts exact), max_abs_err={small_err}")
+
     kernels = [
         dict(name="plant_block", route="cuda",
              source="src/repro_torch/kernels/csrc/plant_block.cu",
@@ -1057,6 +1331,7 @@ def main() -> int:
              launches=aapa_counts["episode_block"], max_abs_err=aapa_err,
              ms=aapa_ms, prepass_ms=aapa_split["prepass_ms"],
              plant_ms=aapa_split["plant_ms"], plain_ms=aapa_plain_s * 1e3,
+             plain_shape=f"{w_chunk}x{AAPA_PLAIN_MINUTES}",
              bound_ms=aapa_bound, bound_by=aapa_by, library_ms=None),
         dict(name="policy_signals", policy="aapa_band", route="cuda",
              source="src/repro_torch/kernels/csrc/policy_signals.cu",
@@ -1093,7 +1368,15 @@ def main() -> int:
              plain_ms=pol_plain_s[label] * 1e3,
              plain_shape=f"{w_chunk}x240", bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=None)
-        for label, row in pol_rows.items()]
+        for label, row in pol_rows.items()] + [
+        dict(name=f"policy_signals<{walk}>", policy=walk.split(":")[0],
+             forecaster=walk.split(":")[1], route="cuda",
+             source="src/repro_torch/kernels/csrc/policy_signals.cu",
+             replaces="src/repro/kernels/episode_block.py:210",
+             launches=fleet_walks[walk], max_abs_err=0.0, ms=row["ms"],
+             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+             bound_by=row["bound_by"], library_ms=None)
+        for walk, row in walk_rows.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

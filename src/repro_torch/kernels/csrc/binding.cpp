@@ -8,28 +8,84 @@
 #include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
 
+#include <algorithm>
+#include <cstdio>
+#include <type_traits>
 #include <vector>
 
 #include "kernels.h"
 
 namespace {
 
+// A failed check's message, composed with snprintf into a fixed buffer.
+// TORCH_CHECK composes a message of more than one piece with a C++ string
+// stream (c10::str); built this way on the H100 machine, a failed check of
+// that kind ended the process with a segmentation fault, while a check
+// whose message is one C string raised RuntimeError. So the binding's
+// checks compose their messages without a stream and hand TORCH_CHECK one
+// C string (REQUIRE).
+class Message {
+ public:
+  Message() { text_[0] = '\0'; }
+  const char* c_str() const { return text_; }
+  void put(const char* s) { append("%s", s); }
+  template <class T, std::enable_if_t<std::is_integral_v<T>, int> = 0>
+  void put(T v) {
+    append("%lld", static_cast<long long>(v));
+  }
+  void put(c10::IntArrayRef a) {
+    put("[");
+    for (size_t i = 0; i < a.size(); ++i) {
+      if (i) put(", ");
+      put(a[i]);
+    }
+    put("]");
+  }
+
+ private:
+  template <class... Args>
+  void append(const char* fmt, Args... args) {
+    if (len_ + 1 >= sizeof(text_)) return;
+    const int n = std::snprintf(text_ + len_, sizeof(text_) - len_, fmt,
+                                args...);
+    if (n > 0)
+      len_ = std::min(len_ + static_cast<size_t>(n), sizeof(text_) - 1);
+  }
+  char text_[512];
+  size_t len_ = 0;
+};
+
+template <class... Args>
+Message compose(const Args&... args) {
+  Message m;
+  (m.put(args), ...);
+  return m;
+}
+
+}  // namespace
+
+// Every check of the binding: a false `cond` raises RuntimeError with the
+// message the remaining arguments compose (see Message).
+#define REQUIRE(cond, ...) TORCH_CHECK(cond, compose(__VA_ARGS__).c_str())
+
+namespace {
+
 void check(const torch::Tensor& t, const char* name,
            const std::vector<int64_t>& shape) {
-  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
-  TORCH_CHECK(t.scalar_type() == torch::kFloat32, name, " must be float32");
-  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
-  TORCH_CHECK(t.sizes() == c10::IntArrayRef(shape), name, " has shape ",
-              t.sizes(), ", expected ", c10::IntArrayRef(shape));
+  REQUIRE(t.is_cuda(), name, " must be a CUDA tensor");
+  REQUIRE(t.scalar_type() == torch::kFloat32, name, " must be float32");
+  REQUIRE(t.is_contiguous(), name, " must be contiguous");
+  REQUIRE(t.sizes() == c10::IntArrayRef(shape), name, " has shape ",
+          t.sizes(), ", expected ", c10::IntArrayRef(shape));
 }
 
 void check_i32(const torch::Tensor& t, const char* name,
                const std::vector<int64_t>& shape) {
-  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
-  TORCH_CHECK(t.scalar_type() == torch::kInt32, name, " must be int32");
-  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
-  TORCH_CHECK(t.sizes() == c10::IntArrayRef(shape), name, " has shape ",
-              t.sizes(), ", expected ", c10::IntArrayRef(shape));
+  REQUIRE(t.is_cuda(), name, " must be a CUDA tensor");
+  REQUIRE(t.scalar_type() == torch::kInt32, name, " must be int32");
+  REQUIRE(t.is_contiguous(), name, " must be contiguous");
+  REQUIRE(t.sizes() == c10::IntArrayRef(shape), name, " has shape ",
+          t.sizes(), ", expected ", c10::IntArrayRef(shape));
 }
 
 const float* in(const torch::Tensor& t) { return t.data_ptr<float>(); }
@@ -50,13 +106,13 @@ void plant_block(std::vector<torch::Tensor> state, torch::Tensor pipeline,
                  torch::Tensor pipeline_out, torch::Tensor ticks,
                  double rps, double service, double slo, double cap,
                  double inv_tau) {
-  TORCH_CHECK(state.size() == 7 && state_out.size() == 6,
-              "plant_block takes 7 state inputs and 6 state outputs");
-  TORCH_CHECK(pipeline.dim() == 2 && ticks.dim() == 3,
-              "pipeline must be [B, S] and ticks [7, T, B]");
+  REQUIRE(state.size() == 7 && state_out.size() == 6,
+          "plant_block takes 7 state inputs and 6 state outputs");
+  REQUIRE(pipeline.dim() == 2 && ticks.dim() == 3,
+          "pipeline must be [B, S] and ticks [7, T, B]");
   const int64_t B = pipeline.size(0), S = pipeline.size(1);
   const int64_t T = ticks.size(1);
-  TORCH_CHECK(B > 0 && S > 0 && T > 0, "empty plant block");
+  REQUIRE(B > 0 && S > 0 && T > 0, "empty plant block");
   for (auto& t : state) check(t, "plant state", {B});
   for (auto& t : state_out) check(t, "plant state output", {B});
   check(pipeline, "pipeline", {B, S});
@@ -81,18 +137,18 @@ repro_torch::GBDTTables gbdt_tables(const torch::Tensor& edges,
                                     const torch::Tensor& thresh,
                                     const torch::Tensor& leaf,
                                     const torch::Tensor& base) {
-  TORCH_CHECK(edges.dim() == 2 && feat.dim() == 2 && leaf.dim() == 2 &&
-                  base.dim() == 1,
-              "GBDT tables: edges, feat, thresh, leaf 2-d, base 1-d");
+  REQUIRE(edges.dim() == 2 && feat.dim() == 2 && leaf.dim() == 2 &&
+              base.dim() == 1,
+          "GBDT tables: edges, feat, thresh, leaf 2-d, base 1-d");
   const int64_t F = edges.size(0), E = edges.size(1);
   const int64_t T = feat.size(0), I = feat.size(1), L = leaf.size(1);
   const int64_t K = base.size(0);
-  TORCH_CHECK(L >= 2 && (L & (L - 1)) == 0 && I == L - 1,
-              "GBDT tables: 2^depth leaves and 2^depth - 1 nodes per tree");
-  TORCH_CHECK(F >= 1 && F <= 64 && E >= 1 && K >= 1 && K <= 16 &&
-                  T % K == 0 && T / K <= 1024 && L <= 4096,
-              "GBDT tables: 1-64 features, 1-16 classes, at most 1024 "
-              "rounds and depth 12");
+  REQUIRE(L >= 2 && (L & (L - 1)) == 0 && I == L - 1,
+          "GBDT tables: 2^depth leaves and 2^depth - 1 nodes per tree");
+  REQUIRE(F >= 1 && F <= 64 && E >= 1 && K >= 1 && K <= 16 &&
+              T % K == 0 && T / K <= 1024 && L <= 4096,
+          "GBDT tables: 1-64 features, 1-16 classes, at most 1024 "
+          "rounds and depth 12");
   check(edges, "edges", {F, E});
   check_i32(feat, "feat", {T, I});
   check_i32(thresh, "thresh", {T, I});
@@ -112,11 +168,11 @@ repro_torch::FreqTables freq_tables(const torch::Tensor& tw,
                                     int64_t W, double inv_log_nb,
                                     double inv_nb) {
   const int64_t n_pass = static_cast<int64_t>(plan.size()) / 4;
-  TORCH_CHECK(plan.size() % 4 == 0 && n_pass >= 1 &&
-                  n_pass <= repro_torch::kMaxFftPasses,
-              "FFT plan: 1 to ", repro_torch::kMaxFftPasses,
-              " passes of (ip, l1, ido, offset)");
-  TORCH_CHECK(tw.dim() == 1, "FFT twiddles must be 1-d");
+  REQUIRE(plan.size() % 4 == 0 && n_pass >= 1 &&
+              n_pass <= repro_torch::kMaxFftPasses,
+          "FFT plan: 1 to ", repro_torch::kMaxFftPasses,
+          " passes of (ip, l1, ido, offset)");
+  REQUIRE(tw.dim() == 1, "FFT twiddles must be 1-d");
   check(tw, "twiddles", {tw.size(0)});
   repro_torch::FreqTables f{};
   f.tw = in(tw);
@@ -127,17 +183,17 @@ repro_torch::FreqTables freq_tables(const torch::Tensor& tw,
     const int64_t ido = plan[4 * q + 2], off = plan[4 * q + 3];
     // a factor above 5 (ducc0's radfg) also takes csarr [2 * ip]
     const int64_t n_tw = (ip - 1) * (ido - 1) + (ip > 5 ? 2 * ip : 0);
-    TORCH_CHECK(ip >= 2 && l1 * ip * ido == W && off >= 0 &&
-                    off + n_tw <= tw.size(0),
-                "FFT plan: pass ", q, " does not fit a window of ", W);
+    REQUIRE(ip >= 2 && l1 * ip * ido == W && off >= 0 &&
+                off + n_tw <= tw.size(0),
+            "FFT plan: pass ", q, " does not fit a window of ", W);
     prod *= ip;
     f.ip[q] = static_cast<int>(ip);
     f.l1[q] = static_cast<int>(l1);
     f.ido[q] = static_cast<int>(ido);
     f.off[q] = static_cast<int>(off);
   }
-  TORCH_CHECK(prod == W, "FFT plan: radices multiply to ", prod, ", not ",
-              W);
+  REQUIRE(prod == W, "FFT plan: radices multiply to ", prod, ", not ",
+          W);
   f.inv_log_nb = static_cast<float>(inv_log_nb);
   f.inv_nb = static_cast<float>(inv_nb);
   return f;
@@ -149,12 +205,12 @@ repro_torch::FreqTables freq_tables(const torch::Tensor& tw,
 void window_features(torch::Tensor windows, torch::Tensor out_,
                      torch::Tensor tw, std::vector<int64_t> plan,
                      double inv_log_nb, double inv_nb) {
-  TORCH_CHECK(windows.dim() == 2, "windows must be [N, W]");
+  REQUIRE(windows.dim() == 2, "windows must be [N, W]");
   const int64_t N = windows.size(0), W = windows.size(1);
   const bool freq = !plan.empty();
-  TORCH_CHECK(N > 0 && W >= (freq ? 4 : 3) && W <= 64, "window_features "
-              "takes N >= 1 windows of 3 (4 with the frequency features) "
-              "to 64 samples");
+  REQUIRE(N > 0 && W >= (freq ? 4 : 3) && W <= 64, "window_features "
+          "takes N >= 1 windows of 3 (4 with the frequency features) "
+          "to 64 samples");
   check(windows, "windows", {N, W});
   check(out_, "out", {N, freq ? 38 : 28});
   repro_torch::FreqTables tab{};
@@ -174,7 +230,7 @@ void gbdt_logits(torch::Tensor X, torch::Tensor out_, torch::Tensor edges,
                  torch::Tensor base) {
   const repro_torch::GBDTTables g = gbdt_tables(edges, feat, thresh, leaf,
                                                 base);
-  TORCH_CHECK(X.dim() == 2 && X.size(0) > 0, "X must be [N, F], N >= 1");
+  REQUIRE(X.dim() == 2 && X.size(0) > 0, "X must be [N, F], N >= 1");
   const int64_t N = X.size(0);
   check(X, "X", {N, g.n_features});
   check(out_, "out", {N, g.n_classes});
@@ -189,8 +245,8 @@ void gbdt_logits(torch::Tensor X, torch::Tensor out_, torch::Tensor edges,
 // device: (bytes, limit). The launcher refuses a launch that does not fit.
 std::vector<int64_t> episode_smem(int64_t S, int64_t ring_len,
                                   int64_t device) {
-  TORCH_CHECK(S >= 1 && S <= 1 << 20 && ring_len >= 0 && ring_len <= 1 << 20,
-              "startup_sec and the policy ring must be below 2^20 slots");
+  REQUIRE(S >= 1 && S <= 1 << 20 && ring_len >= 0 && ring_len <= 1 << 20,
+          "startup_sec and the policy ring must be below 2^20 slots");
   return {repro_torch::episode_smem_bytes(static_cast<int>(S),
                                           static_cast<int>(ring_len)),
           static_cast<int64_t>(
@@ -199,19 +255,26 @@ std::vector<int64_t> episode_smem(int64_t S, int64_t ring_len,
 }
 
 // The episode's shapes and SimConfig: rates [B, M] and out [12, B, M]
-// checked, S pipeline slots.
+// checked, S pipeline slots and a policy ring of ring_len slots that fit
+// in a block's shared memory.
 repro_torch::EpisodeCfg episode_cfg(const torch::Tensor& rates,
                                     const torch::Tensor& out_, int64_t S,
-                                    int64_t ci, double rps, double service,
-                                    double slo, double cap, double inv_tau,
-                                    double max_replicas,
+                                    int64_t ring_len, int64_t ci, double rps,
+                                    double service, double slo, double cap,
+                                    double inv_tau, double max_replicas,
                                     double initial_replicas) {
-  TORCH_CHECK(rates.dim() == 2, "rates must be [B, M]");
+  REQUIRE(rates.dim() == 2, "rates must be [B, M]");
   const int64_t B = rates.size(0), M = rates.size(1);
-  TORCH_CHECK(B > 0 && M > 0 && S > 0, "empty episode block");
-  TORCH_CHECK(ci >= 1 && ci <= 60, "control interval must be in [1, 60]");
+  REQUIRE(B > 0 && M > 0 && S > 0, "empty episode block");
+  REQUIRE(ci >= 1 && ci <= 60, "control interval must be in [1, 60]");
   check(rates, "rates", {B, M});
   check(out_, "out", {12, B, M});
+  const std::vector<int64_t> smem =
+      episode_smem(S, ring_len, rates.get_device());
+  REQUIRE(smem[0] <= smem[1], "episode_block: ", S,
+          " startup-pipeline slots and a policy ring of ", ring_len,
+          " slots need ", smem[0], " bytes of shared memory per block, "
+          "more than the ", smem[1], " a block can have");
   return {plant_cfg(rps, service, slo, cap, inv_tau),
           static_cast<float>(max_replicas),
           static_cast<float>(initial_replicas), static_cast<int>(S),
@@ -226,10 +289,10 @@ void episode_block_hpa(torch::Tensor rates, torch::Tensor out_, int64_t S,
                        double initial_replicas, double inv_target,
                        double tolerance, double cooldown_sec,
                        int64_t buf_len) {
-  TORCH_CHECK(buf_len >= 1, "the stabilization window needs a slot");
+  REQUIRE(buf_len >= 1, "the stabilization window needs a slot");
   const repro_torch::EpisodeCfg cfg =
-      episode_cfg(rates, out_, S, ci, rps, service, slo, cap, inv_tau,
-                  max_replicas, initial_replicas);
+      episode_cfg(rates, out_, S, buf_len, ci, rps, service, slo, cap,
+                  inv_tau, max_replicas, initial_replicas);
   const repro_torch::HPAHyper hyper{static_cast<float>(inv_target),
                                     static_cast<float>(tolerance),
                                     static_cast<float>(cooldown_sec),
@@ -250,23 +313,50 @@ repro_torch::HWCoeffs hw_coeffs(const std::vector<double>& f) {
           static_cast<float>(f[4]), static_cast<float>(f[5])};
 }
 
-// AAPA's minute-hook hyperparameters. fhyper (28): Table III (12 floats:
-// target_cpu, cooldown_min, min_replicas by class), the 6 Holt-Winters
-// coefficients, resid_rho, z, sqrt_h, trend_tbar, trend_tvar, trend_step,
-// inv_log_nb, inv_nb, band_q, band_scale. ihyper (7): stride_min,
-// horizon_min, forecast_confidence, period, classify, use_band, use_scale.
-// The classifier's tables are read only when classify is 1.
+// The forecaster of a pre-pass walk. fc_i (2): kind (FcKind), scratch
+// slots; fc_f (13): resid_rho, the 6 Holt-Winters coefficients, the EWMA's
+// alpha, and linear trend's 1 / window, tbar, tvar, step_1, step_h.
+repro_torch::FcHyper fc_hyper(const std::vector<double>& fc_f,
+                              const std::vector<int64_t>& fc_i) {
+  REQUIRE(fc_f.size() == 13 && fc_i.size() == 2,
+          "a forecaster takes 13 float and 2 int hyperparameters");
+  REQUIRE(fc_i[0] >= repro_torch::kHoltWinters &&
+              fc_i[0] <= repro_torch::kEwma,
+          "unknown forecaster kind ", fc_i[0]);
+  REQUIRE(fc_i[0] == repro_torch::kEwma ? fc_i[1] == 0
+                                        : fc_i[1] >= 1,
+          "forecaster scratch slots: 0 for ewma, >= 1 otherwise");
+  const auto f = [&](int i) { return static_cast<float>(fc_f[i]); };
+  repro_torch::FcHyper h{};
+  h.kind = static_cast<int>(fc_i[0]);
+  h.slots = static_cast<int>(fc_i[1]);
+  h.resid_rho = f(0);
+  h.hw = hw_coeffs(std::vector<double>(fc_f.begin() + 1, fc_f.begin() + 7));
+  h.alpha = f(7);
+  h.inv_n = f(8);
+  h.tbar = f(9);
+  h.tvar = f(10);
+  h.step_1 = f(11);
+  h.step_h = f(12);
+  return h;
+}
+
+// AAPA's minute-hook hyperparameters. fhyper (21): Table III (12 floats:
+// target_cpu, cooldown_min, min_replicas by class), z, sqrt_h, trend_tbar,
+// trend_tvar, trend_step, inv_log_nb, inv_nb, band_q, band_scale. ihyper
+// (6): stride_min, horizon_min, forecast_confidence, classify, use_band,
+// use_scale. The classifier's tables are read only when classify is 1.
 repro_torch::AAPAHyper aapa_hyper(
     const std::vector<double>& fhyper, const std::vector<int64_t>& ihyper,
-    const torch::Tensor& tw, const std::vector<int64_t>& plan,
-    const torch::Tensor& edges, const torch::Tensor& feat,
-    const torch::Tensor& thresh, const torch::Tensor& leaf,
-    const torch::Tensor& base, const torch::Tensor& cal_a,
-    const torch::Tensor& cal_b, const torch::Tensor& cal_c) {
-  TORCH_CHECK(fhyper.size() == 28 && ihyper.size() == 7,
-              "the AAPA policy takes 28 float and 7 int hyperparameters");
-  TORCH_CHECK(ihyper[0] >= 1 && ihyper[1] >= 1 && ihyper[3] >= 1,
-              "stride, horizon and period >= 1");
+    const repro_torch::FcHyper& fc, const torch::Tensor& tw,
+    const std::vector<int64_t>& plan, const torch::Tensor& edges,
+    const torch::Tensor& feat, const torch::Tensor& thresh,
+    const torch::Tensor& leaf, const torch::Tensor& base,
+    const torch::Tensor& cal_a, const torch::Tensor& cal_b,
+    const torch::Tensor& cal_c) {
+  REQUIRE(fhyper.size() == 21 && ihyper.size() == 6,
+          "the AAPA policy takes 21 float and 6 int hyperparameters");
+  REQUIRE(ihyper[0] >= 1 && ihyper[1] >= 1, "stride and horizon >= 1");
   repro_torch::AAPAHyper h{};
   for (int k = 0; k < 4; ++k) {
     h.target_cpu[k] = static_cast<float>(fhyper[k]);
@@ -274,28 +364,25 @@ repro_torch::AAPAHyper aapa_hyper(
     h.min_replicas[k] = static_cast<float>(fhyper[8 + k]);
   }
   const auto f = [&](int i) { return static_cast<float>(fhyper[i]); };
-  h.hw.c = hw_coeffs(
-      std::vector<double>(fhyper.begin() + 12, fhyper.begin() + 18));
-  h.hw.resid_rho = f(18);
-  h.z = f(19);
-  h.sqrt_h = f(20);
-  h.trend_tbar = f(21);
-  h.trend_tvar = f(22);
-  h.trend_step = f(23);
-  h.band_q = f(26);
-  h.band_scale = f(27);
-  h.freq = freq_tables(tw, plan, 60, fhyper[24], fhyper[25]);
+  h.fc = fc;
+  h.z = f(12);
+  h.sqrt_h = f(13);
+  h.trend_tbar = f(14);
+  h.trend_tvar = f(15);
+  h.trend_step = f(16);
+  h.band_q = f(19);
+  h.band_scale = f(20);
+  h.freq = freq_tables(tw, plan, 60, fhyper[17], fhyper[18]);
   h.stride_min = static_cast<int>(ihyper[0]);
   h.horizon_min = static_cast<int>(ihyper[1]);
   h.forecast_confidence = static_cast<int>(ihyper[2]);
-  h.hw.period = static_cast<int>(ihyper[3]);
-  h.classify = static_cast<int>(ihyper[4]);
-  h.use_band = static_cast<int>(ihyper[5]);
-  h.use_scale = static_cast<int>(ihyper[6]);
+  h.classify = static_cast<int>(ihyper[3]);
+  h.use_band = static_cast<int>(ihyper[4]);
+  h.use_scale = static_cast<int>(ihyper[5]);
   if (h.classify) {
     h.gbdt = gbdt_tables(edges, feat, thresh, leaf, base);
-    TORCH_CHECK(h.gbdt.n_features == 38 && h.gbdt.n_classes == 4,
-                "the AAPA classifier takes 38 features and 4 classes");
+    REQUIRE(h.gbdt.n_features == 38 && h.gbdt.n_classes == 4,
+            "the AAPA classifier takes 38 features and 4 classes");
     check(cal_a, "cal_a", {4});
     check(cal_b, "cal_b", {4});
     check(cal_c, "cal_c", {4});
@@ -307,32 +394,33 @@ repro_torch::AAPAHyper aapa_hyper(
 // The AAPA and hybrid pre-pass: rates [B, M] -> rps [3, M, B], arch [R,
 // B] int32, adj [3, R, B] (R = M / stride + 1) and, if minute_arch has B *
 // M elements, the archetype after each minute into it. Scratch: cls_arch
-// [B, R] int32 and cls_conf [B, R], season [period, B].
+// [B, R] int32 and cls_conf [B, R], the forecaster's [slots, B].
 void policy_signals_aapa(torch::Tensor rates, torch::Tensor rps,
                          torch::Tensor arch, torch::Tensor adj,
                          torch::Tensor minute_arch, torch::Tensor cls_arch,
-                         torch::Tensor cls_conf, torch::Tensor season,
+                         torch::Tensor cls_conf, torch::Tensor scratch,
                          std::vector<double> fhyper,
-                         std::vector<int64_t> ihyper, torch::Tensor tw,
-                         std::vector<int64_t> plan, torch::Tensor edges,
-                         torch::Tensor feat, torch::Tensor thresh,
-                         torch::Tensor leaf, torch::Tensor base,
-                         torch::Tensor cal_a, torch::Tensor cal_b,
-                         torch::Tensor cal_c) {
+                         std::vector<int64_t> ihyper,
+                         std::vector<double> fc_f, std::vector<int64_t> fc_i,
+                         torch::Tensor tw, std::vector<int64_t> plan,
+                         torch::Tensor edges, torch::Tensor feat,
+                         torch::Tensor thresh, torch::Tensor leaf,
+                         torch::Tensor base, torch::Tensor cal_a,
+                         torch::Tensor cal_b, torch::Tensor cal_c) {
   const repro_torch::AAPAHyper h =
-      aapa_hyper(fhyper, ihyper, tw, plan, edges, feat, thresh, leaf, base,
-                 cal_a, cal_b, cal_c);
-  TORCH_CHECK(rates.dim() == 2, "rates must be [B, M]");
+      aapa_hyper(fhyper, ihyper, fc_hyper(fc_f, fc_i), tw, plan, edges, feat,
+                 thresh, leaf, base, cal_a, cal_b, cal_c);
+  REQUIRE(rates.dim() == 2, "rates must be [B, M]");
   const int64_t B = rates.size(0), M = rates.size(1);
   const int64_t R = M / h.stride_min + 1;
-  TORCH_CHECK(B > 0 && M > 0, "empty episode block");
+  REQUIRE(B > 0 && M > 0, "empty episode block");
   check(rates, "rates", {B, M});
   check(rps, "rps", {3, M, B});
   check_i32(arch, "arch", {R, B});
   check(adj, "adj", {3, R, B});
   check_i32(cls_arch, "cls_arch", {B, R});
   check(cls_conf, "cls_conf", {B, R});
-  check(season, "season", {h.hw.period, B});
+  check(scratch, "forecaster scratch", {h.fc.slots, B});
   int* per_minute = nullptr;
   if (minute_arch.numel() > 0) {
     check_i32(minute_arch, "minute_arch", {B, M});
@@ -341,44 +429,43 @@ void policy_signals_aapa(torch::Tensor rates, torch::Tensor rps,
   const c10::cuda::CUDAGuard guard(rates.device());
   repro_torch::policy_signals_aapa_launch(
       in(rates), out(rps), arch.data_ptr<int>(), out(adj), per_minute,
-      cls_arch.data_ptr<int>(), out(cls_conf), out(season),
+      cls_arch.data_ptr<int>(), out(cls_conf), out(scratch),
       static_cast<int>(B), static_cast<int>(M), h,
       at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// The predictive pre-pass: rates [B, M] -> need [M, B]; scratch season
-// [period, B]. fhyper (11): the 6 Holt-Winters coefficients, resid_rho,
-// z, sqrt_h, band_q, inv_cap; ihyper (4): period, horizon_min, use_band,
-// conservative.
+// The predictive pre-pass: rates [B, M] -> need [M, B]; scratch the
+// forecaster's [slots, B]. fhyper (4): z, sqrt_h, band_q, inv_cap; ihyper
+// (3): horizon_min, use_band, conservative.
 void policy_signals_predictive(torch::Tensor rates, torch::Tensor need,
-                               torch::Tensor season,
+                               torch::Tensor scratch,
                                std::vector<double> fhyper,
-                               std::vector<int64_t> ihyper) {
-  TORCH_CHECK(fhyper.size() == 11 && ihyper.size() == 4,
-              "the predictive policy takes 11 float and 4 int "
-              "hyperparameters");
-  TORCH_CHECK(ihyper[0] >= 1 && ihyper[1] >= 1, "period and horizon >= 1");
-  TORCH_CHECK(rates.dim() == 2, "rates must be [B, M]");
+                               std::vector<int64_t> ihyper,
+                               std::vector<double> fc_f,
+                               std::vector<int64_t> fc_i) {
+  REQUIRE(fhyper.size() == 4 && ihyper.size() == 3,
+          "the predictive policy takes 4 float and 3 int "
+          "hyperparameters");
+  REQUIRE(ihyper[0] >= 1, "horizon >= 1");
+  REQUIRE(rates.dim() == 2, "rates must be [B, M]");
   const int64_t B = rates.size(0), M = rates.size(1);
-  TORCH_CHECK(B > 0 && M > 0, "empty episode block");
+  REQUIRE(B > 0 && M > 0, "empty episode block");
+  repro_torch::PredictiveHyper h{};
+  h.fc = fc_hyper(fc_f, fc_i);
   check(rates, "rates", {B, M});
   check(need, "need", {M, B});
-  check(season, "season", {ihyper[0], B});
-  repro_torch::PredictiveHyper h{};
-  h.hw.c = hw_coeffs(fhyper);
-  h.hw.period = static_cast<int>(ihyper[0]);
-  h.hw.resid_rho = static_cast<float>(fhyper[6]);
-  h.z = static_cast<float>(fhyper[7]);
-  h.sqrt_h = static_cast<float>(fhyper[8]);
-  h.band_q = static_cast<float>(fhyper[9]);
-  h.inv_cap = static_cast<float>(fhyper[10]);
-  h.horizon_min = static_cast<int>(ihyper[1]);
-  h.use_band = static_cast<int>(ihyper[2]);
-  h.conservative = static_cast<int>(ihyper[3]);
+  check(scratch, "forecaster scratch", {h.fc.slots, B});
+  h.z = static_cast<float>(fhyper[0]);
+  h.sqrt_h = static_cast<float>(fhyper[1]);
+  h.band_q = static_cast<float>(fhyper[2]);
+  h.inv_cap = static_cast<float>(fhyper[3]);
+  h.horizon_min = static_cast<int>(ihyper[0]);
+  h.use_band = static_cast<int>(ihyper[1]);
+  h.conservative = static_cast<int>(ihyper[2]);
   const c10::cuda::CUDAGuard guard(rates.device());
   repro_torch::policy_signals_predictive_launch(
-      in(rates), out(need), out(season), static_cast<int>(B),
+      in(rates), out(need), out(scratch), static_cast<int>(B),
       static_cast<int>(M), h, at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -417,12 +504,12 @@ void episode_block_aapa(torch::Tensor rates, torch::Tensor out_,
                         double initial_replicas, std::vector<double> fhyper,
                         int64_t stride, std::vector<double> guard) {
   const repro_torch::EpisodeCfg cfg =
-      episode_cfg(rates, out_, S, ci, rps_, service, slo, cap, inv_tau,
+      episode_cfg(rates, out_, S, 0, ci, rps_, service, slo, cap, inv_tau,
                   max_replicas, initial_replicas);
-  TORCH_CHECK(fhyper.size() == 5, "the AAPA plant pass takes 5 floats");
-  TORCH_CHECK(stride >= 1, "stride >= 1");
-  TORCH_CHECK(guard.empty() || guard.size() == 3,
-              "the hybrid guard takes 3 floats");
+  REQUIRE(fhyper.size() == 5, "the AAPA plant pass takes 5 floats");
+  REQUIRE(stride >= 1, "stride >= 1");
+  REQUIRE(guard.empty() || guard.size() == 3,
+          "the hybrid guard takes 3 floats");
   const repro_torch::PolicySignals g =
       policy_signals(rates, rps, 3, &arch, &adj, stride);
   repro_torch::AAPAPlantHyper h{};
@@ -456,7 +543,7 @@ void episode_block_predictive(torch::Tensor rates, torch::Tensor out_,
                               double max_replicas, double initial_replicas,
                               double inv_cap, double cooldown_sec) {
   const repro_torch::EpisodeCfg cfg =
-      episode_cfg(rates, out_, S, ci, rps, service, slo, cap, inv_tau,
+      episode_cfg(rates, out_, S, 0, ci, rps, service, slo, cap, inv_tau,
                   max_replicas, initial_replicas);
   const repro_torch::PolicySignals g =
       policy_signals(rates, need.view({1, need.size(0), need.size(1)}), 1,
@@ -478,10 +565,10 @@ void episode_block_kpa(torch::Tensor rates, torch::Tensor out_, int64_t S,
                        double cap, double inv_tau, double max_replicas,
                        double initial_replicas, std::vector<double> fhyper) {
   const repro_torch::EpisodeCfg cfg =
-      episode_cfg(rates, out_, S, ci, rps, service, slo, cap, inv_tau,
+      episode_cfg(rates, out_, S, 0, ci, rps, service, slo, cap, inv_tau,
                   max_replicas, initial_replicas);
-  TORCH_CHECK(fhyper.size() == 8,
-              "the kpa policy takes 8 float hyperparameters");
+  REQUIRE(fhyper.size() == 8,
+          "the kpa policy takes 8 float hyperparameters");
   const auto f = [&](int i) { return static_cast<float>(fhyper[i]); };
   const repro_torch::KPAHyper h{f(0), f(1), f(2), f(3),
                                 f(4), f(5), f(6), f(7)};
@@ -498,14 +585,14 @@ void episode_block_kpa(torch::Tensor rates, torch::Tensor out_, int64_t S,
 void holt_winters(torch::Tensor y, torch::Tensor out_,
                   torch::Tensor season_scratch, int64_t period,
                   std::vector<double> coeffs) {
-  TORCH_CHECK(y.dim() == 2, "y must be [B, T]");
+  REQUIRE(y.dim() == 2, "y must be [B, T]");
   const int64_t B = y.size(0), T = y.size(1);
-  TORCH_CHECK(B > 0 && T > 0 && period >= 1,
-              "holt_winters takes B, T >= 1 and period >= 1");
-  TORCH_CHECK(coeffs.size() == 6, "holt_winters takes 6 coefficients");
+  REQUIRE(B > 0 && T > 0 && period >= 1,
+          "holt_winters takes B, T >= 1 and period >= 1");
+  REQUIRE(coeffs.size() == 6, "holt_winters takes 6 coefficients");
   check(y, "y", {B, T});
   check(out_, "out", {B, T});
-  TORCH_CHECK(season_scratch.dim() == 2, "season scratch must be 2-d");
+  REQUIRE(season_scratch.dim() == 2, "season scratch must be 2-d");
   check(season_scratch, "season scratch", {period, B});
   const c10::cuda::CUDAGuard guard(y.device());
   repro_torch::holt_winters_launch(

@@ -81,22 +81,32 @@ struct HWCoeffs {
   float alpha, beta, gamma, one_m_alpha, one_m_beta, one_m_gamma;
 };
 
-// The in-episode Holt-Winters forecaster (forecast/models.py): its
-// coefficients, season length and residual EWMA rate
-struct HWHyper {
-  HWCoeffs c;
-  int period;
-  float resid_rho;
+// The in-episode forecasters of forecast/models.py (forecasters.cuh), by
+// kind, and their run-time hyperparameters as the pre-pass takes them.
+enum FcKind { kHoltWinters = 0, kLinearTrend = 1, kSeasonalNaive = 2,
+              kEwma = 3 };
+struct FcHyper {
+  int kind;          // FcKind: picks the minute walks' template
+  int slots;         // rows of the [slots, B] scratch: the period
+                     // (holt_winters, seasonal_naive), the window
+                     // (linear_trend), 0 (ewma)
+  float resid_rho;   // forecast/api.py RESID_RHO
+  HWCoeffs hw;       // holt_winters
+  float alpha;       // ewma
+  // linear_trend: f32 1 / window, the OLS constants tbar and tvar, and
+  // the step (window - 1) - tbar + h to the forecast minute at h = 1 and
+  // at the policy's horizon
+  float inv_n, tbar, tvar, step_1, step_h;
 };
 
-// scaling/policies.py::aapa_controller's minute hook with the
-// Holt-Winters forecaster, as the pre-pass runs it.
+// scaling/policies.py::aapa_controller's minute hook, as the pre-pass runs
+// it with any registry forecaster.
 struct AAPAHyper {
   // Table III by class id (core/archetypes.py::table_iii_arrays)
   float target_cpu[4], cooldown_min[4], min_replicas[4];
   int stride_min, horizon_min;
   int forecast_confidence;     // Algorithm 1 conf *= interval confidence
-  HWHyper hw;
+  FcHyper fc;
   float z, sqrt_h;  // native band half-width z * resid * sqrt(horizon)
   // a conformal band (forecast/conformal.py): half-width band_q * sqrt_h
   // (sqrt_h 1 for a band that does not widen)
@@ -115,10 +125,10 @@ struct AAPAHyper {
   FreqTables freq;
 };
 
-// scaling/policies.py::predictive_controller's forecast need with the
-// Holt-Winters forecaster, as the pre-pass runs it
+// scaling/policies.py::predictive_controller's forecast need with any
+// registry forecaster, as the pre-pass runs it
 struct PredictiveHyper {
-  HWHyper hw;
+  FcHyper fc;
   int horizon_min;
   float z, sqrt_h;      // native band half-width z * resid * sqrt(horizon)
   int use_band;         // a conformal band's q * sqrt_h instead
@@ -183,14 +193,15 @@ void holt_winters_launch(const float* y, float* out, float* season_scratch,
 // is not null, the archetype each lane carries after each minute into
 // minute_arch [B, M]. Scratch: cls_arch and cls_conf [B, R] (the
 // classifier's raw output, read only when the hyperparameters' classify
-// is 1), season [period, B].
+// is 1), the forecaster's scratch [hyper.fc.slots, B].
 void policy_signals_aapa_launch(const float* rates, float* rps, int* arch,
                                 float* adj, int* minute_arch, int* cls_arch,
-                                float* cls_conf, float* season, int B, int M,
+                                float* cls_conf, float* scratch, int B, int M,
                                 AAPAHyper hyper, cudaStream_t stream);
-// Predictive: rates [B, M] -> need [M, B]; scratch season [period, B].
+// Predictive: rates [B, M] -> need [M, B]; the forecaster's scratch
+// [hyper.fc.slots, B].
 void policy_signals_predictive_launch(const float* rates, float* need,
-                                      float* season, int B, int M,
+                                      float* scratch, int B, int M,
                                       PredictiveHyper hyper,
                                       cudaStream_t stream);
 

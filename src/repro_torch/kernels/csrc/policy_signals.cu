@@ -21,18 +21,21 @@
 //     window is read straight out of `rates`, with the zero history before
 //     minute 0 that cluster.initial_state gives.
 //   * aapa_minutes_kernel and predictive_minutes_kernel walk each lane's
-//     minutes, one thread per lane: the Holt-Winters forecaster is a
-//     recurrence (hw.cuh, season in [period, B] scratch, as
-//     holt_winters.cu), the trend and mean read the last 30 rates from a
-//     register window. AAPA's walk turns each classification into the
-//     Algorithm 1 parameters with the forecast's interval confidence.
+//     minutes, one thread per lane: the forecaster is a recurrence
+//     (forecasters.cuh: Holt-Winters, linear trend, seasonal naive or
+//     EWMA, a template parameter of the walk; state indexed at run time in
+//     [slot, B] scratch, as holt_winters.cu keeps its season), the trend
+//     and mean read the last 30 rates from a register window. AAPA's walk
+//     turns each classification into the Algorithm 1 parameters with the
+//     forecast's interval confidence.
 //   * minute_arch_kernel spreads the slots' archetypes over minutes for
 //     the archetype output, one thread per (lane, minute), coalesced.
 // The outputs are laid out [minute or slot, lane]: the minute walks and
 // the plant pass read and write one minute of a warp's lanes at a time.
 //
 // The arithmetic is the device functions the episode kernel ran inline
-// before (features.cuh, gbdt.cuh, hw.cuh, numerics.cuh::xla_sum), in the
+// before (features.cuh, gbdt.cuh, forecasters.cuh, numerics.cuh::xla_sum),
+// in the
 // same order, under the same -fmad=false build: the signals are bit for
 // bit those the plain minute hooks compute.
 //
@@ -43,8 +46,8 @@
 // 25,000-lane day; the minute walks are latency-bound at one thread per
 // lane, as the plant pass is.
 #include "features.cuh"
+#include "forecasters.cuh"
 #include "gbdt.cuh"
-#include "hw.cuh"
 
 namespace repro_torch {
 namespace {
@@ -119,21 +122,22 @@ __global__ void __launch_bounds__(kThreads, 5)
 }
 
 // scaling/policies.py::aapa_controller's on_minute and aapa_rate_signals,
-// minute by minute for one lane per thread.
+// minute by minute for one lane per thread, with forecaster Fc.
+template <class Fc>
 __global__ void aapa_minutes_kernel(const float* __restrict__ rates,
                                     const int* __restrict__ cls_arch,
                                     const float* __restrict__ cls_conf,
                                     float* __restrict__ rps,
                                     int* __restrict__ slot_arch,
                                     float* __restrict__ adj,
-                                    float* __restrict__ season, int B, int M,
+                                    float* __restrict__ scratch, int B, int M,
                                     int R, AAPAHyper h) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t sB = static_cast<size_t>(B);
   const size_t plane = sB * M, rplane = sB * R;
-  HWForecaster fc;
-  fc.init(season + b, h.hw, B);
+  Fc fc;
+  fc.init(scratch + b, h.fc, B);
   float win[kTrendWindow];  // the last 30 rates, oldest first
 #pragma unroll
   for (int j = 0; j < kTrendWindow; ++j) win[j] = 0.0f;
@@ -155,8 +159,8 @@ __global__ void aapa_minutes_kernel(const float* __restrict__ rates,
     win[kTrendWindow - 1] = rate;
 
     // the forecaster observes the newest history entry
-    fc.update(h.hw, rate, B);
-    const float point = fmaxf(fc.forecast_max(h.hw, h.horizon_min, B), 0.0f);
+    fc.update(h.fc, rate, B);
+    const float point = fmaxf(fc.point(h.fc, h.horizon_min, B), 0.0f);
 
     const int minute_idx = m + 1;
     if (minute_idx % h.stride_min == 0) {
@@ -206,30 +210,32 @@ __global__ void aapa_minutes_kernel(const float* __restrict__ rates,
 
 // scaling/policies.py::predictive_need: the replicas the horizon's
 // forecast needs (per second of the minute)
-__device__ __forceinline__ float forecast_need(const HWForecaster& fc,
+template <class Fc>
+__device__ __forceinline__ float forecast_need(const Fc& fc,
                                                const PredictiveHyper& h,
                                                int B) {
-  float pred = fmaxf(fc.forecast_max(h.hw, h.horizon_min, B), 0.0f);
+  float pred = fmaxf(fc.point(h.fc, h.horizon_min, B), 0.0f);
   if (h.conservative)
     pred = pred + (h.use_band ? h.band_q * h.sqrt_h
                               : (h.z * fc.resid) * h.sqrt_h);
   return (fmaxf(pred, 0.0f) * kInv60) * h.inv_cap;
 }
 
-// The predictive policy's forecaster, minute by minute for one lane per
+// The predictive policy's forecaster Fc, minute by minute for one lane per
 // thread: need [M, B], minute 0 from the forecaster's init.
+template <class Fc>
 __global__ void predictive_minutes_kernel(const float* __restrict__ rates,
                                           float* __restrict__ need,
-                                          float* __restrict__ season, int B,
+                                          float* __restrict__ scratch, int B,
                                           int M, PredictiveHyper h) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  HWForecaster fc;
-  fc.init(season + b, h.hw, B);
+  Fc fc;
+  fc.init(scratch + b, h.fc, B);
   need[b] = forecast_need(fc, h, B);
   const float* row = rates + static_cast<size_t>(b) * M;
   for (int m = 1; m < M; ++m) {
-    fc.update(h.hw, row[m - 1], B);
+    fc.update(h.fc, row[m - 1], B);
     need[static_cast<size_t>(m) * B + b] = forecast_need(fc, h, B);
   }
 }
@@ -248,18 +254,39 @@ __global__ void minute_arch_kernel(const int* __restrict__ arch,
 
 int blocks(size_t n) { return static_cast<int>((n + kThreads - 1) / kThreads); }
 
+template <class Fc>
+void aapa_walk(const float* rates, const int* cls_arch, const float* cls_conf,
+               float* rps, int* arch, float* adj, float* scratch, int B,
+               int M, int R, const AAPAHyper& h, cudaStream_t stream) {
+  aapa_minutes_kernel<Fc><<<blocks(B), kThreads, 0, stream>>>(
+      rates, cls_arch, cls_conf, rps, arch, adj, scratch, B, M, R, h);
+}
+
+template <class Fc>
+void predictive_walk(const float* rates, float* need, float* scratch, int B,
+                     int M, const PredictiveHyper& h, cudaStream_t stream) {
+  predictive_minutes_kernel<Fc><<<blocks(B), kThreads, 0, stream>>>(
+      rates, need, scratch, B, M, h);
+}
+
 }  // namespace
 
 void policy_signals_aapa_launch(const float* rates, float* rps, int* arch,
                                 float* adj, int* minute_arch, int* cls_arch,
-                                float* cls_conf, float* season, int B, int M,
+                                float* cls_conf, float* scratch, int B, int M,
                                 AAPAHyper hyper, cudaStream_t stream) {
   const int R = M / hyper.stride_min + 1;
   if (hyper.classify && R > 1)
     classify_kernel<<<blocks(static_cast<size_t>(B) * (R - 1)), kThreads, 0,
                       stream>>>(rates, cls_arch, cls_conf, B, M, R, hyper);
-  aapa_minutes_kernel<<<blocks(B), kThreads, 0, stream>>>(
-      rates, cls_arch, cls_conf, rps, arch, adj, season, B, M, R, hyper);
+  // the walk's instantiation for the forecaster's kind
+  const auto walk = hyper.fc.kind == kLinearTrend ? aapa_walk<LinearTrendFc>
+                    : hyper.fc.kind == kSeasonalNaive
+                        ? aapa_walk<SeasonalNaiveFc>
+                    : hyper.fc.kind == kEwma ? aapa_walk<EwmaFc>
+                                             : aapa_walk<HoltWintersFc>;
+  walk(rates, cls_arch, cls_conf, rps, arch, adj, scratch, B, M, R, hyper,
+       stream);
   if (minute_arch)
     minute_arch_kernel<<<blocks(static_cast<size_t>(B) * M), kThreads, 0,
                          stream>>>(arch, minute_arch, B, M,
@@ -267,11 +294,15 @@ void policy_signals_aapa_launch(const float* rates, float* rps, int* arch,
 }
 
 void policy_signals_predictive_launch(const float* rates, float* need,
-                                      float* season, int B, int M,
+                                      float* scratch, int B, int M,
                                       PredictiveHyper hyper,
                                       cudaStream_t stream) {
-  predictive_minutes_kernel<<<blocks(B), kThreads, 0, stream>>>(
-      rates, need, season, B, M, hyper);
+  const auto walk =
+      hyper.fc.kind == kLinearTrend     ? predictive_walk<LinearTrendFc>
+      : hyper.fc.kind == kSeasonalNaive ? predictive_walk<SeasonalNaiveFc>
+      : hyper.fc.kind == kEwma          ? predictive_walk<EwmaFc>
+                                        : predictive_walk<HoltWintersFc>;
+  walk(rates, need, scratch, B, M, hyper, stream);
 }
 
 }  // namespace repro_torch

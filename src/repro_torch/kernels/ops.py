@@ -106,3 +106,4 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in LAUNCHERS.values():
         fn.launches = 0
+    _signals.policy_signals_cuda.by_walk = {}

@@ -10,6 +10,9 @@ each reclassification, the archetype and Algorithm 1's parameters. The
 pre-pass computes them for every lane and minute, in parallel where the
 work is independent (a reclassification is one window), before the
 episode kernel's plant pass (``kernels.episode_block``) reads them.
+Every registry forecaster (Holt-Winters, linear trend, seasonal naive,
+EWMA), band-wrapped or not, runs as a template of the minute walks; its
+hyperparameters are run-time arguments (`forecaster_args`).
 
 Plain version: ``kernels.ref.policy_signals_ref``;
 ``kernels.ops.policy_signals`` dispatches between the two by device.
@@ -21,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch._numerics import recip
 from repro_torch.core import calibration, features
 from repro_torch.core.archetypes import table_iii_arrays
 from repro_torch.core.pipeline import Classify
@@ -64,35 +68,78 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def holt_winters(fcst, horizon: int) -> tuple[dict, int, float, float]:
-    """A forecasting policy's forecaster as the kernels take it: (the
-    Holt-Winters hyperparameters, use_band, band_q, sqrt_h). The interval
-    half-width is q * sqrt_h with a conformal band (the outermost `wrap`'s,
-    the one the forecaster's `forecast` applies; sqrt_h is 1 for a band
-    that does not widen), z * resid * sqrt_h without. Raises for any
-    forecaster but Holt-Winters."""
-    inner = fcst
-    while "inner" in inner.hyper:
-        inner = inner.hyper["inner"]
-    if inner.name != "holt_winters":
+#: the forecasters the minute walks run, by registry name: their kind
+#: (kernels.h FcKind)
+FORECASTERS = {"holt_winters": 0, "linear_trend": 1, "seasonal_naive": 2,
+               "ewma": 3}
+
+
+class ForecasterArgs(NamedTuple):
+    """A forecasting policy's forecaster as the pre-pass takes it: its
+    kind and scratch rows (`fc_i`), its run-time floats (`fc_f`: the
+    residual EWMA rate, Holt-Winters' six coefficients, the EWMA's alpha,
+    linear trend's 1/window, tbar, tvar and steps to h = 1 and to the
+    horizon), and its interval: half-width band_q * sqrt_h with a
+    conformal band (the outermost `wrap`'s, the one the forecaster's
+    `forecast` applies; sqrt_h is 1 for a band that does not widen),
+    z * resid * sqrt_h without."""
+    fc_f: list
+    fc_i: list
+    use_band: int
+    band_q: float
+    sqrt_h: float
+
+    @property
+    def slots(self) -> int:
+        return self.fc_i[1]
+
+
+def _unwrapped(fcst):
+    """The forecaster inside any conformal wraps."""
+    while "inner" in fcst.hyper:
+        fcst = fcst.hyper["inner"]
+    return fcst
+
+
+def forecaster_args(fcst, horizon: int) -> ForecasterArgs:
+    """Any registry forecaster, band-wrapped or not, as the kernels take
+    it. Raises for a forecaster that is not one of the registry's."""
+    from repro_torch.forecast import registry
+    inner = _unwrapped(fcst)
+    hyper = dict(inner.hyper)
+    if (inner.name not in FORECASTERS
+            or inner.name not in registry.available()
+            or set(hyper) != set(registry.spec(inner.name).defaults)):
         raise NotImplementedError(
-            f"episode_block's forecasting policies run the holt_winters "
-            f"forecaster, not {fcst.name!r}")
+            f"episode_block's forecasting policies run the registry's "
+            f"forecasters {sorted(FORECASTERS)}, not {fcst.name!r}")
+    kind = FORECASTERS[inner.name]
+    hw = [0.0] * 6
+    alpha, lt = 0.0, [0.0] * 5
+    if inner.name == "holt_winters":
+        slots = int(hyper["period"])
+        hw = [*(_f32(hyper[k]) for k in ("alpha", "beta", "gamma")),
+              *(_f32(1.0 - hyper[k]) for k in ("alpha", "beta", "gamma"))]
+    elif inner.name == "seasonal_naive":
+        slots = int(hyper["period"])
+    elif inner.name == "linear_trend":
+        slots = int(hyper["window"])
+        tbar, tvar = features.trend_constants(slots)
+        lt = [recip(slots), tbar, tvar, _f32((slots - 1) - tbar + 1),
+              _f32((slots - 1) - tbar + horizon)]
+    else:
+        slots = 0
+        alpha = _f32(hyper["alpha"])
+    if inner.name != "ewma" and slots < 1:
+        raise ValueError(f"{inner.name}: {slots} scratch slots")
+    fc_f = [_f32(fapi.RESID_RHO), *hw, alpha, *lt]
     band = fcst.hyper.get("band")
     sqrt_h = float(np.sqrt(np.float32(horizon)))
     if band is None:
-        return inner.hyper, 0, 0.0, sqrt_h
+        return ForecasterArgs(fc_f, [kind, slots], 0, 0.0, sqrt_h)
     if not fcst.hyper["widen_with_horizon"]:
         sqrt_h = 1.0
-    return inner.hyper, 1, float(band.q), sqrt_h
-
-
-def _hw_floats(hw) -> list[float]:
-    """alpha, beta, gamma and 1 - each as the in-episode forecaster takes
-    them: Python floats rounded to f32 (hw_step), and RESID_RHO."""
-    return [*(_f32(hw[k]) for k in ("alpha", "beta", "gamma")),
-            *(_f32(1.0 - hw[k]) for k in ("alpha", "beta", "gamma")),
-            _f32(fapi.RESID_RHO)]
+    return ForecasterArgs(fc_f, [kind, slots], 1, float(band.q), sqrt_h)
 
 
 def _check_rates(rates: torch.Tensor) -> None:
@@ -109,7 +156,7 @@ def _check_rates(rates: torch.Tensor) -> None:
 def _aapa(ext, rates, hyper, cfg, minute_arch: bool) -> Signals:
     from repro_torch.scaling.registry import default_classify
     horizon = int(hyper["horizon_min"])
-    hw, use_band, band_q, sqrt_h = holt_winters(hyper["forecaster"], horizon)
+    fa = forecaster_args(hyper["forecaster"], horizon)
     scale = hyper["conf_scale"]
     cls = hyper["classify"]
     if cfg.history_len != HISTORY:
@@ -134,17 +181,16 @@ def _aapa(ext, rates, hyper, cfg, minute_arch: bool) -> Signals:
         raise NotImplementedError(
             "episode_block's AAPA policy takes core.pipeline.Classify or "
             "the registry's default_classify")
-    period = int(hw["period"])
     stride = int(hyper["stride_min"])
     tab = table_iii_arrays()
     tbar, tvar = features.trend_constants(TREND_WINDOW)
     inv_log_nb, inv_nb = features.freq_constants(HISTORY)
     fh = [*tab["target_cpu"], *tab["cooldown_min"], *tab["min_replicas"],
-          *_hw_floats(hw), _f32(fapi.NATIVE_Z), sqrt_h, tbar, tvar,
+          _f32(fapi.NATIVE_Z), fa.sqrt_h, tbar, tvar,
           _f32((TREND_WINDOW - 1) - tbar + horizon), inv_log_nb, inv_nb,
-          band_q, 0.0 if scale is None else float(scale)]
-    ih = [stride, horizon, int(hyper["forecast_confidence"]), period, kind,
-          use_band, int(scale is not None)]
+          fa.band_q, 0.0 if scale is None else float(scale)]
+    ih = [stride, horizon, int(hyper["forecast_confidence"]), kind,
+          fa.use_band, int(scale is not None)]
     R = n_slots(M, stride)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -157,23 +203,22 @@ def _aapa(ext, rates, hyper, cfg, minute_arch: bool) -> Signals:
         rates, sig.rps, sig.arch, sig.adj,
         sig.minute_arch if minute_arch else torch.empty(0, **i32),
         torch.empty((B, R), **i32), torch.empty((B, R), **f32),
-        torch.empty((period, B), **f32), fh, ih,
+        torch.empty((fa.slots, B), **f32), fh, ih, fa.fc_f, fa.fc_i,
         *features.fft_tables(HISTORY, dev), *tables, *coeffs)
     return sig
 
 
 def _predictive(ext, rates, hyper) -> Signals:
     horizon = int(hyper["horizon_min"])
-    hw, use_band, band_q, sqrt_h = holt_winters(hyper["forecaster"], horizon)
-    period = int(hw["period"])
-    fh = [*_hw_floats(hw), _f32(fapi.NATIVE_Z), sqrt_h, band_q,
-          hyper["inv_cap"]]
-    ih = [period, horizon, use_band, int(hyper["conservative"])]
+    fa = forecaster_args(hyper["forecaster"], horizon)
+    fh = [_f32(fapi.NATIVE_Z), fa.sqrt_h, fa.band_q, hyper["inv_cap"]]
+    ih = [horizon, fa.use_band, int(hyper["conservative"])]
     B, M = rates.shape
     need = torch.empty((1, M, B), dtype=torch.float32, device=rates.device)
     ext.policy_signals_predictive(
-        rates, need[0], torch.empty((period, B), dtype=torch.float32,
-                                    device=rates.device), fh, ih)
+        rates, need[0], torch.empty((fa.slots, B), dtype=torch.float32,
+                                    device=rates.device), fh, ih, fa.fc_f,
+        fa.fc_i)
     return Signals(rps=need)
 
 
@@ -193,7 +238,18 @@ def policy_signals_cuda(rates: torch.Tensor, controller, cfg, *,
         raise ValueError(f"policy {controller.name!r} has no pre-pass; "
                          f"pre-passes: {POLICIES}")
     policy_signals_cuda.launches += 1
+    walk = f"{controller.name}:{forecaster_name(controller)}"
+    by_walk = policy_signals_cuda.by_walk
+    by_walk[walk] = by_walk.get(walk, 0) + 1
     return sig
 
 
+def forecaster_name(controller) -> str:
+    """The registry name of the forecaster a forecasting policy runs
+    (inside any conformal wrap)."""
+    return _unwrapped(controller.hyper["forecaster"]).name
+
+
 policy_signals_cuda.launches = 0
+#: launches by minute walk, "<policy>:<forecaster>" (reset with the counts)
+policy_signals_cuda.by_walk = {}

@@ -1,0 +1,217 @@
+"""Policies x workloads in one call (port of ``repro.scaling.batch``).
+
+The reference folds the policy axis into one compiled scan over fused
+P x W plant lanes, or, with its `decide_kernel`, runs one fused-decide
+episode kernel per controller over the W lanes. The port takes that
+kernel route: on the card each controller lane is one
+``kernels.ops.episode_block`` call per chunk of `w_chunk` workloads (the
+policy's pre-pass, then the plant pass); on the CPU the same call runs
+the plain version. Lane (p, w) is ``simulate(rates[w], controllers[p])``.
+
+* `make_batch_simulator(controllers, cfg)` — rates [W, M] -> MinuteOut
+  [P, W, M].
+* `make_forecast_batch_simulator(policies, forecasters, cfg)` —
+  forecasters x policies -> MinuteOut [F, P, W, M].
+* `make_grid_simulator(name, grid, cfg)` / `make_grid_evaluator(name,
+  cfg)` — one policy family over a grid of hyperparameter points, as
+  MinuteOut [G, W, M] or as pooled metrics and REI per point. Each point
+  is the registry's controller of that point; the grid is validated and
+  split into stackable and static keys as the reference does
+  (`grid_split`).
+
+`shard=` and `donate=` are accepted and ignored: on one card the
+reference's sharding helpers are the identity without a mesh
+(``repro.dist.sharding.constrain``). `telemetry=True` (the in-scan
+decision trace) is not ported yet and raises.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import _device
+from repro_torch.scaling import registry
+from repro_torch.scaling.api import Controller
+from repro_torch.sim.cluster import MinuteOut, SimConfig, simulate
+
+
+def _no_telemetry(telemetry: bool) -> None:
+    if telemetry:
+        raise NotImplementedError(
+            "telemetry (the in-scan decision trace) is not ported yet")
+
+
+def chunks(W: int, w_chunk: int | None) -> list[slice]:
+    """The workload chunks of W lanes: all at once, or `w_chunk` at a
+    time (which must divide W, as in the reference)."""
+    if w_chunk is None or w_chunk >= W:
+        return [slice(0, W)]
+    if W % w_chunk:
+        raise ValueError(f"w_chunk {w_chunk} must divide W {W}")
+    return [slice(i, i + w_chunk) for i in range(0, W, w_chunk)]
+
+
+def make_batch_simulator(controllers: Sequence[Controller],
+                         cfg: SimConfig = SimConfig(), *, device="cuda",
+                         plant_kernel: bool | None = None,
+                         decide_kernel: bool | None = None,
+                         shard: bool = True, w_chunk: int | None = None,
+                         donate: bool = False, telemetry: bool = False,
+                         trace_lanes: int | None = None):
+    """rates [W, M] -> MinuteOut [P, W, M]: every controller's episodes
+    over the W lanes, `w_chunk` lanes per episode call (one episode
+    kernel launch each on the card, after the policy's pre-pass).
+    `plant_kernel` and `decide_kernel` are ``cluster.simulate``'s."""
+    del shard, donate, trace_lanes
+    _no_telemetry(telemetry)
+    ctrls = list(controllers)
+    dev = _device.resolve(device)
+
+    def run(rates) -> MinuteOut:
+        rates = torch.as_tensor(rates).to(device=dev, dtype=torch.float32)
+        W, M = rates.shape
+        per_ctrl = []
+        for ctrl in ctrls:
+            parts = [simulate(rates[sl].contiguous(), ctrl, cfg, device=dev,
+                              plant_kernel=plant_kernel,
+                              decide_kernel=decide_kernel)
+                     for sl in chunks(W, w_chunk)]
+            per_ctrl.append([torch.cat(f, 0) for f in zip(*parts)])
+        return MinuteOut(*(torch.stack(f) for f in zip(*per_ctrl)))
+
+    return run
+
+
+def batch_simulate(controllers: Sequence[Controller], rates,
+                   cfg: SimConfig = SimConfig(), *,
+                   device="cuda") -> MinuteOut:
+    """Convenience wrapper: rates [W, M] -> MinuteOut of [P, W, M]."""
+    return make_batch_simulator(controllers, cfg, device=device)(rates)
+
+
+def make_forecast_batch_simulator(policies: Sequence[str],
+                                  forecasters: Sequence,
+                                  cfg: SimConfig = SimConfig(), *,
+                                  classify=None, device="cuda",
+                                  **overrides):
+    """Forecasters x policies x workloads: rates [W, M] -> MinuteOut
+    [F, P, W, M]; lane (f, p) is policy p on forecaster f. Every policy
+    must take a forecaster (`predictive`, `aapa`, `hybrid`)."""
+    aware = [n for n in registry.available()
+             if registry.spec(n).takes_forecaster]
+    for p in policies:
+        if not registry.spec(p).takes_forecaster:
+            raise TypeError(f"policy {p!r} takes no forecaster; "
+                            f"forecaster-aware policies: {aware}")
+    ctrls = [registry.get_controller(p, cfg, classify=classify,
+                                     forecaster=f, **overrides)
+             for f in forecasters for p in policies]
+    sim = make_batch_simulator(ctrls, cfg, device=device)
+    shape = (len(forecasters), len(policies))
+
+    def run(rates) -> MinuteOut:
+        out = sim(rates)                              # [F*P, W, M]
+        return MinuteOut(*(a.reshape(shape + a.shape[1:]) for a in out))
+
+    return run
+
+
+def _canon_static(v):
+    """Canonical hashable form of a static hyperparameter value (the
+    reference's: ints stay ints, floats become Python floats)."""
+    if isinstance(v, (bool, str)):
+        return v
+    if isinstance(v, (int, np.integer)):
+        return int(v)
+    if isinstance(v, (float, np.floating)):
+        return float(v)
+    return v
+
+
+def _validate_hyper(sp, keys, what: str) -> None:
+    bad = set(keys) - set(sp.defaults)
+    if bad:
+        raise TypeError(f"policy {sp.name!r} has no hyperparameters "
+                        f"{sorted(bad)} ({what}); "
+                        f"accepts {sorted(sp.defaults)}")
+
+
+def grid_split(name: str, grid: Sequence[dict], fixed: dict):
+    """Validate a hyperparameter grid and split its keys into stackable
+    (`traced` in the reference) and static ones.
+
+    Every point must set the same keys, all accepted by the policy, none
+    also in `fixed`. Returns (spec, stackable keys, groups): groups lists
+    (static items, grid indices) in first-appearance order."""
+    sp = registry.spec(name)
+    if not grid:
+        raise ValueError("empty hyperparameter grid")
+    _validate_hyper(sp, fixed, "fixed kwargs")
+    keys = sorted(grid[0])
+    _validate_hyper(sp, keys, "grid keys")
+    overlap = set(keys) & set(fixed)
+    if overlap:
+        raise TypeError(f"grid key(s) {sorted(overlap)} for policy "
+                        f"{name!r} are also passed as fixed kwargs")
+    for g in grid:
+        if sorted(g) != keys:
+            raise ValueError("every grid point must set the same keys")
+    traced = tuple(k for k in keys if k in sp.stackable)
+    static = tuple(k for k in keys if k not in sp.stackable)
+    groups: dict[tuple, list[int]] = {}
+    for i, g in enumerate(grid):
+        groups.setdefault(tuple((k, _canon_static(g[k])) for k in static),
+                          []).append(i)
+    return sp, traced, [(skey, tuple(idx)) for skey, idx in groups.items()]
+
+
+def _grid_controllers(name: str, grid: Sequence[dict], cfg, classify,
+                      fixed: dict) -> list[Controller]:
+    """The registry's controller of each grid point (defaults, then
+    `fixed`, then the point), in grid order."""
+    grid_split(name, grid, fixed)
+    return [registry.get_controller(name, cfg, classify=classify,
+                                    **fixed, **g) for g in grid]
+
+
+def make_grid_simulator(name: str, grid: Sequence[dict],
+                        cfg: SimConfig = SimConfig(), *, classify=None,
+                        device="cuda", **fixed):
+    """One policy family over a grid of hyperparameter points: rates
+    [W, M] -> MinuteOut [len(grid), W, M] in grid order."""
+    return make_batch_simulator(
+        _grid_controllers(name, [dict(g) for g in grid], cfg, classify,
+                          fixed), cfg, device=device)
+
+
+def make_grid_evaluator(name: str, cfg: SimConfig = SimConfig(), *,
+                        classify=None, bins: int | None = None,
+                        rei_kw: dict | None = None, device="cuda",
+                        **fixed):
+    """Candidate scoring: ``evaluate(grid, rates [W, M]) ->
+    (EpisodeMetrics [G], REIBreakdown [G])``, each candidate's metrics
+    pooled over the workloads chunk by chunk (no [G, W, M] output is
+    kept). REI baselines default from the episode shape; `rei_kw`
+    overrides them."""
+    from repro_torch.evals import matrix
+    from repro_torch.evals import metrics as EM
+    from repro_torch.evals import rei as ER
+    _validate_hyper(registry.spec(name), fixed, "fixed kwargs")
+    bins = EM.DEFAULT_BINS if bins is None else bins
+    rei_kw = dict(rei_kw or {})
+
+    def evaluate(grid, rates):
+        ctrls = _grid_controllers(name, [dict(g) for g in grid], cfg,
+                                  classify, fixed)
+        rates = torch.as_tensor(rates)
+        W, M = rates.shape
+        met, _ = matrix.make_controller_evaluator(
+            ctrls, cfg, bins=bins, per_workload=False, device=device)(rates)
+        rb = ER.rei(met.slo_violation_rate, met.replica_minutes,
+                    met.scaling_actions,
+                    **{"minutes": M, "n_workloads": W, **rei_kw})
+        return met, rb
+
+    return evaluate

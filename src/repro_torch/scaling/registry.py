@@ -5,7 +5,10 @@
     ctrl = registry.make("hpa", SimConfig(), target=0.6)
 
 All five policies of the reference are registered, with its defaults;
-asking for any other name raises a ``KeyError`` that lists them.
+asking for any other name raises a ``KeyError`` that lists them. Each
+spec also names its *stackable* hyperparameters (those a grid may vary
+without changing the episode's structure, ``scaling.batch``) and whether
+the policy takes a forecaster by name.
 """
 from __future__ import annotations
 
@@ -23,7 +26,9 @@ class PolicySpec:
     name: str
     factory: Callable[..., Controller]   # factory(cfg, **hyper)
     defaults: dict[str, Any]
+    stackable: tuple[str, ...] = ()      # grid keys that keep the structure
     needs_classifier: bool = False
+    takes_forecaster: bool = False       # accepts forecaster= by name
     description: str = ""
 
 
@@ -32,12 +37,15 @@ _REGISTRY: dict[str, PolicySpec] = {}
 
 def register(name: str, factory: Callable[..., Controller], *,
              defaults: dict[str, Any] | None = None,
+             stackable: tuple[str, ...] = (),
              needs_classifier: bool = False,
+             takes_forecaster: bool = False,
              description: str = "") -> None:
     if name in _REGISTRY:
         raise ValueError(f"policy {name!r} already registered")
     _REGISTRY[name] = PolicySpec(name, factory, dict(defaults or {}),
-                                 needs_classifier, description)
+                                 stackable, needs_classifier,
+                                 takes_forecaster, description)
 
 
 def available() -> list[str]:
@@ -86,6 +94,7 @@ register(
     "hpa", P.hpa_controller,
     defaults=dict(target=0.70, stabilization_min=5.0, cooldown_min=5.0,
                   tolerance=0.10),
+    stackable=("target", "cooldown_min", "tolerance"),
     description="Kubernetes HPA: reactive CPU-target scaling with "
                 "downscale stabilization (paper §IV.C baseline).")
 
@@ -94,6 +103,8 @@ register(
     defaults=dict(target=0.70, horizon_min=15, cooldown_min=5.0,
                   forecaster="holt_winters", band=None,
                   conservative=False),
+    stackable=("target", "cooldown_min"),
+    takes_forecaster=True,
     description="Generic predictive over any registered forecaster "
                 "(default Holt-Winters, 15-minute horizon: the paper "
                 "§IV.C baseline).")
@@ -104,6 +115,7 @@ register(
                   forecaster="holt_winters", band=None,
                   forecast_confidence=None),
     needs_classifier=True,
+    takes_forecaster=True,
     description="Archetype-aware predictive autoscaler with uncertainty "
                 "quantification (the paper's system, §III).")
 
@@ -112,6 +124,7 @@ register(
     defaults=dict(target_concurrency=None, panic_threshold=2.0,
                   stable_window_s=60.0, panic_window_s=6.0,
                   cooldown_min=1.0),
+    stackable=("panic_threshold",),
     description="Knative-KPA-style concurrency scaler with stable/panic "
                 "windows.")
 
@@ -120,6 +133,8 @@ register(
     defaults=dict(guard_target=0.85, max_down_frac=0.3, stride_min=10,
                   horizon_min=15, forecaster="holt_winters", band=None,
                   forecast_confidence=None),
+    stackable=("guard_target", "max_down_frac"),
     needs_classifier=True,
+    takes_forecaster=True,
     description="AAPA with a reactive guardrail floor and bounded "
                 "scale-down steps.")

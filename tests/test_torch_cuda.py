@@ -203,11 +203,122 @@ def test_aapa_default_classifier_kernel_matches_plain(cuda):
         torch.testing.assert_close(a, e, **EPISODE_TOL)
 
 
-def test_aapa_kernel_rejects_other_forecasters(cuda):
+#: registry forecasters other than Holt-Winters, at their defaults and at
+#: a window over 32 (XLA's chunked sum), a period shorter than the
+#: 15-minute horizon (phases wrap) and an alpha off the default
+FORECASTER_CASES = [("linear_trend", {}), ("linear_trend", dict(window=45)),
+                    ("seasonal_naive", {}), ("seasonal_naive",
+                                             dict(period=7)),
+                    ("ewma", {}), ("ewma", dict(alpha=0.37))]
+FORECASTER_IDS = ["lt", "lt45", "sn", "sn7", "ewma", "ewma37"]
+
+
+def _forecaster_controller(policy, fname, fkw, cfg, dev):
+    """`policy` on the forecaster `fname` (hyperparameters `fkw`):
+    predictive, predictive conservative with the native band, AAPA with
+    the seeded GBDT every 5 minutes and the forecast confidence on
+    (native band), hybrid with the GBDT and the conformal band."""
+    fcst = forecast_registry.make(fname, **fkw)
+    kw = {"predictive": {},
+          "conservative": dict(conservative=True),
+          "aapa": dict(classify=_classifier(dev), stride_min=5,
+                       forecast_confidence=True),
+          "hybrid": dict(classify=_classifier(dev), band=_band(dev))}[policy]
+    return registry.make("predictive" if policy == "conservative" else policy,
+                         cfg, forecaster=fcst, **kw)
+
+
+@pytest.mark.parametrize("ci,b,m", [(15, 33, 121), (30, 1000, 61),
+                                    (7, 1, 90)])
+@pytest.mark.parametrize("fname,fkw", FORECASTER_CASES, ids=FORECASTER_IDS)
+@pytest.mark.parametrize("policy", ["predictive", "conservative", "aapa",
+                                    "hybrid"])
+def test_forecaster_episode_kernel_matches_plain(cuda, policy, fname, fkw,
+                                                 ci, b, m):
+    """Every registry forecaster's minute walk in the episode, bit for bit
+    against the plain episode, at lane counts that are not a multiple of
+    the block and minute counts that are not a multiple of the tile, with
+    AAPA's and hybrid's archetypes exact."""
+    cfg = cluster.SimConfig(control_interval_sec=ci)
+    ctrl = _forecaster_controller(policy, fname, fkw, cfg, cuda)
+    rates = torch.as_tensor(scenarios.archetype_mix(
+        n_workloads=b, minutes=m, seed=b + m).rates, device=cuda)
+    before = policy_signals.policy_signals_cuda.launches
+    if ctrl.name in episode_block.ARCHETYPE_POLICIES:
+        got, got_arch = episode_block.aapa_episode_cuda(rates, ctrl, cfg)
+        want, want_arch = ref.aapa_episode_ref(rates, ctrl, cfg)
+        assert torch.equal(got_arch, want_arch)
+    else:
+        got = episode_block.episode_block_cuda(rates, ctrl, cfg)
+        want = ref.episode_block_ref(rates, ctrl, cfg)
+    torch.cuda.synchronize()
+    assert policy_signals.policy_signals_cuda.launches == before + 1
+    for a, e in zip(got, want):
+        assert torch.equal(a, e)
+
+
+@pytest.mark.parametrize("fname,fkw", FORECASTER_CASES, ids=FORECASTER_IDS)
+@pytest.mark.parametrize("policy", ["conservative", "aapa"])
+def test_forecaster_signals_kernel_matches_plain(cuda, policy, fname, fkw):
+    """The new minute walks against `policy_signals_ref`, bit for bit:
+    every per-minute signal, slot and per-minute archetype; 293 lanes x
+    97 minutes."""
     cfg = cluster.SimConfig()
-    ctrl = registry.make("aapa", cfg, forecaster="ewma")
-    with pytest.raises(NotImplementedError, match="holt_winters"):
-        episode_block.episode_block_cuda(_rates(5, cuda), ctrl, cfg)
+    ctrl = _forecaster_controller(policy, fname, fkw, cfg, cuda)
+    rates = torch.as_tensor(scenarios.archetype_mix(
+        n_workloads=293, minutes=97, seed=3).rates, device=cuda)
+    arch = ctrl.name == "aapa"
+    got = policy_signals.policy_signals_cuda(rates, ctrl, cfg,
+                                             minute_arch=arch)
+    want = ref.policy_signals_ref(rates, ctrl, cfg, minute_arch=arch)
+    torch.cuda.synchronize()
+    for name, a, e in zip(policy_signals.Signals._fields, got, want):
+        assert (a is None) == (e is None), name
+        assert a is None or torch.equal(a, e), name
+
+
+def test_aapa_kernel_rejects_bare_callable_classify(cuda):
+    """A classify that is neither core.pipeline.Classify nor the
+    registry's default_classify cannot be compiled into the pre-pass: the
+    launcher raises, it never falls back to the plain path."""
+    cfg = cluster.SimConfig()
+    for policy in ("aapa", "hybrid"):
+        ctrl = registry.make(policy, cfg, classify=lambda f: (
+            torch.zeros(f.shape[:-1], dtype=torch.int32, device=f.device),
+            torch.full(f.shape[:-1], 0.9, device=f.device)))
+        with pytest.raises(NotImplementedError, match="Classify"):
+            episode_block.episode_block_cuda(_rates(5, cuda), ctrl, cfg)
+
+
+def _probe_tool():
+    """tools/probe_binding_errors.py, whose cases the test runs."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "probe_binding_errors.py"
+    spec = importlib.util.spec_from_file_location("probe_binding_errors",
+                                                  path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+@pytest.mark.parametrize("case", ["bad_rank", "bad_shape", "bad_size",
+                                  "oversize_shared_memory"])
+def test_binding_errors_raise_runtime_error(cuda, case):
+    """A binding called directly with a tensor of the wrong rank or shape,
+    an out-of-range size or a plant pass whose shared memory does not fit
+    raises RuntimeError in the calling process, not a signal (the shape
+    and shared-memory checks compose their messages: binding.cpp's
+    REQUIRE). Each call runs in a subprocess
+    (``tools/probe_binding_errors.py``), so that a crash fails this test
+    alone."""
+    from pathlib import Path
+    tool = _probe_tool()
+    proc = tool.probe(Path(__file__).resolve().parents[1], tool.CASES[case])
+    assert proc.returncode == 0, (proc.returncode, proc.stdout,
+                                  proc.stderr[-3000:])
+    assert "(a RuntimeError)" in proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("b,t,period,alpha", [

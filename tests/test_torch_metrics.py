@@ -203,9 +203,9 @@ def test_scenarios_and_traces_are_bit_identical():
         mix={ref_synth.Archetype.SPIKE: 1.0})
     for f in ("rates", "counts", "pattern", "base_rate"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
-    assert t_scenarios.available() == ["archetype_mix", "burst_storm"]
-    with pytest.raises(KeyError, match="not yet ported"):
-        t_scenarios.get("idle_wake")
+    assert t_scenarios.available() == ref_scenarios.available()
+    with pytest.raises(KeyError, match="unknown scenario"):
+        t_scenarios.get("no_such_scenario")
 
 
 def test_interop_carries_metrics_across():

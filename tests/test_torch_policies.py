@@ -178,16 +178,23 @@ def test_policy_state_handoff_from_reference(bands):
 
 
 def test_episode_kernel_launchers_cover_every_policy():
-    """Every registered policy has a compiled episode-kernel policy; other
-    forecasters stay outside the kernel (the launcher raises before it
+    """Every registered policy has a compiled episode-kernel policy and
+    every registry forecaster a minute walk; a forecaster outside the
+    registry stays outside the kernel (the launcher raises before it
     builds or launches anything)."""
     cfg = t_cluster.SimConfig()
     assert set(episode_block._POLICIES) == set(t_registry.available())
+    assert set(policy_signals.FORECASTERS) == set(t_fregistry.available())
     rates = torch.ones(2, 3)
     for name in ("predictive", "aapa", "hybrid"):
-        ctrl = t_registry.make(name, cfg, forecaster="ewma")
-        with pytest.raises(NotImplementedError, match="holt_winters"):
-            policy_signals.holt_winters(ctrl.hyper["forecaster"], 15)
+        for fname in t_fregistry.available():
+            ctrl = t_registry.make(name, cfg, forecaster=fname)
+            fa = policy_signals.forecaster_args(ctrl.hyper["forecaster"], 15)
+            assert fa.fc_i[0] == policy_signals.FORECASTERS[fname]
+        own = t_fregistry.make("ewma")._replace(name="my_ewma")
+        ctrl = t_registry.make(name, cfg, forecaster=own)
+        with pytest.raises(NotImplementedError, match="registry"):
+            policy_signals.forecaster_args(ctrl.hyper["forecaster"], 15)
     with pytest.raises(ValueError, match="CUDA"):
         episode_block.aapa_episode_cuda(rates, t_registry.make("hybrid",
                                                                cfg), cfg)
@@ -207,23 +214,27 @@ def test_episode_kernel_takes_the_band_of_the_forecaster():
                                      torch.tensor(9.0))
     hw = t_fregistry.make("holt_winters")
     sqrt15 = float(np.sqrt(np.float32(15)))
+    native = policy_signals.forecaster_args(hw, 15)
+
+    def args(fcst):
+        fa = policy_signals.forecaster_args(fcst, 15)
+        assert (fa.fc_f, fa.fc_i) == (native.fc_f, native.fc_i)
+        return fa.use_band, fa.band_q, fa.sqrt_h
+
     for name in ("predictive", "aapa"):
         by_arg = t_registry.make(name, cfg, band=band)
         wrapped = t_registry.make(name, cfg,
                                   forecaster=t_conformal.wrap(hw, band))
-        want = (hw.hyper, 1, 2.5, sqrt15)
-        assert policy_signals.holt_winters(by_arg.hyper["forecaster"],
-                                           15) == want
-        assert policy_signals.holt_winters(wrapped.hyper["forecaster"],
-                                           15) == want
+        want = (1, 2.5, sqrt15)
+        assert args(by_arg.hyper["forecaster"]) == want
+        assert args(wrapped.hyper["forecaster"]) == want
     assert t_registry.make("aapa", cfg, band=band).hyper[
         "conf_scale"] is band.scale
     assert t_registry.make("aapa", cfg, forecaster=t_conformal.wrap(
         hw, band)).hyper["conf_scale"] is None
     flat = t_conformal.wrap(hw, band, widen_with_horizon=False)
-    assert policy_signals.holt_winters(flat, 15) == (hw.hyper, 1, 2.5, 1.0)
+    assert args(flat) == (1, 2.5, 1.0)
     outer = t_conformal.ConformalBand(torch.tensor(4.0), 0.8,
                                       torch.tensor(3.0))
-    assert policy_signals.holt_winters(t_conformal.wrap(flat, outer),
-                                       15) == (hw.hyper, 1, 4.0, sqrt15)
-    assert policy_signals.holt_winters(hw, 15) == (hw.hyper, 0, 0.0, sqrt15)
+    assert args(t_conformal.wrap(flat, outer)) == (1, 4.0, sqrt15)
+    assert args(hw) == (0, 0.0, sqrt15)
