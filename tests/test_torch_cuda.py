@@ -290,6 +290,19 @@ def test_aapa_kernel_rejects_bare_callable_classify(cuda):
             episode_block.episode_block_cuda(_rates(5, cuda), ctrl, cfg)
 
 
+def test_aapa_kernel_rejects_other_history_len(cuda):
+    """The pre-pass's feature window is 60 minutes at compile time: an
+    AAPA or hybrid episode on another `history_len` raises before any
+    launch, and never falls back to the plain path."""
+    cfg = cluster.SimConfig(history_len=45)
+    for policy in ("aapa", "hybrid"):
+        before = ops.launch_counts()
+        with pytest.raises(NotImplementedError, match="history_len"):
+            episode_block.episode_block_cuda(_rates(5, cuda),
+                                             registry.make(policy, cfg), cfg)
+        assert ops.launch_counts() == before
+
+
 def _probe_tool():
     """tools/probe_binding_errors.py, whose cases the test runs."""
     import importlib.util
