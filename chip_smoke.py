@@ -34,9 +34,12 @@ and prints no result line):
 8. The classification path at AAPAset scale (the ``aapaset_300k``
    recipe: ``generate_traces(n_functions=150, n_days=14, seed=0)``,
    60-minute windows at stride 10): ``window_features`` against its
-   plain version, for the 28 features and for all 38 in one launch (the
-   classification path's; quantized features exact, the rest at
-   rtol/atol 5e-4), a seeded GBDT at the paper's size (60 rounds x 4 classes, depth 4, 64
+   plain version bit for bit (gate beside it: quantized features exact,
+   the rest at rtol/atol 5e-4), for the 28 features and for all 38 in one
+   launch (the classification path's), with the kernel compiled for
+   W = 60, with the generic kernel forced at W = 60 (timed too) and at
+   W = 45 (the windows' first 45 samples); a seeded GBDT at the paper's
+   size (60 rounds x 4 classes, depth 4, 64
    bins, 38 features; bin edges are quantiles of the port's own
    features over these windows) through ``gbdt_tables`` against its
    plain version (argmax exact, logits within 4 ulp of the largest),
@@ -53,17 +56,20 @@ and prints no result line):
     HPA row through ``make_simulator(w_chunk=25_000)``, pooled metrics
     and REI, timed, then once more under ``torch.profiler``.
 11. ``holt_winters`` against its plain version (``hw_smooth``), bit for
-    bit (gate: the reference's rtol 1e-4 / atol 1e-3): 100,003 x 2,880
-    at period 60, 4,099 x 3,000 at period 1,440 (the season in global
-    scratch) and 257 x 61 at alpha 0.37; timed at the calibration split's
-    shape.
+    bit (gate beside it: the reference's rtol 1e-4 / atol 1e-3), each
+    run's kernel variant logged: 100,003 x 2,880 at period 60 (the season
+    in shared memory), 20,011 x 1,000 at period 96 (the shared-memory
+    limit) and 97 (global scratch), 4,099 x 3,000 at period 1,440 and 257
+    x 61 at alpha 0.37 (T % 4 != 0: 4-B copies).
 12. The uncertainty path (paper §III.C.3): split-conformal calibration of
     the paper's Holt-Winters (period 60, alpha 0.1, beta 0.01, gamma
     0.3) at alpha 0.9, burn-in 60, on ``burst_storm(n_workloads=100_000,
     minutes=2_880, seed=1)``, then its coverage on phase 5's held-out
     fleet day, each timed after a warm-up call and profiled. Each call
     must launch ``holt_winters`` exactly once and run no plain version;
-    the coverage is printed, not gated.
+    the coverage is printed, not gated. ``holt_winters`` timed at the
+    split's shape, also with the season forced to global scratch and on
+    a 16-B-misaligned copy of the split (4-B copies, checked equal).
 13. The ``episode_block`` kernel's predictive (native, and conservative
     with the band), kpa, AAPA-with-band and hybrid-with-band (phase 8's
     classifier) policies against their plain episodes: a 25,000 x 240
@@ -80,7 +86,9 @@ and prints no result line):
 16. For information: the plant pass over all 100,000 lanes in one launch
     against four 25,000-lane launches (HPA's episode, AAPA's plant pass),
     and each kernel entry's registers, stack and shared memory from
-    ``cuobjdump --dump-resource-usage`` of the built extension.
+    ``cuobjdump --dump-resource-usage`` of the built extension; fails
+    unless both W = 60 ``window_features`` entries hold no stack and no
+    local memory.
 17. Every registry forecaster in the episode: predictive, predictive
     conservative with the band, AAPA (phase 8's classifier, the forecast
     confidence on) and hybrid with the band, each under linear trend,
@@ -679,7 +687,8 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import (_build, holt_winters, ops, ref,
+                                     window_features)
     from repro_torch.scaling import registry, scenarios
     from repro_torch.sim import cluster
 
@@ -831,33 +840,51 @@ def main() -> int:
     N = wins.shape[0]
     log(f"[classify] {N} windows x 60 ({wins.numel() * 4 / 1e6:.1f} MB) "
         f"made in {time.perf_counter() - t0:.1f} s")
-    wf_k = ops.window_features(wins)
-    wf_p = launch_free(lambda: ref.window_features_ref(wins),
-                       "window_features")
     quant = [features.FEATURE_NAMES.index(n) for n in features.QUANTIZED]
     quant28 = [i for i in quant if i < 28]
-    if not torch.equal(wf_k[:, quant28], wf_p[:, quant28]):
-        raise RuntimeError("window_features: quantized features differ from "
-                           "the plain version")
-    wf_err = max_abs_err([wf_k], [wf_p], FEATURE_TOL, "window_features")
-    log(f"[window_features] {N} x 60, 28 features, matches the plain "
-        f"version (quantized features exact), max_abs_err={wf_err}, "
-        f"bitwise {bool(torch.equal(wf_k, wf_p))}")
+    wf_launcher = window_features.window_features_cuda
+    wf_err = 0.0
+    # W = 60 (the w60 kernel, then the generic one forced) and W = 45
+    for width, variant in ((60, None), (60, "generic"), (45, None)):
+        x = wins if width == 60 else wins[:, :width].contiguous()
+        wf_k = wf_launcher(x, variant=variant)
+        wf_var = wf_launcher.last_variant
+        wf_p = launch_free(lambda: ref.window_features_ref(x),
+                           "window_features")
+        if not torch.equal(wf_k[:, quant28], wf_p[:, quant28]):
+            raise RuntimeError("window_features: quantized features differ "
+                               "from the plain version")
+        err = max_abs_err([wf_k], [wf_p], FEATURE_TOL, "window_features")
+        if not torch.equal(wf_k, wf_p):
+            raise RuntimeError(f"window_features {wf_var} at W = {width}: "
+                               "the 28 features differ from the plain "
+                               "version's bits")
+        log(f"[window_features] {N} x {width}, 28 features, kernel "
+            f"{wf_var}: equal to the plain version bit for bit (within "
+            f"rtol/atol 5e-4, quantized features exact), "
+            f"max_abs_err={err}")
+        feats = wf_launcher(x, freq=True, variant=variant)
+        fx_p = launch_free(lambda: ref.extract_features_ref(x),
+                           "extract_features")
+        if not (torch.equal(feats[:, :28], wf_k)
+                and torch.equal(feats[:, quant], fx_p[:, quant])):
+            raise RuntimeError("window_features with the frequency "
+                               "features: the 28 differ from the 28-feature "
+                               "launch, or quantized features differ from "
+                               "the plain version")
+        fx_err = max_abs_err([feats], [fx_p], FEATURE_TOL,
+                             "extract_features")
+        if not torch.equal(feats, fx_p):
+            raise RuntimeError(f"window_features {wf_var} at W = {width}: "
+                               "the 38 features differ from the plain "
+                               "version's bits")
+        wf_err = max(wf_err, err, fx_err)
+        log(f"[window_features] {N} x {width}, all 38 features in one "
+            f"launch, kernel {wf_launcher.last_variant}: equal to the plain "
+            f"version bit for bit (the 28 equal to the 28-feature launch), "
+            f"max_abs_err={fx_err}")
+        del x, wf_k, wf_p, fx_p
     feats = ops.extract_features_fused(wins)
-    fx_p = launch_free(lambda: ref.extract_features_ref(wins),
-                       "extract_features")
-    if not (torch.equal(feats[:, :28], wf_k)
-            and torch.equal(feats[:, quant], fx_p[:, quant])):
-        raise RuntimeError("window_features with the frequency features: "
-                           "the 28 differ from the 28-feature launch, or "
-                           "quantized features differ from the plain "
-                           "version")
-    fx_err = max_abs_err([feats], [fx_p], FEATURE_TOL, "extract_features")
-    wf_err = max(wf_err, fx_err)
-    log(f"[window_features] {N} x 60, all 38 features in one launch, "
-        f"matches the plain version (quantized features exact, the 28 "
-        f"equal to the 28-feature launch), max_abs_err={fx_err}, bitwise "
-        f"{bool(torch.equal(feats, fx_p))}")
     cls = seeded_classifier(feats.cpu().numpy(), dev)
     lg_k = ops.gbdt_logits(cls.params, feats)
     lg_p = launch_free(lambda: ref.gbdt_logits_ref(cls.params, feats),
@@ -872,7 +899,7 @@ def main() -> int:
                            f"4 ulp ({ulp4})")
     log(f"[gbdt_tables] {N} x 38, 240 trees of depth 4 match the plain "
         f"version (argmax exact), max_abs_err={gb_err}")
-    del wf_k, wf_p, fx_p, lg_k, lg_p
+    del lg_k, lg_p
 
     def classify_path():
         feats = ops.extract_features_fused(wins)
@@ -903,6 +930,10 @@ def main() -> int:
     wf28_bound, wf28_by = bound_ms(4.0 * N * (60 + 28),
                                    float(N) * stat_feature_ops(60))
     wf_ms = cuda_ms(lambda: ops.extract_features_fused(wins), iters=10)[0]
+    wf_variant = wf_launcher.last_variant
+    wf_generic_ms = cuda_ms(lambda: wf_launcher(wins, freq=True,
+                                                variant="generic"),
+                            iters=10)[0]
     wf_plain_ms = cuda_ms(lambda: ref.extract_features_ref(wins),
                           iters=2)[0]
     centred = wins - wins.mean(-1, keepdim=True)
@@ -920,7 +951,8 @@ def main() -> int:
     gb_bound, gb_by = bound_ms(4.0 * N * (38 + 4) + table_bytes,
                                float(N) * gbdt_ops(38, n_edges, 240, 4))
     log(f"[timing] window_features {N} x 60, 38 features (the "
-        f"classification path's launch): {wf_ms} ms, plain {wf_plain_ms} "
+        f"classification path's launch, kernel {wf_variant}): {wf_ms} ms, "
+        f"the generic kernel {wf_generic_ms} ms, plain {wf_plain_ms} "
         f"ms, bound {wf_bound} ms ({wf_by}); torch.fft.rfft for the 10 "
         f"frequency features' FFT alone: {rfft_ms} ms")
     log(f"[timing] window_features {N} x 60, 28 features: {wf28_ms} ms, "
@@ -987,23 +1019,30 @@ def main() -> int:
     # ---- 11. holt_winters kernel vs plain
     from repro_torch.forecast import conformal
     from repro_torch.forecast import registry as forecast_registry
-    hw_err, hw_bitwise = 0.0, True
+    hw_launcher = holt_winters.holt_winters_cuda
+    hw_err = 0.0
     for (hb, ht, period, alpha) in ((100_003, 2880, 60, 0.1),
+                                    (20_011, 1000, 96, 0.1),
+                                    (20_011, 1000, 97, 0.1),
                                     (4099, 3000, 1440, 0.1),
                                     (257, 61, 60, 0.37)):
         y = torch.as_tensor(np.random.default_rng(hb).gamma(
             2.0, 60.0, (hb, ht)).astype(np.float32), device=dev)
         got = ops.holt_winters(y, period=period, alpha=alpha)
+        hw_var = hw_launcher.last_variant
         want = launch_free(lambda: ref.holt_winters_ref(
             y, period=period, alpha=alpha), "holt_winters")
-        hw_err = max(hw_err, max_abs_err([got], [want], HW_TOL,
-                                         f"holt_winters {hb}x{ht}"))
-        hw_bitwise = hw_bitwise and bool(torch.equal(got, want))
+        err = max_abs_err([got], [want], HW_TOL, f"holt_winters {hb}x{ht}")
+        if not torch.equal(got, want):
+            raise RuntimeError(f"holt_winters {hw_var} {hb}x{ht} period "
+                               f"{period}: the forecasts differ from the "
+                               "plain version's bits")
+        hw_err = max(hw_err, err)
+        log(f"[holt_winters] {hb}x{ht} period {period} alpha {alpha}, "
+            f"kernel {hw_var}: equal to the plain version bit for bit "
+            f"(within rtol 1e-4 / atol 1e-3), max_abs_err={err}")
         del y, got, want
     torch.cuda.synchronize()
-    log(f"[holt_winters] 100003x2880 period 60, 4099x3000 period 1440, "
-        f"257x61 alpha 0.37 match the plain version, max_abs_err={hw_err},"
-        f" bitwise {hw_bitwise}")
 
     # ---- 12. split-conformal calibration on the card, then coverage
     t0 = time.perf_counter()
@@ -1049,11 +1088,23 @@ def main() -> int:
         f"the held-out fleet day {W}x{M}: {cov}, wall {coverage_s:.4f} s; "
         f"holt_winters launches {conformal_counts}")
     hw_ms = cuda_ms(lambda: ops.holt_winters(split), iters=5)[0]
+    hw_variant = hw_launcher.last_variant
+    hw_global_ms = cuda_ms(lambda: hw_launcher(split, variant="global"),
+                           iters=5)[0]
+    odd = torch.empty(split.numel() + 1, device=dev)[1:].view_as(split)
+    odd.copy_(split)                       # 16-B misaligned: 4-B copies
+    hw_4b_ms = cuda_ms(lambda: hw_launcher(odd), iters=5)[0]
+    if not torch.equal(hw_launcher(odd), hw_launcher(split)):
+        raise RuntimeError("holt_winters: the 4-B copies' forecasts differ "
+                           "from the 16-B copies'")
+    del odd
     hw_plain_ms = cuda_ms(lambda: ref.holt_winters_ref(split), iters=1)[0]
     hw_bound, hw_by = bound_ms(2.0 * 4 * split.numel(),
                                float(split.numel()) * HW_OPS_PER_STEP)
-    log(f"[timing] holt_winters {W}x{2 * M}: {hw_ms} ms, plain "
-        f"{hw_plain_ms} ms, bound {hw_bound} ms ({hw_by})")
+    log(f"[timing] holt_winters {W}x{2 * M} (kernel {hw_variant}): {hw_ms} "
+        f"ms; the season in global scratch {hw_global_ms} ms; 4-B copies "
+        f"of a misaligned split {hw_4b_ms} ms; plain {hw_plain_ms} ms, "
+        f"bound {hw_bound} ms ({hw_by})")
     resid = (split - ops.holt_winters(split)).abs()[:, 60:].reshape(-1)
     sort_ms = cuda_ms(lambda: torch.sort(resid), iters=3)[0]
     log(f"[timing] the calibration's sort of {resid.numel()} residuals: "
@@ -1192,6 +1243,13 @@ def main() -> int:
     for entry, u in sorted(usage.items()):
         log(f"[resources] REG {u['reg']:3d} STACK {u['stack']:5d} SHARED "
             f"{u['shared']:6d} LOCAL {u['local']:5d}  {entry[:110]}")
+    w60_entries = {e: u for e, u in usage.items()
+                   if "window_features_kernel<(bool)1" in e}
+    if len(w60_entries) != 2 or any(u["stack"] or u["local"]
+                                    for u in w60_entries.values()):
+        raise RuntimeError(f"the W = 60 window_features kernels are not two "
+                           f"entries without stack or local memory: "
+                           f"{w60_entries}")
     plant_entries = {p: [u for e, u in usage.items()
                          if "episode_kernel" in e and f"::{p}>" in e]
                      for p in ("HPA", "AAPA", "Hybrid")}
@@ -1343,7 +1401,8 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/window_features.cu",
              replaces="src/repro/kernels/window_features.py:163",
              launches=classify_counts["window_features"],
-             max_abs_err=wf_err, ms=wf_ms, plain_ms=wf_plain_ms,
+             max_abs_err=wf_err, ms=wf_ms, variant=wf_variant,
+             generic_ms=wf_generic_ms, plain_ms=wf_plain_ms,
              bound_ms=wf_bound, bound_by=wf_by, library_ms=rfft_ms),
         dict(name="gbdt_tables", route="cuda",
              source="src/repro_torch/kernels/csrc/gbdt_tables.cu",
@@ -1355,7 +1414,8 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/holt_winters.cu",
              replaces="src/repro/kernels/holt_winters.py:55",
              launches=sum(conformal_counts.values()), max_abs_err=hw_err,
-             ms=hw_ms, plain_ms=hw_plain_ms, bound_ms=hw_bound,
+             ms=hw_ms, variant=hw_variant, global_ms=hw_global_ms,
+             ms_4b=hw_4b_ms, plain_ms=hw_plain_ms, bound_ms=hw_bound,
              bound_by=hw_by, library_ms=None),
     ] + [
         dict(name=f"episode_block<{label}>", policy=pols[label][0],

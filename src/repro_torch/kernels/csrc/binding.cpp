@@ -201,10 +201,11 @@ repro_torch::FreqTables freq_tables(const torch::Tensor& tw,
 
 // windows [N, W] -> out [N, 28] or, with an FFT plan (empty otherwise),
 // out [N, 38] with the frequency features; inv_log_nb and inv_nb are
-// their f32 multipliers.
+// their f32 multipliers. w60: the kernel compiled for W == 60 and its FFT
+// plan.
 void window_features(torch::Tensor windows, torch::Tensor out_,
                      torch::Tensor tw, std::vector<int64_t> plan,
-                     double inv_log_nb, double inv_nb) {
+                     double inv_log_nb, double inv_nb, bool w60) {
   REQUIRE(windows.dim() == 2, "windows must be [N, W]");
   const int64_t N = windows.size(0), W = windows.size(1);
   const bool freq = !plan.empty();
@@ -213,13 +214,24 @@ void window_features(torch::Tensor windows, torch::Tensor out_,
           "to 64 samples");
   check(windows, "windows", {N, W});
   check(out_, "out", {N, freq ? 38 : 28});
+  REQUIRE(!w60 || W == repro_torch::kW60, "the W = 60 window_features "
+          "kernel got windows of ", W);
   repro_torch::FreqTables tab{};
-  if (freq) tab = freq_tables(tw, plan, W, inv_log_nb, inv_nb);
+  if (freq) {
+    tab = freq_tables(tw, plan, W, inv_log_nb, inv_nb);
+    for (int q = 0; w60 && q < repro_torch::kW60Passes; ++q)
+      REQUIRE(tab.n_pass == repro_torch::kW60Passes &&
+                  tab.ip[q] == repro_torch::kW60Plan[q][0] &&
+                  tab.l1[q] == repro_torch::kW60Plan[q][1] &&
+                  tab.ido[q] == repro_torch::kW60Plan[q][2],
+              "FFT plan: pass ", q, " differs from the one the W = 60 "
+              "kernel was compiled for");
+  }
   const c10::cuda::CUDAGuard guard(windows.device());
   repro_torch::window_features_launch(in(windows), out(out_),
                                       static_cast<int>(N),
                                       static_cast<int>(W),
-                                      freq ? &tab : nullptr,
+                                      freq ? &tab : nullptr, w60,
                                       at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -580,11 +592,14 @@ void episode_block_kpa(torch::Tensor rates, torch::Tensor out_, int64_t S,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// y [B, T] -> out [B, T]; season_scratch [period, B]; coeffs: alpha, beta,
-// gamma, 1 - alpha, 1 - beta, 1 - gamma
+// y [B, T] -> out [B, T]; coeffs: alpha, beta, gamma, 1 - alpha, 1 - beta,
+// 1 - gamma. shared_season (period <= 96): the season in shared memory and
+// season_scratch empty, else season_scratch [period, B]; vec16: 16-B
+// copies (T % 4 == 0, y and out 16-B aligned).
 void holt_winters(torch::Tensor y, torch::Tensor out_,
                   torch::Tensor season_scratch, int64_t period,
-                  std::vector<double> coeffs) {
+                  std::vector<double> coeffs, bool shared_season,
+                  bool vec16) {
   REQUIRE(y.dim() == 2, "y must be [B, T]");
   const int64_t B = y.size(0), T = y.size(1);
   REQUIRE(B > 0 && T > 0 && period >= 1,
@@ -593,12 +608,23 @@ void holt_winters(torch::Tensor y, torch::Tensor out_,
   check(y, "y", {B, T});
   check(out_, "out", {B, T});
   REQUIRE(season_scratch.dim() == 2, "season scratch must be 2-d");
-  check(season_scratch, "season scratch", {period, B});
+  if (shared_season) {
+    REQUIRE(period <= repro_torch::kHWSharedPeriodMax,
+            "holt_winters keeps the season in shared memory only up to "
+            "period ", repro_torch::kHWSharedPeriodMax, ", got ", period);
+    check(season_scratch, "season scratch", {0, B});
+  } else {
+    check(season_scratch, "season scratch", {period, B});
+  }
+  REQUIRE(!vec16 || repro_torch::holt_winters_vec16_ok(
+                        in(y), in(out_), static_cast<int>(T)),
+          "holt_winters' 16-B copies need T % 4 == 0 and 16-B aligned "
+          "y and out");
   const c10::cuda::CUDAGuard guard(y.device());
   repro_torch::holt_winters_launch(
       in(y), out(out_), out(season_scratch), static_cast<int>(B),
-      static_cast<int>(T), static_cast<int>(period), hw_coeffs(coeffs),
-      at::cuda::getCurrentCUDAStream());
+      static_cast<int>(T), static_cast<int>(period), shared_season, vec16,
+      hw_coeffs(coeffs), at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

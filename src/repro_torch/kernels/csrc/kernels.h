@@ -182,11 +182,15 @@ struct KPAHyper {
   float panic_threshold, stable_window_s, dt, cooldown_sec;
 };
 
-// y [B, T] -> out [B, T] one-step-ahead forecasts; season_scratch [period,
-// B] holds each series' season
+// y [B, T] -> out [B, T] one-step-ahead forecasts. shared_season (period
+// <= kHWSharedPeriodMax): each block's seasons in shared memory; otherwise
+// season_scratch [period, B] holds them. vec16 (holt_winters_vec16_ok):
+// 16-B copies of y and out, else 4-B ones.
+constexpr int kHWSharedPeriodMax = 96;
 void holt_winters_launch(const float* y, float* out, float* season_scratch,
-                         int B, int T, int period, HWCoeffs c,
-                         cudaStream_t stream);
+                         int B, int T, int period, bool shared_season,
+                         bool vec16, HWCoeffs c, cudaStream_t stream);
+bool holt_winters_vec16_ok(const float* y, const float* out, int T);
 
 // The pre-pass (policy_signals.cu). AAPA and hybrid: rates [B, M] ->
 // signals rps [3, M, B], arch [R, B], adj [3, R, B] and, when minute_arch
@@ -232,9 +236,14 @@ void episode_block_hybrid_launch(const float* rates, float* out,
                                  cudaStream_t stream);
 
 // windows [N, W] (3 <= W <= 64) -> features [N, 28]; with freq (the FFT
-// plan for W, 4 <= W <= 64) all 38 features [N, 38]
+// plan for W, 4 <= W <= 64) all 38 features [N, 38]. w60: the kernel
+// compiled for W == 60 (its FFT plan kW60Plan), else the one for any W.
+constexpr int kW60 = 60;
+constexpr int kW60Passes = 3;
+constexpr int kW60Plan[kW60Passes][3] = {{5, 12, 1}, {3, 4, 5}, {4, 1, 15}};
 void window_features_launch(const float* windows, float* out, int N, int W,
-                            const FreqTables* freq, cudaStream_t stream);
+                            const FreqTables* freq, bool w60,
+                            cudaStream_t stream);
 
 // X [N, n_features] -> logits [N, n_classes]
 void gbdt_tables_launch(const float* X, float* out, int N, GBDTTables g,

@@ -9,6 +9,12 @@ Replaces the Pallas TPU kernel ``repro/kernels/window_features.py``
 and ``kernels.ref.extract_features_ref`` (``core.features.extract_features``);
 ``kernels.ops.window_features`` and ``kernels.ops.extract_features_fused``
 dispatch between kernel and plain version by device.
+
+The kernel has two variants, both hand-written and bit for bit with the
+plain versions: ``"w60"``, compiled for 60-sample windows (the
+classification path's and AAPAset's width) with the window in registers,
+and ``"generic"``, the routines for any width in [3, 64] that the AAPA
+episode's pre-pass runs too. ``choose_variant`` picks one from the width alone.
 """
 from __future__ import annotations
 
@@ -19,14 +25,23 @@ from repro_torch.kernels import _build
 
 N_FEATS = 28
 MIN_W, MAX_W = 3, 64
+#: the one width the register variant is compiled for (csrc/kernels.h kW60)
+W60 = 60
+VARIANTS = ("w60", "generic")
 
 
-def window_features_cuda(windows: torch.Tensor, *,
-                         freq: bool = False) -> torch.Tensor:
+def choose_variant(width: int) -> str:
+    """Which kernel takes windows of `width` samples."""
+    return "w60" if width == W60 else "generic"
+
+
+def window_features_cuda(windows: torch.Tensor, *, freq: bool = False,
+                         variant: str | None = None) -> torch.Tensor:
     """Launch the kernel: windows [N, W] (contiguous float32 on CUDA,
     3 <= W <= 64) -> features [N, 28]; with `freq` (W >= 4) the 38
-    features [N, 38], the 10 frequency features after the 28. Raises on
-    any other input."""
+    features [N, 38], the 10 frequency features after the 28. `variant`
+    forces a kernel (``"w60"`` only at W = 60); by default
+    ``choose_variant(W)``. Raises on any other input."""
     if windows.device.type != "cuda":
         raise ValueError("window_features kernel needs a CUDA tensor, got "
                          f"{windows.device}")
@@ -38,6 +53,10 @@ def window_features_cuda(windows: torch.Tensor, *,
                          f"tensor, N >= 1, {min_w} <= W <= {MAX_W}; got "
                          f"{tuple(windows.shape)} {windows.dtype}")
     N, W = windows.shape
+    variant = choose_variant(W) if variant is None else variant
+    if variant not in VARIANTS or (variant == "w60" and W != W60):
+        raise ValueError(f"variant {variant!r} at W = {W}: expected one of "
+                         f"{VARIANTS}, 'w60' only at W = {W60}")
     if freq:
         tw, plan = features.fft_tables(W, windows.device)
         inv_log_nb, inv_nb = features.freq_constants(W)
@@ -47,9 +66,11 @@ def window_features_cuda(windows: torch.Tensor, *,
     out = torch.empty((N, features.N_FEATURES if freq else N_FEATS),
                       dtype=torch.float32, device=windows.device)
     _build.extension().window_features(windows, out, tw, plan, inv_log_nb,
-                                       inv_nb)
+                                       inv_nb, variant == "w60")
     window_features_cuda.launches += 1
+    window_features_cuda.last_variant = variant
     return out
 
 
 window_features_cuda.launches = 0
+window_features_cuda.last_variant = None

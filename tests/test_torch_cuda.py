@@ -142,20 +142,74 @@ def _classifier(dev, seed=0, rounds=60, depth=4):
     return Classify(params, cal)
 
 
-@pytest.mark.parametrize("freq", [False, True])
-@pytest.mark.parametrize("width", [60, 45, 49, 63])
-def test_window_features_kernel_matches_plain(cuda, width, freq):
+def _edge_windows(dev, width: int, n: int = 300):
+    """AAPAset-like windows of `width` minutes, then windows with ties, a
+    constant, all zeros and single spikes: n + 19 windows, 319 by
+    default, not a multiple of the 64-window block."""
+    rng = np.random.default_rng(width)
+    real = windows.make_windows(azure_synth.generate_traces(
+        n_functions=8, n_days=2, seed=0), window=width).windows[:n]
+    ties = rng.integers(0, 3, (4, width)).astype(np.float32)
+    spikes = np.zeros((12, width), np.float32)
+    spikes[np.arange(12), rng.integers(0, width, 12)] = np.float32(1e5)
+    spikes[6:] += np.float32(2.0)
+    edge = np.stack([np.full(width, 3.0, np.float32),
+                     np.zeros(width, np.float32)])
+    x = np.concatenate([real, ties, edge, spikes, ties[:1]])
+    return torch.as_tensor(x, device=dev)
+
+
+def _window_features_plain(x, freq, monkeypatch):
+    """The plain version; below W = 30 (where ``core.features._acf`` has a
+    lag past the window and raises) each such autocorrelation is the empty
+    sum 0, as the TPU kernel and the CUDA kernels take it."""
+    acf = features._acf
+    monkeypatch.setattr(features, "_acf", lambda xc, var, lag: (
+        acf(xc, var, lag) if lag <= xc.shape[-1] else torch.zeros_like(var)))
+    return (ref.extract_features_ref if freq else ref.window_features_ref)(x)
+
+
+@pytest.mark.parametrize("width,freq", [(w, f) for w in range(3, 65)
+                                        for f in (False, True)
+                                        if w >= 4 or not f])
+def test_window_features_kernel_matches_plain(cuda, width, freq,
+                                              monkeypatch):
     """The 28 features, and with `freq` all 38 (the classification path's
-    launch, `ops.extract_features_fused`), bit for bit."""
-    x = _windows(cuda)[:, :width].contiguous()
+    launch, `ops.extract_features_fused`), bit for bit at every width the
+    kernel takes: the W = 60 kernel at 60 (and the generic one there too),
+    the generic one elsewhere; ties, constant, zero and spike windows."""
+    x = _edge_windows(cuda, width)
+    want = _window_features_plain(x, freq, monkeypatch)
     before = window_features.window_features_cuda.launches
     got = window_features.window_features_cuda(x, freq=freq)
-    want = (ref.extract_features_ref if freq else ref.window_features_ref)(x)
     torch.cuda.synchronize()
     assert window_features.window_features_cuda.launches == before + 1
+    assert window_features.window_features_cuda.last_variant == (
+        window_features.choose_variant(width))
     assert torch.equal(got, want)
     if freq:
         assert torch.equal(ops.extract_features_fused(x), got)
+    if width == window_features.W60:
+        assert torch.equal(window_features.window_features_cuda(
+            x, freq=freq, variant="generic"), want)
+
+
+@pytest.mark.parametrize("freq", [False, True])
+def test_window_features_w60_keeps_nan_windows_as_generic(cuda, freq):
+    """Windows holding NaN: the W = 60 kernel gives what the generic
+    kernel (the insertion sort, fminf / fmaxf) gives, NaN for NaN."""
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 4, (200, 60)).astype(np.float32)
+    for i in range(200):
+        x[i, rng.integers(0, 60, 1 + i % 5)] = np.nan
+    x[0] = np.nan
+    x = torch.as_tensor(x, device=cuda)
+    got = window_features.window_features_cuda(x, freq=freq, variant="w60")
+    want = window_features.window_features_cuda(x, freq=freq,
+                                                variant="generic")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0.0, atol=0.0,
+                               equal_nan=True)
 
 
 def test_gbdt_tables_kernel_matches_plain(cuda):
@@ -334,20 +388,39 @@ def test_binding_errors_raise_runtime_error(cuda, case):
     assert "(a RuntimeError)" in proc.stdout, proc.stdout
 
 
-@pytest.mark.parametrize("b,t,period,alpha", [
-    (1003, 300, 60, 0.1), (257, 61, 60, 0.37), (130, 500, 1440, 0.1),
-    (65, 100, 96, 0.33), (64, 33, 97, 0.1), (1, 1, 1, 0.1)])
-def test_holt_winters_kernel_matches_plain(cuda, b, t, period, alpha):
-    """Bit for bit: short and long seasons, alpha where hw_smooth's two
-    roundings of 1 - alpha differ, ragged lane and time tiles."""
+@pytest.mark.parametrize("b,t,period,alpha,variant,offset", [
+    (1003, 300, 60, 0.1, None, 0), (257, 61, 60, 0.37, None, 0),
+    (130, 500, 1440, 0.1, None, 0), (65, 100, 96, 0.33, None, 0),
+    (64, 33, 97, 0.1, None, 0), (1, 1, 1, 0.1, None, 0),
+    (130, 62, 60, 0.1, None, 0), (67, 63, 97, 0.2, None, 0),
+    (129, 98, 96, 0.1, None, 0), (66, 101, 97, 0.1, None, 0),
+    (70, 20, 60, 0.1, None, 0), (33, 7, 96, 0.1, None, 0),
+    (5, 3, 2, 0.1, None, 0), (200, 64, 1, 0.1, None, 0),
+    (131, 300, 60, 0.1, "global", 0), (3, 9, 1, 0.1, "global", 0),
+    (100, 128, 60, 0.1, None, 1), (100, 128, 1440, 0.1, None, 1)])
+def test_holt_winters_kernel_matches_plain(cuda, b, t, period, alpha,
+                                           variant, offset):
+    """Bit for bit: both variants either side of the shared-memory limit
+    (period 96 / 97) and forced to global scratch at short periods; long
+    seasons; alpha where hw_smooth's two roundings of 1 - alpha differ;
+    T = 1, 2, 3 (mod 4) (4-B copies) and a 16-B-misaligned y (`offset`);
+    ragged lane blocks and time tiles; T shorter than a tile and than the
+    period."""
     rng = np.random.default_rng(b + t)
-    y = torch.as_tensor(rng.gamma(2.0, 50.0, (b, t)).astype(np.float32),
-                        device=cuda)
+    y_np = rng.gamma(2.0, 50.0, (b, t)).astype(np.float32)
+    y = torch.empty(b * t + offset, dtype=torch.float32, device=cuda)
+    y = y[offset:].view(b, t)
+    y.copy_(torch.as_tensor(y_np))
     before = holt_winters.holt_winters_cuda.launches
-    got = holt_winters.holt_winters_cuda(y, period=period, alpha=alpha)
+    got = holt_winters.holt_winters_cuda(y, period=period, alpha=alpha,
+                                         variant=variant)
     want = ref.holt_winters_ref(y, period=period, alpha=alpha)
     torch.cuda.synchronize()
     assert holt_winters.holt_winters_cuda.launches == before + 1
+    chosen = variant or holt_winters.choose_variant(period)
+    wide = t % 4 == 0 and offset == 0
+    assert holt_winters.holt_winters_cuda.last_variant == (
+        f"{chosen}/{16 if wide else 4}B")
     assert torch.equal(got, want)
 
 

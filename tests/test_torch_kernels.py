@@ -2,6 +2,8 @@
 versions against the JAX reference's oracles and its Pallas kernels in
 interpret mode, device dispatch, and wrapper validation. The CUDA
 kernels themselves are checked in tests/test_torch_cuda.py."""
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro.scaling import registry as ref_registry
 from repro.sim import cluster as ref_cluster
+from repro_torch.core import features
 from repro_torch.core import gbdt as t_gbdt
 from repro_torch.core.calibration import BetaCalibration
 from repro_torch.core.pipeline import Classify
@@ -137,15 +140,55 @@ def test_kernel_wrappers_reject_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             episode_block.episode_block_cuda(
                 torch.ones(2, 3), t_registry.make(name, cfg), cfg)
-    with pytest.raises(ValueError, match="CUDA"):
-        holt_winters.holt_winters_cuda(torch.ones(2, 3))
-    for freq in (False, True):
+    for variant in (None, "shared", "global"):
         with pytest.raises(ValueError, match="CUDA"):
-            window_features.window_features_cuda(torch.ones(2, 60),
-                                                 freq=freq)
+            holt_winters.holt_winters_cuda(torch.ones(2, 3), variant=variant)
+    for freq in (False, True):
+        for variant in (None, "w60", "generic"):
+            with pytest.raises(ValueError, match="CUDA"):
+                window_features.window_features_cuda(
+                    torch.ones(2, 60), freq=freq, variant=variant)
     with pytest.raises(ValueError, match="CUDA"):
         gbdt_tables.gbdt_logits_cuda(_tiny_port_gbdt()[1],
                                      torch.ones(2, 38))
+
+
+_KERNELS_H = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+              / "kernels" / "csrc" / "kernels.h").read_text()
+
+
+@pytest.mark.parametrize("period,want", [(1, "shared"), (60, "shared"),
+                                         (96, "shared"), (97, "global"),
+                                         (1440, "global")])
+def test_holt_winters_variant_by_period(period, want):
+    """The season sits in shared memory up to the limit the CUDA source
+    compiles (kHWSharedPeriodMax), in global scratch past it."""
+    assert f"kHWSharedPeriodMax = {holt_winters.SHARED_PERIOD_MAX};" in (
+        _KERNELS_H)
+    assert holt_winters.choose_variant(period) == want
+
+
+def test_holt_winters_variant_refuses_bad_period_and_copy_width():
+    with pytest.raises(ValueError, match="period"):
+        holt_winters.choose_variant(0)
+    y = torch.zeros(4 * 8 + 1)
+    assert holt_winters.vec16(8, y[:32].view(4, 8))
+    assert not holt_winters.vec16(8, y[1:].view(4, 8))   # 4-B offset
+    assert not holt_winters.vec16(7, y[:28].view(4, 7))  # T % 4 != 0
+
+
+@pytest.mark.parametrize("width,want", [(3, "generic"), (59, "generic"),
+                                        (60, "w60"), (61, "generic"),
+                                        (64, "generic")])
+def test_window_features_variant_by_width(width, want):
+    """Only W = 60 takes the kernel compiled for it, whose FFT plan
+    (csrc/kernels.h kW60Plan) is the plan the launcher hands over."""
+    assert f"kW60 = {window_features.W60};" in _KERNELS_H
+    plan = features.fft_tables(60, torch.device("cpu"))[1]
+    compiled = ", ".join(f"{{{ip}, {l1}, {ido}}}" for ip, l1, ido in zip(
+        plan[0::4], plan[1::4], plan[2::4]))
+    assert f"kW60Plan[kW60Passes][3] = {{{compiled}}};" in _KERNELS_H
+    assert window_features.choose_variant(width) == want
 
 
 def _tiny_port_gbdt():

@@ -21,10 +21,11 @@ from pathlib import Path
 CASES = {
     "bad_rank": "ext.holt_winters(torch.zeros(8, device=dev), "
                 "torch.zeros(8, device=dev), torch.zeros(60, 8, device=dev),"
-                " 60, [0.1] * 6)",
+                " 60, [0.1] * 6, False, False)",
     "bad_shape": "ext.holt_winters(torch.zeros(8, 10, device=dev), "
                  "torch.zeros(8, 11, device=dev), "
-                 "torch.zeros(60, 8, device=dev), 60, [0.1] * 6)",
+                 "torch.zeros(60, 8, device=dev), 60, [0.1] * 6, False, "
+                 "False)",
     "bad_size": "ext.episode_smem(1 << 21, 0, 0)",
     "oversize_shared_memory": (
         "ext.episode_block_hpa(torch.zeros(40, 3, device=dev), "

@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Time the ``holt_winters`` and ``window_features`` kernels of several
+source trees in turns on one card.
+
+    python3 tools/time_kernel_trees.py TREE [TREE ...] [--rounds 2]
+
+Each TREE is a directory that holds a ``src/repro_torch`` package (``.``
+is this checkout), typically two versions of the kernels to compare.
+Round after round, each tree runs in a process of its own (the order
+reversed every other round: A B, B A, ...), builds its kernels into its
+own ``build/`` and, with CUDA events (one warm-up call, then the mean of
+10 calls):
+
+- ``kernels.ops.extract_features_fused`` (38 features, the
+  classification path's launch) and ``kernels.ops.window_features`` (28)
+  over the 301,650 AAPAset windows (``generate_traces(n_functions=150,
+  n_days=14, seed=0)``, 60-minute windows at stride 10);
+- ``kernels.ops.holt_winters`` at period 60 over a 100,000 x 2,880 split
+  of seeded gamma rates made on the card (the calibration split's shape);
+- ``forecast.conformal.calibrate`` of Holt-Winters at alpha 0.9 over that
+  split (host clock, ending in a synchronize, after a warm-up call).
+
+Every run prints a fingerprint of each output (sums of its bit
+patterns), and the script fails if two trees' fingerprints differ: the
+trees must compute the same features and forecasts.
+
+Output: one JSON line per tree run, a summary line per measurement, then
+the card's ``nvidia-smi`` name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+MEASURES = ("window_features_38_ms", "window_features_28_ms",
+            "holt_winters_ms", "calibrate_s")
+
+
+def cuda_ms(fn, iters: int = 10) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def fingerprint(t) -> int:
+    import torch
+    bits = t.contiguous().view(torch.int32).to(torch.int64)
+    weights = torch.arange(1, bits.shape[-1] + 1, device=t.device,
+                           dtype=torch.int64)
+    return int((bits * weights).sum())
+
+
+def child(tree: Path) -> None:
+    """Time one tree's kernels; prints one JSON line."""
+    sys.path.insert(0, str(tree.resolve() / "src"))
+    import time
+
+    import torch
+    from repro_torch.data import azure_synth, windows
+    from repro_torch.forecast import conformal
+    from repro_torch.forecast import registry as forecast_registry
+    from repro_torch.kernels import _build, ops
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.extension()
+    row = dict(build_s=time.perf_counter() - t0)
+    wins = torch.as_tensor(windows.make_windows(azure_synth.generate_traces(
+        n_functions=150, n_days=14, seed=0)).windows, device=dev)
+    row["window_features_38_ms"] = cuda_ms(
+        lambda: ops.extract_features_fused(wins))
+    row["window_features_28_ms"] = cuda_ms(lambda: ops.window_features(wins))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    split = torch.empty((100_000, 2_880), device=dev).exponential_(
+        1 / 60.0, generator=gen)
+    row["holt_winters_ms"] = cuda_ms(lambda: ops.holt_winters(split))
+    fcst = forecast_registry.make("holt_winters")
+    conformal.calibrate(fcst, split, alpha=0.9)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    band = conformal.calibrate(fcst, split, alpha=0.9)
+    torch.cuda.synchronize()
+    row["calibrate_s"] = time.perf_counter() - t0
+    row["fingerprint"] = [fingerprint(ops.extract_features_fused(wins)),
+                          fingerprint(ops.window_features(wins)),
+                          fingerprint(ops.holt_winters(split)),
+                          float(band.q), float(band.scale)]
+    print(json.dumps({"tree": str(tree), **row}), flush=True)
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("trees", nargs="*", type=Path)
+    p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--child", type=Path, help=argparse.SUPPRESS)
+    args = p.parse_args()
+    if args.child is not None:
+        child(args.child)
+        return 0
+    import torch
+    if not torch.cuda.is_available() or not args.trees:
+        print("time_kernel_trees: needs a CUDA device and at least one "
+              "tree", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    runs = []
+    for r in range(args.rounds):
+        for tree in (args.trees if r % 2 == 0 else args.trees[::-1]):
+            res = subprocess.run([sys.executable, __file__, "--child",
+                                  str(tree)], capture_output=True, text=True,
+                                 timeout=1800, env=dict(os.environ))
+            if res.returncode != 0:
+                print(res.stdout + res.stderr, file=sys.stderr)
+                return 1
+            line = res.stdout.strip().splitlines()[-1]
+            print(line, flush=True)
+            runs.append(json.loads(line))
+    same = len({json.dumps(run["fingerprint"]) for run in runs}) == 1
+    for key in MEASURES:
+        times = {str(t): [run[key] for run in runs if run["tree"] == str(t)]
+                 for t in args.trees}
+        print(f"[summary] {key}: " + ", ".join(
+            f"{t} {v}" for t, v in times.items()), flush=True)
+    print(f"[summary] same outputs in every tree: {same}")
+    print(smi)
+    return 0 if same else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
