@@ -10,7 +10,9 @@ and prints no result line):
    CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed).
 2. ``plant_block`` kernel vs its plain PyTorch version on the card:
    100,003 random lanes (not a multiple of the block size), S=30,
-   n_ticks in {14, 29, 3}; rtol/atol 1e-5.
+   n_ticks in {14, 29, 3}; rtol/atol 1e-5, then bit for bit with the plain
+   version and with the per-thread kernel it replaced, the variant
+   logged.
 3. ``episode_block`` kernel vs its plain version (the blocked simulate):
    HPA on ``burst_storm(n_workloads=4099, minutes=30)`` at control
    intervals 15 and 7 (remainder block); rtol 3e-6 / atol 1e-4 on all 12
@@ -24,11 +26,14 @@ and prints no result line):
    episode kernel, then ``metrics.pooled`` and ``evals.rei.rei``.
 6. Each kernel against its plain version once more at the shapes its
    path gives it (``episode_block`` on one 25,000 x 1440 chunk of the
-   fleet, ``plant_block`` at 1024 lanes x S=30 x 14 ticks), with the
+   fleet, ``plant_block`` at 1024 lanes x S=30 x 14 ticks and at 100,003
+   lanes, bit for bit, also with the per-thread kernel), with the
    tolerances above, and per-kernel times at those shapes (CUDA events;
-   ``plant_block`` and its plain version replayed from a CUDA graph, so
-   the host's per-launch overhead is not counted), against the card's
-   bound.
+   ``plant_block``, its per-thread kernel, the same launch with an empty
+   body (the launch's floor) and its plain version replayed from a CUDA
+   graph, so the host's per-launch overhead is not counted), against the
+   card's bound; ``plant_block`` at 1024 lanes also at 1, 7 and 29
+   ticks.
 7. One more fleet run under ``torch.profiler``: device time by kernel and
    the device's busy share of the wall time.
 8. The classification path at AAPAset scale (the ``aapaset_300k``
@@ -41,11 +46,15 @@ and prints no result line):
    W = 45 (the windows' first 45 samples); a seeded GBDT at the paper's
    size (60 rounds x 4 classes, depth 4, 64
    bins, 38 features; bin edges are quantiles of the port's own
-   features over these windows) through ``gbdt_tables`` against its
-   plain version (argmax exact, logits within 4 ulp of the largest),
-   then the whole path (features -> logits -> softmax -> beta
-   calibration -> archetype) timed, with its archetype histogram, and
-   each kernel's time.
+   features over these windows) through ``gbdt_tables`` (its tables in
+   shared memory) against its plain version (argmax exact, logits within
+   4 ulp of the largest, then bit for bit) and against the generic
+   per-thread kernel (bit for bit), and the same for an ensemble of depth
+   6 whose tables exceed the shared-memory budget (the generic kernel),
+   each variant logged; then the whole path (features -> logits ->
+   softmax -> beta calibration -> archetype) timed, with its archetype
+   histogram (the wall of the counted run and the median of 20 more),
+   and each kernel's time (``gbdt_tables``' generic kernel too).
 9. The ``episode_block`` kernel's AAPA policy (that classifier inside)
    against its plain version: ``archetype_mix`` 1024 x 120 at ci 7
    (remainder block) with stride 10 and 2, and the first 480 minutes of
@@ -87,8 +96,9 @@ and prints no result line):
     against four 25,000-lane launches (HPA's episode, AAPA's plant pass),
     and each kernel entry's registers, stack and shared memory from
     ``cuobjdump --dump-resource-usage`` of the built extension; fails
-    unless both W = 60 ``window_features`` entries hold no stack and no
-    local memory.
+    unless both W = 60 ``window_features`` entries and both shared-memory
+    ``gbdt_tables`` entries (the paper's depth and any depth) hold no
+    stack and no local memory.
 17. Every registry forecaster in the episode: predictive, predictive
     conservative with the band, AAPA (phase 8's classifier, the forecast
     confidence on) and hybrid with the band, each under linear trend,
@@ -307,13 +317,36 @@ def plant_inputs(rng, B: int, S: int, dev):
             for c in cols]
 
 
-def seeded_classifier(feats: np.ndarray, dev, seed: int = 0):
+def plant_equal(args, n_ticks: int, what: str) -> tuple[float, str]:
+    """``plant_block`` (the staged kernel) against its plain version
+    (within rtol/atol 1e-5, then bit for bit) and against the per-thread
+    kernel it replaced (bit for bit): (max_abs_err, the variant that
+    ran)."""
+    from repro_torch.kernels import plant_block, ref
+    launcher = plant_block.plant_tick_block_cuda
+    ks, kt = launcher(*args, n_ticks=n_ticks)
+    variant = launcher.last_variant
+    os_, ot = launcher(*args, n_ticks=n_ticks, variant="per_thread")
+    rs, rt = ref.plant_block_ref(*args, n_ticks=n_ticks)
+    err = max(max_abs_err(ks, rs, PLANT_TOL, f"state {what}"),
+              max_abs_err(kt, rt, PLANT_TOL, f"ticks {what}"))
+    for i, (a, o, e) in enumerate(zip((*ks, *kt), (*os_, *ot), (*rs, *rt))):
+        if not (torch.equal(a, e) and torch.equal(a, o)):
+            raise RuntimeError(f"plant_block {variant} {what}: output {i} "
+                               "differs from the plain version's or the "
+                               "per-thread kernel's bits")
+    return err, variant
+
+
+def seeded_classifier(feats: np.ndarray, dev, seed: int = 0,
+                      depth: int = 4):
     """A seeded GBDT + beta calibration at the paper's classifier size
     (``GBDTConfig`` defaults: 60 rounds x 4 classes, depth 4, 64 bins),
-    its bin edges quantiles of `feats` [N, 38]."""
+    its bin edges quantiles of `feats` [N, 38]; `depth` deepens its
+    trees."""
     from repro_torch.core import calibration, gbdt
     from repro_torch.core.pipeline import Classify
-    c = gbdt.GBDTConfig()
+    c = gbdt.GBDTConfig(depth=depth)
     rng = np.random.default_rng(seed)
     n_int = 2 ** c.depth - 1
     shape = (c.n_rounds, c.n_classes)
@@ -687,8 +720,8 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import (_build, holt_winters, ops, ref,
-                                     window_features)
+    from repro_torch.kernels import (_build, gbdt_tables, holt_winters, ops,
+                                     plant_block, ref, window_features)
     from repro_torch.scaling import registry, scenarios
     from repro_torch.sim import cluster
 
@@ -715,14 +748,12 @@ def main() -> int:
     plant_err = 0.0
     for n_ticks in (14, 29, 3):
         args = plant_inputs(rng, B, S, dev)
-        ks, kt = ops.plant_tick_block(*args, n_ticks=n_ticks)
-        rs, rt = ref.plant_block_ref(*args, n_ticks=n_ticks)
-        plant_err = max(plant_err,
-                        max_abs_err(ks, rs, PLANT_TOL, f"state T={n_ticks}"),
-                        max_abs_err(kt, rt, PLANT_TOL, f"ticks T={n_ticks}"))
+        err, variant = plant_equal(args, n_ticks, f"B={B} T={n_ticks}")
+        plant_err = max(plant_err, err)
     torch.cuda.synchronize()
-    log(f"[plant_block] B={B} S={S} n_ticks=14/29/3 match the plain "
-        f"version, max_abs_err={plant_err}")
+    log(f"[plant_block] B={B} S={S} n_ticks=14/29/3, kernel {variant}: "
+        f"equal to the plain version and to the per-thread kernel bit for "
+        f"bit, max_abs_err={plant_err}")
 
     # ---- 3. episode_block kernel vs plain
     sc = scenarios.burst_storm(n_workloads=4099, minutes=30)
@@ -757,8 +788,9 @@ def main() -> int:
     fused = cluster.simulate(mix, ctrl, cfg)
     paths_err = max_abs_err(unfused, fused, EPISODE_TOL, "unfused vs fused")
     log(f"[paths] archetype_mix 1024x120: unfused path ({unfused_s:.3f} s,"
-        f" launches {unfused_counts}) agrees with the fused kernel, "
-        f"max_abs_err={paths_err}")
+        f" launches {unfused_counts}, plant_block kernel "
+        f"{plant_block.plant_tick_block_cuda.last_variant}) agrees with the "
+        f"fused kernel, max_abs_err={paths_err}")
 
     # ---- 5. main path at fleet scale
     W, M, w_chunk = 100_000, 1440, 25_000
@@ -795,37 +827,54 @@ def main() -> int:
     Bu = mix.shape[0]
     pb = plant_inputs(np.random.default_rng(1), Bu, cfg.startup_sec, dev)
     T = ci - 1
-    pb_k = ops.plant_tick_block(*pb, n_ticks=T)
-    pb_r = ref.plant_block_ref(*pb, n_ticks=T)
-    pb_main_err = max(
-        max_abs_err(pb_k[0], pb_r[0], PLANT_TOL, f"state B={Bu} T={T}"),
-        max_abs_err(pb_k[1], pb_r[1], PLANT_TOL, f"ticks B={Bu} T={T}"))
+    pb_main_err, pb_variant = plant_equal(pb, T, f"B={Bu} T={T}")
     plant_err = max(plant_err, pb_main_err)
-    del pb_k, pb_r
-    log(f"[plant_block] B={Bu} S={cfg.startup_sec} n_ticks={T} "
-        f"matches the plain version, max_abs_err={pb_main_err}")
-    pb_ms = graph_ms(lambda: ops.plant_tick_block(*pb, n_ticks=T),
-                     iters=20)
-    pb_plain_ms = graph_ms(lambda: ref.plant_block_ref(*pb, n_ticks=T),
-                           iters=3)
+    log(f"[plant_block] B={Bu} S={cfg.startup_sec} n_ticks={T}, kernel "
+        f"{pb_variant}: equal to the plain version and to the per-thread "
+        f"kernel bit for bit, max_abs_err={pb_main_err}")
+    plant_launcher = plant_block.plant_tick_block_cuda
+
+    def plant_times(args):
+        """CUDA-graph replay of the staged kernel, the per-thread kernel,
+        the same launch with an empty body, and the plain version."""
+        return dict(
+            ms=graph_ms(lambda: ops.plant_tick_block(*args, n_ticks=T),
+                        iters=20),
+            per_thread_ms=graph_ms(lambda: plant_launcher(
+                *args, n_ticks=T, variant="per_thread"), iters=20),
+            floor_ms=graph_ms(lambda: plant_block.empty_launch_cuda(
+                *args, n_ticks=T), iters=20),
+            plain_ms=graph_ms(lambda: ref.plant_block_ref(*args, n_ticks=T),
+                              iters=3))
+    pb_times = plant_times(pb)
+    # what each tick adds at 1024 lanes, where the launch is most of it
+    pb_by_ticks = {n: graph_ms(lambda: ops.plant_tick_block(*pb, n_ticks=n),
+                               iters=20) for n in (1, 7, 14, 29)}
     pb_host_ms, _ = cuda_ms(lambda: ops.plant_tick_block(*pb, n_ticks=T),
                             iters=20)
     pb_bound, pb_by = bound_ms(plant_bytes(Bu, cfg.startup_sec, T),
                                Bu * T * PLANT_OPS_PER_TICK)
     big = plant_inputs(np.random.default_rng(2), B, S, dev)
-    big_ms = graph_ms(lambda: ops.plant_tick_block(*big, n_ticks=T),
-                      iters=20)
-    big_plain_ms = graph_ms(lambda: ref.plant_block_ref(*big, n_ticks=T),
-                            iters=3)
+    big_err, big_variant = plant_equal(big, T, f"B={B} T={T}")
+    plant_err = max(plant_err, big_err)
+    big_times = plant_times(big)
     big_bound, big_by = bound_ms(plant_bytes(B, S, T),
                                  B * T * PLANT_OPS_PER_TICK)
     log(f"[timing] episode_block {w_chunk}x{M}: {ep_ms} ms, plain "
         f"{ep_plain_ms} ms, bound {ep_bound} ms ({ep_by})")
-    log(f"[timing] plant_block B={Bu} S={S} T={T}: {pb_ms} ms "
-        f"(eager back-to-back calls: {pb_host_ms} ms each), plain "
-        f"{pb_plain_ms} ms, bound {pb_bound} ms ({pb_by})")
-    log(f"[timing] plant_block B={B} S={S} T={T}: {big_ms} ms, plain "
-        f"{big_plain_ms} ms, bound {big_bound} ms ({big_by})")
+    log(f"[timing] plant_block B={Bu} S={S} T={T} (CUDA-graph replay), "
+        f"kernel {pb_variant}: {pb_times['ms']} ms (eager back-to-back "
+        f"calls: {pb_host_ms} ms each), the per-thread kernel "
+        f"{pb_times['per_thread_ms']} ms, the same launch with an empty "
+        f"body {pb_times['floor_ms']} ms, plain {pb_times['plain_ms']} ms, "
+        f"bound {pb_bound} ms ({pb_by})")
+    log(f"[timing] plant_block B={Bu} S={S} (CUDA-graph replay) at "
+        f"n_ticks 1/7/14/29: {list(pb_by_ticks.values())} ms")
+    log(f"[timing] plant_block B={B} S={S} T={T} (CUDA-graph replay), "
+        f"kernel {big_variant}: {big_times['ms']} ms, the per-thread "
+        f"kernel {big_times['per_thread_ms']} ms, the same launch with an "
+        f"empty body {big_times['floor_ms']} ms, plain "
+        f"{big_times['plain_ms']} ms, bound {big_bound} ms ({big_by})")
 
     # ---- 7. where the fleet run's device time goes
     profile_row(main_path, "HPA fleet episode + metrics + REI")
@@ -886,20 +935,38 @@ def main() -> int:
         del x, wf_k, wf_p, fx_p
     feats = ops.extract_features_fused(wins)
     cls = seeded_classifier(feats.cpu().numpy(), dev)
-    lg_k = ops.gbdt_logits(cls.params, feats)
-    lg_p = launch_free(lambda: ref.gbdt_logits_ref(cls.params, feats),
-                       "gbdt_tables")
-    if not torch.equal(lg_k.argmax(-1), lg_p.argmax(-1)):
-        raise RuntimeError("gbdt_tables: argmax differs from the plain "
-                           "version")
-    ulp4 = 4 * float(np.spacing(np.float32(lg_p.abs().max().item())))
-    gb_err = float((lg_k - lg_p).abs().max())
-    if gb_err > ulp4:
-        raise RuntimeError(f"gbdt_tables: logits differ by {gb_err} > "
-                           f"4 ulp ({ulp4})")
-    log(f"[gbdt_tables] {N} x 38, 240 trees of depth 4 match the plain "
-        f"version (argmax exact), max_abs_err={gb_err}")
-    del lg_k, lg_p
+    gb_launcher = gbdt_tables.gbdt_logits_cuda
+    gb_err = 0.0
+    # the paper's ensemble (tables in shared memory), then one of depth 6
+    # whose tables exceed the shared-memory budget
+    for label, params in (("240 trees of depth 4", cls.params),
+                          ("240 trees of depth 6", seeded_classifier(
+                              feats.cpu().numpy(), dev, depth=6).params)):
+        lg_k = ops.gbdt_logits(params, feats)
+        gb_var = gb_launcher.last_variant
+        lg_p = launch_free(lambda: ref.gbdt_logits_ref(params, feats),
+                           "gbdt_tables")
+        if not torch.equal(lg_k.argmax(-1), lg_p.argmax(-1)):
+            raise RuntimeError("gbdt_tables: argmax differs from the plain "
+                               "version")
+        ulp4 = 4 * float(np.spacing(np.float32(lg_p.abs().max().item())))
+        err = float((lg_k - lg_p).abs().max())
+        if err > ulp4:
+            raise RuntimeError(f"gbdt_tables: logits differ by {err} > "
+                               f"4 ulp ({ulp4})")
+        lg_g = gb_launcher(params, feats, variant="generic")
+        if not (torch.equal(lg_k, lg_p) and torch.equal(lg_k, lg_g)):
+            raise RuntimeError(f"gbdt_tables {gb_var}, {label}: logits "
+                               "differ from the plain version's or the "
+                               "generic kernel's bits")
+        gb_err = max(gb_err, err)
+        log(f"[gbdt_tables] {N} x 38, {label}, kernel {gb_var}: equal to "
+            f"the plain version and to the generic kernel bit for bit "
+            f"(argmax exact, within 4 ulp), max_abs_err={err}")
+        del lg_k, lg_p, lg_g
+    if gb_launcher.last_variant != "generic":
+        raise RuntimeError("the depth-6 ensemble did not take the generic "
+                           "gbdt_tables kernel")
 
     def classify_path():
         feats = ops.extract_features_fused(wins)
@@ -922,8 +989,16 @@ def main() -> int:
         raise RuntimeError("classification path: bad archetype or "
                            "confidence")
     hist = torch.bincount(arch.long(), minlength=4).tolist()
+    walls = []
+    for _ in range(20):       # one run's wall is mostly host noise
+        t0 = time.perf_counter()
+        classify_path()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    classify_med = float(np.median(walls))
     log(f"[classify] features -> logits -> calibrated archetype for {N} "
-        f"windows: {classify_s} s ({N / classify_s} windows/s), "
+        f"windows: {classify_s} s, the median of 20 more runs "
+        f"{classify_med} s ({N / classify_med} windows/s), "
         f"archetype histogram {hist}, mean confidence "
         f"{float(conf.mean())}, launches {classify_counts}")
     wf28_ms = cuda_ms(lambda: ops.window_features(wins), iters=10)[0]
@@ -943,6 +1018,10 @@ def main() -> int:
         4.0 * N * (60 + 38) + twiddle_bytes,
         float(N) * (stat_feature_ops(60) + freq_feature_ops(60)))
     gb_ms = cuda_ms(lambda: ops.gbdt_logits(cls.params, feats), iters=10)[0]
+    gb_variant = gb_launcher.last_variant
+    gb_generic_ms = cuda_ms(lambda: gb_launcher(cls.params, feats,
+                                                variant="generic"),
+                            iters=10)[0]
     gb_plain_ms = cuda_ms(
         lambda: ref.gbdt_logits_ref(cls.params, feats), iters=2)[0]
     n_edges = cls.params.bin_edges.shape[1]
@@ -957,8 +1036,9 @@ def main() -> int:
         f"frequency features' FFT alone: {rfft_ms} ms")
     log(f"[timing] window_features {N} x 60, 28 features: {wf28_ms} ms, "
         f"bound {wf28_bound} ms ({wf28_by})")
-    log(f"[timing] gbdt_tables {N} x 38: {gb_ms} ms, plain {gb_plain_ms} "
-        f"ms, bound {gb_bound} ms ({gb_by})")
+    log(f"[timing] gbdt_tables {N} x 38, kernel {gb_variant}: {gb_ms} ms, "
+        f"the generic kernel {gb_generic_ms} ms, plain {gb_plain_ms} ms, "
+        f"bound {gb_bound} ms ({gb_by})")
     del feats, centred, arch, conf
 
     # ---- 9. the AAPA episode kernel against its plain version
@@ -1243,6 +1323,14 @@ def main() -> int:
     for entry, u in sorted(usage.items()):
         log(f"[resources] REG {u['reg']:3d} STACK {u['stack']:5d} SHARED "
             f"{u['shared']:6d} LOCAL {u['local']:5d}  {entry[:110]}")
+    gb_entries = {e: u for e, u in usage.items()
+                  if "gbdt_shared_kernel" in e}
+    if len(gb_entries) != 2 or any(u["stack"] or u["local"]
+                                   for u in gb_entries.values()):
+        raise RuntimeError(f"the shared-memory gbdt_tables kernels (the "
+                           f"paper's depth compiled in, and any depth) are "
+                           f"not two entries without stack or local "
+                           f"memory: {gb_entries}")
     w60_entries = {e: u for e, u in usage.items()
                    if "window_features_kernel<(bool)1" in e}
     if len(w60_entries) != 2 or any(u["stack"] or u["local"]
@@ -1375,8 +1463,16 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/plant_block.cu",
              replaces="src/repro/kernels/plant_block.py:96",
              launches=unfused_counts["plant_block"], max_abs_err=plant_err,
-             ms=pb_ms, plain_ms=pb_plain_ms, bound_ms=pb_bound,
-             bound_by=pb_by, library_ms=None),
+             ms=pb_times["ms"], variant=pb_variant,
+             per_thread_ms=pb_times["per_thread_ms"],
+             floor_ms=pb_times["floor_ms"], plain_ms=pb_times["plain_ms"],
+             bound_ms=pb_bound, bound_by=pb_by, library_ms=None,
+             fleet_width=dict(lanes=B, ms=big_times["ms"],
+                              variant=big_variant,
+                              per_thread_ms=big_times["per_thread_ms"],
+                              floor_ms=big_times["floor_ms"],
+                              plain_ms=big_times["plain_ms"],
+                              bound_ms=big_bound)),
         dict(name="episode_block", policy="hpa", route="cuda",
              source="src/repro_torch/kernels/csrc/episode_block.cu",
              replaces="src/repro/kernels/episode_block.py:210",
@@ -1408,8 +1504,9 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/gbdt_tables.cu",
              replaces="src/repro/kernels/gbdt_tables.py:53",
              launches=classify_counts["gbdt_tables"], max_abs_err=gb_err,
-             ms=gb_ms, plain_ms=gb_plain_ms, bound_ms=gb_bound,
-             bound_by=gb_by, library_ms=None),
+             ms=gb_ms, variant=gb_variant, generic_ms=gb_generic_ms,
+             plain_ms=gb_plain_ms, bound_ms=gb_bound, bound_by=gb_by,
+             library_ms=None),
         dict(name="holt_winters", route="cuda",
              source="src/repro_torch/kernels/csrc/holt_winters.cu",
              replaces="src/repro/kernels/holt_winters.py:55",

@@ -100,12 +100,15 @@ repro_torch::PlantCfg plant_cfg(double rps, double service, double slo,
 
 // inputs: ready, queue, wait_sum, util_ema, cooldown, pipe_sum, arrivals
 // [B] and pipeline [B, S]; outputs: the same six state arrays [B],
-// pipeline_out [B, S] and ticks [7, T, B]
+// pipeline_out [B, S] and ticks [7, T, B]. variant: repro_torch::
+// PlantVariant; lanes per block (32, 64 or 128; 128 for the per-thread
+// kernel) and the ticks whose popped slots a block stages at once.
 void plant_block(std::vector<torch::Tensor> state, torch::Tensor pipeline,
                  std::vector<torch::Tensor> state_out,
                  torch::Tensor pipeline_out, torch::Tensor ticks,
                  double rps, double service, double slo, double cap,
-                 double inv_tau) {
+                 double inv_tau, int64_t variant, int64_t lanes,
+                 int64_t chunk) {
   REQUIRE(state.size() == 7 && state_out.size() == 6,
           "plant_block takes 7 state inputs and 6 state outputs");
   REQUIRE(pipeline.dim() == 2 && ticks.dim() == 3,
@@ -118,6 +121,18 @@ void plant_block(std::vector<torch::Tensor> state, torch::Tensor pipeline,
   check(pipeline, "pipeline", {B, S});
   check(pipeline_out, "pipeline_out", {B, S});
   check(ticks, "ticks", {7, T, B});
+  REQUIRE(variant >= repro_torch::kPlantStaged &&
+              variant <= repro_torch::kPlantEmpty,
+          "plant_block has no variant ", variant);
+  REQUIRE(lanes == 32 || lanes == 64 || lanes == 128,
+          "plant_block runs 32, 64 or 128 lanes a block, got ", lanes);
+  REQUIRE(variant != repro_torch::kPlantPerThread || lanes == 128,
+          "the per-thread plant_block kernel runs 128 lanes a block");
+  REQUIRE(chunk >= 1 && chunk <= std::min(S, T) &&
+              lanes * (chunk | 1) <= repro_torch::kPlantPopFloats,
+          "plant_block stages 1 to min(S, T) ticks a chunk, at most ",
+          repro_torch::kPlantPopFloats, " floats a block; got ", chunk,
+          " ticks of ", lanes, " lanes");
   const c10::cuda::CUDAGuard guard(pipeline.device());
   repro_torch::plant_block_launch(
       in(state[0]), in(pipeline), in(state[1]), in(state[2]), in(state[3]),
@@ -125,6 +140,8 @@ void plant_block(std::vector<torch::Tensor> state, torch::Tensor pipeline,
       out(pipeline_out), out(state_out[1]), out(state_out[2]),
       out(state_out[3]), out(state_out[4]), out(state_out[5]), out(ticks),
       static_cast<int>(B), static_cast<int>(S), static_cast<int>(T),
+      static_cast<repro_torch::PlantVariant>(variant),
+      static_cast<int>(lanes), static_cast<int>(chunk),
       plant_cfg(rps, service, slo, cap, inv_tau),
       at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
@@ -236,19 +253,25 @@ void window_features(torch::Tensor windows, torch::Tensor out_,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// X [N, F] -> out [N, K]
+// X [N, F] -> out [N, K]; shared: the node tables in shared memory (up to
+// kGBDTSharedTableMax bytes), else the per-thread kernel
 void gbdt_logits(torch::Tensor X, torch::Tensor out_, torch::Tensor edges,
                  torch::Tensor feat, torch::Tensor thresh, torch::Tensor leaf,
-                 torch::Tensor base) {
+                 torch::Tensor base, bool shared) {
   const repro_torch::GBDTTables g = gbdt_tables(edges, feat, thresh, leaf,
                                                 base);
   REQUIRE(X.dim() == 2 && X.size(0) > 0, "X must be [N, F], N >= 1");
   const int64_t N = X.size(0);
   check(X, "X", {N, g.n_features});
   check(out_, "out", {N, g.n_classes});
+  const size_t table_bytes =
+      repro_torch::gbdt_shared_table_bytes(g.n_trees, g.depth);
+  REQUIRE(!shared || table_bytes <= repro_torch::kGBDTSharedTableMax,
+          "gbdt_tables keeps node tables in shared memory only up to ",
+          repro_torch::kGBDTSharedTableMax, " bytes, got ", table_bytes);
   const c10::cuda::CUDAGuard guard(X.device());
   repro_torch::gbdt_tables_launch(in(X), out(out_), static_cast<int>(N), g,
-                                  at::cuda::getCurrentCUDAStream());
+                                  shared, at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

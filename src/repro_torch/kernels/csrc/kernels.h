@@ -5,6 +5,8 @@
 
 #include <cuda_runtime_api.h>
 
+#include <cstddef>
+
 namespace repro_torch {
 
 // SimConfig's plant constants; inv_tau is the f32 reciprocal of
@@ -34,7 +36,13 @@ struct HPAHyper {
 };
 
 // Outputs: 7 state arrays [B], pipeline_out [B, S] and ticks [7, T, B]
-// (served, violated, cold, total, resp, util, ready).
+// (served, violated, cold, total, resp, util, ready). kPlantStaged:
+// blocks of `lanes` (32, 64 or 128) lanes stage the popped slots `chunk`
+// ticks at a time, lanes * (chunk | 1) <= kPlantPopFloats; kPlantEmpty:
+// the same launch with an empty body (the launch's own time);
+// kPlantPerThread: the per-thread kernel it replaced, 128 lanes a block.
+constexpr int kPlantPopFloats = 8192;
+enum PlantVariant { kPlantStaged = 0, kPlantPerThread = 1, kPlantEmpty = 2 };
 void plant_block_launch(const float* ready, const float* pipeline,
                         const float* queue, const float* wait_sum,
                         const float* util_ema, const float* cooldown,
@@ -43,7 +51,8 @@ void plant_block_launch(const float* ready, const float* pipeline,
                         float* queue_out, float* wait_sum_out,
                         float* util_ema_out, float* cooldown_out,
                         float* pipe_sum_out, float* ticks, int B, int S,
-                        int T, PlantCfg cfg, cudaStream_t stream);
+                        int T, PlantVariant variant, int lanes,
+                        int chunk, PlantCfg cfg, cudaStream_t stream);
 
 // A GBDT ensemble's flattened node tables (core/gbdt.py::NodeTables) on
 // the card; tree t = round * n_classes + class.
@@ -245,8 +254,12 @@ void window_features_launch(const float* windows, float* out, int N, int W,
                             const FreqTables* freq, bool w60,
                             cudaStream_t stream);
 
-// X [N, n_features] -> logits [N, n_classes]
+// X [N, n_features] -> logits [N, n_classes]. shared: the node tables in
+// shared memory, for ensembles whose gbdt_shared_table_bytes are at most
+// kGBDTSharedTableMax; otherwise the per-thread kernel of gbdt.cuh.
+constexpr size_t kGBDTSharedTableMax = 104 * 1024;
+size_t gbdt_shared_table_bytes(int n_trees, int depth);
 void gbdt_tables_launch(const float* X, float* out, int N, GBDTTables g,
-                        cudaStream_t stream);
+                        bool shared, cudaStream_t stream);
 
 }  // namespace repro_torch

@@ -51,16 +51,32 @@ def _rates(seed, dev, w=257, m=12):
     return torch.as_tensor(rates, device=dev)
 
 
-@pytest.mark.parametrize("n_ticks", [14, 29, 3])
-def test_plant_block_kernel_matches_plain(cuda, n_ticks):
-    state = _plant_state(np.random.default_rng(n_ticks), 1003, 30, cuda)
-    before = plant_block.plant_tick_block_cuda.launches
-    got = plant_block.plant_tick_block_cuda(*state, n_ticks=n_ticks)
+@pytest.mark.parametrize("b,s,n_ticks,chunks", [
+    (1003, 30, 14, 1), (1003, 30, 29, 1), (1003, 30, 3, 1),
+    (1, 30, 14, 1), (31, 30, 14, 1), (33, 30, 14, 1), (1024, 30, 14, 1),
+    (257, 1, 14, 1), (257, 9, 14, 1), (257, 14, 14, 1), (257, 30, 1, 1),
+    (17_000, 100, 70, 2), (1003, 300, 260, 2)])
+def test_plant_block_kernel_matches_plain(cuda, b, s, n_ticks, chunks):
+    """Bit for bit with the plain version and with the per-thread kernel
+    it replaced: ragged blocks of 32, 64 and 128 lanes, S = 1, S < T,
+    S = T, S > T, T = 1, and popped slots staged in more than one chunk
+    (17,000 lanes take blocks of 128, 1,003 blocks of 32)."""
+    state = _plant_state(np.random.default_rng(b + s + n_ticks), b, s, cuda)
+    launcher = plant_block.plant_tick_block_cuda
+    before = launcher.launches
+    got = launcher(*state, n_ticks=n_ticks)
+    lanes = plant_block.choose_lanes(
+        b, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert launcher.last_variant == f"staged/{lanes} lanes/{chunks} chunks"
+    old = launcher(*state, n_ticks=n_ticks, variant="per_thread")
+    assert launcher.last_variant == "per_thread"
     want = ref.plant_block_ref(*state, n_ticks=n_ticks)
     torch.cuda.synchronize()
-    assert plant_block.plant_tick_block_cuda.launches == before + 1
-    for a, e in zip((*got[0], *got[1]), (*want[0], *want[1])):
+    assert launcher.launches == before + 2
+    for a, o, e in zip((*got[0], *got[1]), (*old[0], *old[1]),
+                       (*want[0], *want[1])):
         torch.testing.assert_close(a, e, **PLANT_TOL)
+        assert torch.equal(a, e) and torch.equal(a, o)
 
 
 @pytest.mark.parametrize("ci", [15, 7])
@@ -212,14 +228,83 @@ def test_window_features_w60_keeps_nan_windows_as_generic(cuda, freq):
                                equal_nan=True)
 
 
-def test_gbdt_tables_kernel_matches_plain(cuda):
-    cls = _classifier(cuda)
-    X = features.extract_features(_windows(cuda))
-    X[0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
-    got = gbdt_tables.gbdt_logits_cuda(cls.params, X)
-    want = ref.gbdt_logits_ref(cls.params, X)
+GBDT_CASES = {
+    # name: (features, edges, rounds, classes, depth, rows)
+    "paper": (38, 63, 60, 4, 4, 2002),
+    "thresholds": (38, 63, 60, 4, 4, 1001),
+    "dup_edges": (38, 63, 60, 4, 4, 1001),
+    "special_features": (38, 63, 60, 4, 4, 1001),
+    "depth1": (38, 63, 60, 4, 1, 1001),
+    "depth6": (38, 63, 20, 4, 6, 1001),
+    "k1": (38, 63, 60, 1, 4, 1001),
+    "k16": (38, 63, 12, 16, 4, 1001),
+    "n1": (38, 63, 60, 4, 4, 1),
+    "ragged_n": (38, 63, 60, 4, 4, 385),
+    "generic": (38, 63, 60, 4, 6, 1001),
+}
+
+
+def _gbdt_case(dev, name):
+    """A seeded ensemble and rows for one GBDT_CASES entry: thresholds in
+    [0, E) (-1, 0, E - 1, E and E + 7 for "thresholds"), non-decreasing
+    edges (runs of equal edges for "dup_edges"), and rows with NaN, +-0,
+    +-inf and values equal to an edge (40% of them for
+    "special_features", 10% elsewhere). "paper" is the port's features of
+    AAPAset-like windows through `_classifier`."""
+    F, E, rounds, K, depth, N = GBDT_CASES[name]
+    if name == "paper":
+        cls = _classifier(dev)
+        X = features.extract_features(_windows(dev))
+        X[0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+        return cls.params, X
+    rng = np.random.default_rng(sorted(GBDT_CASES).index(name))
+    edges = gbdt.compute_bin_edges(rng.normal(size=(2000, F)), E + 1)
+    if name == "dup_edges":
+        edges[:, 10:20] = edges[:, 10:11]
+        edges[:, 40:] = edges[:, -1:]
+    n_int = 2 ** depth - 1
+    thresh = (rng.choice(np.array([-1, 0, E - 1, E, E + 7]),
+                         (rounds, K, n_int)) if name == "thresholds"
+              else rng.integers(0, E, (rounds, K, n_int)))
+    params = gbdt.from_arrays(
+        rng.integers(0, F, (rounds, K, n_int)), thresh,
+        rng.normal(0.0, 0.2, (rounds, K, n_int + 1)), edges,
+        rng.normal(0.0, 1.0, K), device=dev)
+    X = rng.normal(size=(N, F)).astype(np.float32)
+    u = rng.random((N, F))
+    share = 0.2 if name == "special_features" else 0.05
+    special = np.float32([np.nan, 0.0, -0.0, np.inf, -np.inf])
+    X[u < share] = rng.choice(special, int((u < share).sum()))
+    at = (u >= share) & (u < 2 * share)
+    X[at] = edges[np.nonzero(at)[1], rng.integers(0, E, int(at.sum()))]
+    return params, torch.as_tensor(X, device=dev)
+
+
+@pytest.mark.parametrize("name", sorted(GBDT_CASES))
+def test_gbdt_tables_kernel_matches_plain(cuda, name):
+    """Bit for bit with the plain version in the variant the launcher
+    chooses, and in both variants where the tables fit shared memory:
+    thresholds past either end, equal edges, NaN / +-0 / +-inf features
+    and features equal to an edge, depth 1 and 6, K = 1 and 16, N = 1 and
+    N not a multiple of the 384-row tile, and an ensemble too large for
+    shared memory ("generic", 240 trees of depth 6)."""
+    params, X = _gbdt_case(cuda, name)
+    nbytes = gbdt_tables.shared_table_bytes(params.tables.feat.shape[0],
+                                            params.depth)
+    chosen = gbdt_tables.choose_variant(nbytes)
+    assert (chosen == "generic") == (name == "generic")
+    launcher = gbdt_tables.gbdt_logits_cuda
+    before = launcher.launches
+    got = launcher(params, X)
+    assert launcher.last_variant == chosen
+    want = ref.gbdt_logits_ref(params, X)
+    variants = ["shared", "generic"] if chosen == "shared" else ["generic"]
+    others = [launcher(params, X, variant=v) for v in variants]
     torch.cuda.synchronize()
+    assert launcher.launches == before + 1 + len(variants)
     assert torch.equal(got, want)
+    for other in others:
+        assert torch.equal(other, want)
 
 
 @pytest.mark.parametrize("ci,stride,fc_conf", [(15, 10, False),

@@ -130,8 +130,12 @@ def test_kernel_wrappers_reject_cpu_tensors():
     plain version itself."""
     state = [torch.as_tensor(x) for x in
              _plant_state(np.random.default_rng(3), 2, 30)]
+    for variant in ("staged", "per_thread"):
+        with pytest.raises(ValueError, match="CUDA"):
+            plant_block.plant_tick_block_cuda(*state, n_ticks=3,
+                                              variant=variant)
     with pytest.raises(ValueError, match="CUDA"):
-        plant_block.plant_tick_block_cuda(*state, n_ticks=3)
+        plant_block.empty_launch_cuda(*state, n_ticks=3)
     cfg = t_cluster.SimConfig()
     with pytest.raises(ValueError, match="CUDA"):
         episode_block.episode_block_cuda(torch.ones(2, 3),
@@ -148,9 +152,10 @@ def test_kernel_wrappers_reject_cpu_tensors():
             with pytest.raises(ValueError, match="CUDA"):
                 window_features.window_features_cuda(
                     torch.ones(2, 60), freq=freq, variant=variant)
-    with pytest.raises(ValueError, match="CUDA"):
-        gbdt_tables.gbdt_logits_cuda(_tiny_port_gbdt()[1],
-                                     torch.ones(2, 38))
+    for variant in (None, "shared", "generic"):
+        with pytest.raises(ValueError, match="CUDA"):
+            gbdt_tables.gbdt_logits_cuda(_tiny_port_gbdt()[1],
+                                         torch.ones(2, 38), variant=variant)
 
 
 _KERNELS_H = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
@@ -166,6 +171,60 @@ def test_holt_winters_variant_by_period(period, want):
     assert f"kHWSharedPeriodMax = {holt_winters.SHARED_PERIOD_MAX};" in (
         _KERNELS_H)
     assert holt_winters.choose_variant(period) == want
+
+
+@pytest.mark.parametrize("n_trees,depth,want", [
+    (240, 4, "shared"), (1, 12, "shared"), (16_000, 1, "generic"),
+    (240, 6, "generic"), (1024, 6, "generic")])
+def test_gbdt_tables_variant_by_table_bytes(n_trees, depth, want):
+    """The node tables sit in shared memory up to the limit the CUDA
+    source compiles (kGBDTSharedTableMax), 8 B a node and 4 a leaf; the
+    paper's 240 trees of depth 4 take 44,160 B of it."""
+    assert f"kGBDTSharedTableMax = {gbdt_tables.SHARED_TABLE_MAX // 1024}" \
+        " * 1024;" in _KERNELS_H
+    assert gbdt_tables.shared_table_bytes(240, 4) == 44_160
+    assert gbdt_tables.choose_variant(
+        gbdt_tables.shared_table_bytes(n_trees, depth)) == want
+
+
+def test_gbdt_tables_variant_at_the_limit_and_refusals():
+    limit = gbdt_tables.SHARED_TABLE_MAX
+    assert gbdt_tables.choose_variant(limit) == "shared"
+    assert gbdt_tables.choose_variant(limit + 1) == "generic"
+    with pytest.raises(ValueError, match="table_bytes"):
+        gbdt_tables.choose_variant(0)
+
+
+@pytest.mark.parametrize("B,want", [
+    (1, 32), (1024, 32), (131 * 64, 32), (131 * 64 + 1, 64),
+    (131 * 128, 64), (131 * 128 + 1, 128), (100_003, 128)])
+def test_plant_block_lanes_by_B(B, want):
+    """128 lanes a block wherever every one of the card's 132 SMs still
+    gets a block, then 64, else 32: 1024 lanes take 32 blocks, not 8."""
+    assert plant_block.choose_lanes(B, 132) == want
+    assert -(-B // want) >= min(132, -(-B // 32))
+
+
+@pytest.mark.parametrize("lanes,S,n_ticks,want", [
+    (128, 30, 14, 14), (32, 30, 14, 14), (64, 1, 5, 1), (128, 100, 70, 63),
+    (64, 200, 200, 127), (32, 300, 260, 255), (32, 255, 300, 255)])
+def test_plant_block_pop_chunk(lanes, S, n_ticks, want):
+    """Every popped slot at once where lanes x (chunk | 1) floats fit the
+    staging buffer the CUDA source sizes (kPlantPopFloats), else the most
+    ticks that fit."""
+    assert f"kPlantPopFloats = {plant_block.POP_FLOATS};" in _KERNELS_H
+    chunk = plant_block.pop_chunk(lanes, S, n_ticks)
+    assert chunk == want
+    assert lanes * (chunk | 1) <= plant_block.POP_FLOATS
+
+
+def test_plant_block_launch_shape_refusals():
+    with pytest.raises(ValueError, match="n_sm"):
+        plant_block.choose_lanes(0, 132)
+    with pytest.raises(ValueError, match="lanes"):
+        plant_block.pop_chunk(48, 30, 14)
+    with pytest.raises(ValueError, match="n_ticks"):
+        plant_block.pop_chunk(32, 30, 0)
 
 
 def test_holt_winters_variant_refuses_bad_period_and_copy_width():

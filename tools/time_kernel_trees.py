@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the ``holt_winters`` and ``window_features`` kernels of several
-source trees in turns on one card.
+"""Time the ``holt_winters``, ``window_features``, ``gbdt_tables`` and
+``plant_block`` kernels of several source trees in turns on one card.
 
     python3 tools/time_kernel_trees.py TREE [TREE ...] [--rounds 2]
 
@@ -18,7 +18,17 @@ own ``build/`` and, with CUDA events (one warm-up call, then the mean of
 - ``kernels.ops.holt_winters`` at period 60 over a 100,000 x 2,880 split
   of seeded gamma rates made on the card (the calibration split's shape);
 - ``forecast.conformal.calibrate`` of Holt-Winters at alpha 0.9 over that
-  split (host clock, ending in a synchronize, after a warm-up call).
+  split (host clock, ending in a synchronize, after a warm-up call);
+- ``kernels.ops.gbdt_logits`` of the tree's ``chip_smoke.
+  seeded_classifier`` (60 rounds x 4 classes, depth 4) over those
+  windows' 38 features, and the host's time to enqueue one such launch
+  (the mean of 100 calls without a synchronize);
+- the classification path, features -> logits -> calibrated archetype
+  with that classifier (chip_smoke.py phase 8's path): the median of 20
+  host-clock runs, each ending in a synchronize, after a warm-up run;
+- ``kernels.ops.plant_tick_block`` (the default ci's 14 ticks, S=30) on
+  ``chip_smoke.plant_inputs`` at 1024 and 100,003 lanes, 20 launches
+  replayed from one CUDA graph (chip_smoke.py phase 6's timing).
 
 Every run prints a fingerprint of each output (sums of its bit
 patterns), and the script fails if two trees' fingerprints differ: the
@@ -37,7 +47,9 @@ import sys
 from pathlib import Path
 
 MEASURES = ("window_features_38_ms", "window_features_28_ms",
-            "holt_winters_ms", "calibrate_s")
+            "holt_winters_ms", "calibrate_s", "gbdt_tables_ms",
+            "gbdt_tables_enqueue_us", "classify_path_ms",
+            "plant_block_1024_ms", "plant_block_100003_ms")
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
@@ -65,9 +77,12 @@ def fingerprint(t) -> int:
 def child(tree: Path) -> None:
     """Time one tree's kernels; prints one JSON line."""
     sys.path.insert(0, str(tree.resolve() / "src"))
+    sys.path.insert(0, str(tree.resolve()))
     import time
 
+    import numpy as np
     import torch
+    from chip_smoke import graph_ms, plant_inputs, seeded_classifier
     from repro_torch.data import azure_synth, windows
     from repro_torch.forecast import conformal
     from repro_torch.forecast import registry as forecast_registry
@@ -92,10 +107,36 @@ def child(tree: Path) -> None:
     band = conformal.calibrate(fcst, split, alpha=0.9)
     torch.cuda.synchronize()
     row["calibrate_s"] = time.perf_counter() - t0
-    row["fingerprint"] = [fingerprint(ops.extract_features_fused(wins)),
+    feats = ops.extract_features_fused(wins)
+    cls = seeded_classifier(feats.cpu().numpy(), dev)
+    params = cls.params
+    row["gbdt_tables_ms"] = cuda_ms(lambda: ops.gbdt_logits(params, feats))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        ops.gbdt_logits(params, feats)
+    row["gbdt_tables_enqueue_us"] = (time.perf_counter() - t0) * 1e4
+    walls = []
+    for _ in range(21):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cls(ops.extract_features_fused(wins))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    row["classify_path_ms"] = float(np.median(walls[1:]))
+    plants = {}
+    for lanes in (1024, 100_003):
+        args = plant_inputs(np.random.default_rng(lanes), lanes, 30, dev)
+        row[f"plant_block_{lanes}_ms"] = graph_ms(
+            lambda: ops.plant_tick_block(*args, n_ticks=14), iters=20)
+        state, ticks = ops.plant_tick_block(*args, n_ticks=14)
+        plants[lanes] = sum(fingerprint(t) for t in (*state, *ticks))
+    row["fingerprint"] = [fingerprint(feats),
                           fingerprint(ops.window_features(wins)),
                           fingerprint(ops.holt_winters(split)),
-                          float(band.q), float(band.scale)]
+                          float(band.q), float(band.scale),
+                          fingerprint(ops.gbdt_logits(params, feats)),
+                          plants[1024], plants[100_003]]
     print(json.dumps({"tree": str(tree), **row}), flush=True)
 
 
