@@ -62,8 +62,9 @@ and prints no result line):
    the episode tolerance and the archetype of every lane after every
    minute exactly.
 10. The AAPA fleet: the same 100,000 x 1440 ``burst_storm`` rates as the
-    HPA row through ``make_simulator(w_chunk=25_000)``, pooled metrics
-    and REI, timed, then once more under ``torch.profiler``.
+    HPA row through ``make_simulator(w_chunk=25_000)``, classified by
+    phase 22's trained classifier, pooled metrics and REI, timed, then
+    once more under ``torch.profiler``.
 11. ``holt_winters`` against its plain version (``hw_smooth``), bit for
     bit (gate beside it: the reference's rtol 1e-4 / atol 1e-3), each
     run's kernel variant logged: 100,003 x 2,880 at period 60 (the season
@@ -85,7 +86,8 @@ and prints no result line):
     chunk of the fleet at ci 15 and ``archetype_mix`` 1024 x 120 at ci 7;
     archetypes exact for aapa and hybrid.
 14. A 100,000 x 1440 Table IV row (episode + pooled metrics + REI) for
-    each of those five policies, with the episode kernel's time per
+    each of those five policies (AAPA and hybrid with phase 22's trained
+    classifier), with the episode kernel's time per
     25,000-lane launch against its bound, split into the pre-pass
     (``policy_signals``) and the plant pass where the policy has one.
 15. The pre-pass kernels against their plain version
@@ -122,14 +124,49 @@ and prints no result line):
     card against the port's plain matrix on the CPU: rtol 2e-6 (the
     reference's tolerance for reordered pooling), counts exact.
 
-Phases 4, 5, 8, 10, 12, 14 and 19 each reset the kernels' launch counts
-just before they run and read them just after; a path whose kernel was
-never launched fails (the predictive, AAPA and hybrid rows: the pre-pass
-and the plant pass; the matrices: every policy's minute walk under every
-forecaster). Kernel-vs-plain comparisons and timing launches are not
-counted. The plain runs of phases 8, 9, 11, 13, 17, 18 and 20 are checked
-to launch no kernel (the plain AAPA and hybrid episodes classify through
-the plain GBDT).
+21. AAPAset on the card (run between phases 9 and 10):
+    ``aapaset.build.build(registry.get("aapaset_300k",
+    feature_path="kernel"))`` — 301,650 windows of 150 functions x 14
+    days through the ``window_features`` kernel and the labeling
+    functions — timed whole, then its host part (traces, windows) and
+    device part (features, LFs) alone; its label distribution and LF
+    coverage. Gates: the ``feature_path="ref"`` path (the plain features
+    on the card) gives the same features, votes, labels and confidence
+    bit for bit; ``manifest.save`` then ``load`` under a temporary root
+    round-trips every array exactly.
+22. The classifier trained on the card (run after 21):
+    ``core.pipeline.train_from_loader`` on that artifact at the paper's
+    ``GBDTConfig()`` (60 rounds x 4 classes, depth 4, 64 bins) and beta
+    calibration: fit and training walls, train/val/test accuracy, the
+    calibrated test ECE. Gates: a second fit of the first 4 rounds, under
+    ``torch.profiler`` (device time of the histograms, the split search
+    and the rest), gives the same trees bit for bit; the trained
+    classifier's ``gbdt_tables`` logits on all 301,650 windows equal its
+    plain version's as in phase 8. The AAPA and hybrid Table IV rows of
+    phases 10 and 14 classify with this trained classifier; phases 8-9,
+    13, 15, 17 and 19 keep the seeded classifier for their kernel gates.
+23. Fleet runs through ``evals.fleet.run_fleet`` (after 20):
+    ``burst_storm`` 100,000 x 1440 in chunks of 25,000 under HPA and
+    AAPA (the trained classifier), one dispatch (after a warm-up run) and
+    streamed; gate: equal at the reference's rtol 2e-6 (quantiles at the
+    histogram's half-bin bound). HPA streamed at 100,000 and at
+    1,000,000 x 1440 (40 chunks); gate: the 10^6-lane run's peak device
+    memory within 5% of the 10^5-lane run's. A stream fed by
+    ``AAPAsetLoader.rate_chunks`` of phase 21's artifact, 100,000 x 1440
+    under HPA and AAPA. Each prints wall, lane-minutes/s, dispatches,
+    peak device memory, host generation time and share, and the pooled
+    metrics per policy.
+
+Phases 4, 5, 8, 10, 12, 14, 19, 21, 22 and each run of 23 reset the
+kernels' launch counts just before they run and read them just after; a
+path whose kernel was never launched fails (the predictive, AAPA and
+hybrid rows: the pre-pass and the plant pass; the matrices: every
+policy's minute walk under every forecaster; the AAPAset build:
+``window_features``; training: ``gbdt_tables``; every fleet run:
+``episode_block``, and with AAPA ``policy_signals``). Kernel-vs-plain
+comparisons and timing launches are not counted. The plain runs of
+phases 8, 9, 11, 13, 17, 18, 20 and 21 are checked to launch no kernel
+(the plain AAPA and hybrid episodes classify through the plain GBDT).
 
 Output: progress lines, then a JSON line of per-kernel numbers, then the
 ``nvidia-smi`` line, then the result line
@@ -197,6 +234,8 @@ PREPASS_SLOT_BYTES = 16
 # holt_winters: the forecast (2 adds) and hw_step (13) per series and step
 HW_OPS_PER_STEP = 15
 HW_TOL = dict(rtol=1e-4, atol=1e-3)
+# phase 23's fleets: 10^5 lanes (and a 10x stream) x a day, 4 chunks each
+FLEET_LANES, FLEET_CHUNK, FLEET_MINUTES = 100_000, 25_000, 1440
 # radf2/3/4/5 of the real FFT, counted from features.cuh::radix_pass:
 # (first loop per k, the even-ido loop per k, the inner loop per (k, i))
 FFT_PASS_OPS = {2: (2, 1, 10), 3: (6, 0, 28), 4: (6, 8, 34), 5: (20, 0, 72)}
@@ -361,6 +400,37 @@ def seeded_classifier(feats: np.ndarray, dev, seed: int = 0,
                                   rng.normal(0.0, 0.1, c.n_classes),
                                   device=dev)
     return Classify(params, cal)
+
+
+def gbdt_equal(params, feats, label: str) -> tuple[float, str]:
+    """``gbdt_tables`` on `feats` against its plain version (argmax exact,
+    logits within 4 ulp of the largest, then bit for bit) and against the
+    generic per-thread kernel (bit for bit); returns (the largest logit
+    difference, the kernel variant the ensemble took)."""
+    from repro_torch.kernels import gbdt_tables, ops, ref
+    launcher = gbdt_tables.gbdt_logits_cuda
+    lg_k = ops.gbdt_logits(params, feats)
+    variant = launcher.last_variant
+    lg_p = launch_free(lambda: ref.gbdt_logits_ref(params, feats),
+                       "gbdt_tables")
+    if not torch.equal(lg_k.argmax(-1), lg_p.argmax(-1)):
+        raise RuntimeError(f"gbdt_tables, {label}: argmax differs from the "
+                           "plain version")
+    ulp4 = 4 * float(np.spacing(np.float32(lg_p.abs().max().item())))
+    err = float((lg_k - lg_p).abs().max())
+    if err > ulp4:
+        raise RuntimeError(f"gbdt_tables, {label}: logits differ by {err} "
+                           f"> 4 ulp ({ulp4})")
+    lg_g = launcher(params, feats, variant="generic")
+    if not (torch.equal(lg_k, lg_p) and torch.equal(lg_k, lg_g)):
+        raise RuntimeError(f"gbdt_tables {variant}, {label}: logits differ "
+                           "from the plain version's or the generic "
+                           "kernel's bits")
+    log(f"[gbdt_tables] {feats.shape[0]} x {feats.shape[1]}, {label}, "
+        f"kernel {variant}: equal to the plain version and to the generic "
+        f"kernel bit for bit (argmax exact, within 4 ulp), "
+        f"max_abs_err={err}")
+    return err, variant
 
 
 def episode_ops(B: int, M: int, heads: int, downs: float, S: int,
@@ -714,6 +784,273 @@ def fleet_row(controller, cfg, rates, w_chunk: int, label: str):
     return counts, row, float(out.downs[:w_chunk].double().sum())
 
 
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(
+        np.ascontiguousarray(a).view(np.uint8),
+        np.ascontiguousarray(b).view(np.uint8))
+
+
+def aapaset_phase(dev):
+    """21. AAPAset built on the card; returns (the built dataset, a
+    loader over it, the build's launch counts)."""
+    import tempfile
+
+    from repro_torch.aapaset import build, loader, manifest, registry
+    from repro_torch.data import azure_synth, windows
+    from repro_torch.kernels import ops
+    cfg = registry.get("aapaset_300k", feature_path="kernel")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    built = build.build(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if counts["window_features"] == 0:
+        raise RuntimeError(f"the AAPAset build launched no window_features "
+                           f"kernel: {counts}")
+    n = len(built)
+    # its host part (traces, windows) and device part (features, LFs),
+    # each timed alone
+    t0 = time.perf_counter()
+    ds = windows.make_windows(
+        azure_synth.generate_traces(n_functions=cfg.n_functions,
+                                    n_days=cfg.n_days, seed=cfg.seed,
+                                    family=cfg.family),
+        window=cfg.window, stride=cfg.stride,
+        min_total_invocations=cfg.min_total_invocations)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build.featurize_windows(ds.windows, chunk=cfg.chunk, use_kernel=True)
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    if not same_bits(ds.windows, built.windows):
+        raise RuntimeError("AAPAset: the windows differ between two builds")
+    card = manifest.dataset_card(built)
+    log(f"[aapaset] {cfg.name} (feature_path kernel): {n} windows of "
+        f"{cfg.n_functions} functions x {cfg.n_days} days built in "
+        f"{build_s:.4f} s ({n / build_s:.6g} windows/s); alone: traces + "
+        f"windows (host) {host_s:.4f} s, features + LFs (device, "
+        f"{-(-n // cfg.chunk)} chunks) {device_s:.4f} s; launches {counts}")
+    log(f"[aapaset] labels: {card['n_labeled']} labeled, abstain rate "
+        f"{card['abstain_rate']}, class balance {card['class_balance']}, "
+        f"LF coverage {card['lf_coverage']}, conflict rate "
+        f"{card['lf_conflict_rate']}, mean agreement "
+        f"{card['mean_agreement']}, splits {card['split_sizes']}")
+    plain = launch_free(lambda: build.featurize_windows(
+        built.windows, chunk=cfg.chunk, use_kernel=False), "AAPAset ref path")
+    for name, a, b in zip(("features", "labels", "confidence", "votes"),
+                          (built.features, built.labels, built.confidence,
+                           built.votes), plain):
+        if not same_bits(a, b):
+            raise RuntimeError(f"AAPAset: {name} of the kernel path differ "
+                               "from the ref path's bits on the card")
+    with tempfile.TemporaryDirectory() as root:
+        man = manifest.save(built, cfg, root)
+        back = manifest.load(cfg, root, verify=True)
+    for name in (*manifest._SHARD_KEYS, "series", "series_pattern"):
+        if not same_bits(getattr(built, name), getattr(back, name)):
+            raise RuntimeError(f"AAPAset: {name} changed through save/load")
+    log(f"[aapaset] the ref path on the card gives the same features, "
+        f"votes, labels and confidence bit for bit; save -> load "
+        f"round-trips every array exactly ({len(man['shards'])} shards, "
+        f"{cfg.name}-{man['hash']})")
+    return built, loader.AAPAsetLoader(built, man, dev), counts
+
+
+def device_ms_by_range(run, names) -> dict:
+    """`run()` under torch.profiler: device ms launched inside each
+    ``record_function`` range of `names`, and in all ("total")."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    out = {n: sum(e.device_time_total for e in rows if e.key == n) / 1e3
+           for n in names}
+    out["total"] = sum(e.self_device_time_total for e in rows
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       ) / 1e3
+    return out
+
+
+def training_phase(data_loader, dev):
+    """22. The classifier trained on the card from the AAPAset artifact;
+    returns (its Classify, what was measured, training's launch counts)."""
+    from repro_torch.core import calibration, gbdt, pipeline
+    from repro_torch.kernels import ops
+    cfg = gbdt.GBDTConfig()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trained = pipeline.train_from_loader(data_loader, cfg)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if counts["gbdt_tables"] == 0:
+        raise RuntimeError(f"training launched no gbdt_tables kernel: "
+                           f"{counts}")
+    X, y, _ = data_loader.arrays("train")
+    X_test, y_test, _ = data_loader.arrays("test")
+    cls = trained.make_classify()
+    probs = calibration.calibrate(trained.cal, gbdt.softmax(
+        ops.gbdt_logits(trained.params, torch.as_tensor(X_test, device=dev))))
+    ece = calibration.expected_calibration_error(probs.cpu().numpy(),
+                                                 y_test)
+    if not all(np.isfinite([trained.train_acc, trained.val_acc,
+                            trained.test_acc, ece])):
+        raise RuntimeError("training: a non-finite accuracy or ECE")
+    log(f"[train] GBDT {cfg.n_rounds} rounds x {cfg.n_classes} classes, "
+        f"depth {cfg.depth}, {cfg.n_bins} bins on {len(y)} training rows: "
+        f"fit {trained.fit_seconds:.4f} s, fit + accuracies + calibration "
+        f"{train_s:.4f} s; accuracy train {trained.train_acc} val "
+        f"{trained.val_acc} test {trained.test_acc}; calibrated test ECE "
+        f"{ece}; launches {counts}")
+    # a second fit of the first 4 rounds; then one more under the profiler
+    first = gbdt.GBDTConfig(n_rounds=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = gbdt.fit(X, y, first)
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    for name in ("feat", "thresh", "leaf"):
+        if not torch.equal(getattr(again, name),
+                           getattr(trained.params, name)[:4]):
+            raise RuntimeError(f"GBDT fit on the card is not deterministic:"
+                               f" the first 4 rounds' {name} differ")
+    split = device_ms_by_range(lambda: gbdt.fit(X, y, first),
+                               ("gbdt.histograms", "gbdt.split_search"))
+    rest = split["total"] - split["gbdt.histograms"] \
+        - split["gbdt.split_search"]
+    log(f"[train] a second fit of the first 4 rounds ({refit_s:.4f} s) "
+        f"gives the same trees bit for bit; a third's device time under "
+        f"the profiler: histograms {split['gbdt.histograms']} ms, split "
+        f"search {split['gbdt.split_search']} ms, the rest {rest} ms "
+        f"(total {split['total']} ms)")
+    # one root-level histogram alone (CUDA events): the sorted segment sum
+    # beside index_add_'s float atomics on the same inputs
+    K, F, B = cfg.n_classes, X.shape[1], cfg.n_bins
+    xb = gbdt.bin_features(torch.as_tensor(X, device=dev),
+                           trained.params.bin_edges).long()
+    seg = ((torch.arange(K, device=dev) * F * B)[:, None, None]
+           + torch.arange(F, device=dev) * B + xb).reshape(-1)
+    gh = torch.randn(seg.shape[0], 2, device=dev)
+    hist_ms = cuda_ms(lambda: gbdt._segment_sum(gh, seg, K * F * B),
+                      iters=5)[0]
+    atomic_ms = cuda_ms(lambda: gh.new_zeros(K * F * B, 2).index_add_(
+        0, seg, gh), iters=5)[0]
+    log(f"[train] one root-level histogram ({seg.shape[0]} entries into "
+        f"{K * F * B} bins): sorted segment sum {hist_ms} ms, index_add_ "
+        f"with float atomics {atomic_ms} ms")
+    split.update(refit_s=refit_s, hist_ms=hist_ms, atomic_ms=atomic_ms)
+    feats = torch.as_tensor(data_loader.data.features, device=dev)
+    gbdt_equal(trained.params, feats, "the trained classifier")
+    return cls, dict(train_s=train_s, fit_s=trained.fit_seconds,
+                     test_acc=trained.test_acc, ece=ece, split=split), counts
+
+
+def fleet_close(a, b, rtol: float, what: str) -> None:
+    """The reference's fleet comparison (tests/test_fleet.py ``_close``):
+    every pooled metric at `rtol` (quantiles at the histogram's half-bin
+    bound) and atol 1e-3."""
+    from repro_torch.evals import metrics
+    q = 2.5 * metrics.quantile_rel_bound()
+    for field in a._fields:
+        tol = max(rtol, q) if field.startswith(("p95", "p99")) else rtol
+        np.testing.assert_allclose(getattr(a, field), getattr(b, field),
+                                   rtol=tol, atol=1e-3,
+                                   err_msg=f"{what}: {field}")
+
+
+def fleet_phase(cls, data_loader) -> dict:
+    """23. Fleet runs through ``evals.fleet.run_fleet``; returns each
+    run's meta and launch counts."""
+    import dataclasses
+
+    from repro_torch.evals import fleet
+    from repro_torch.kernels import ops, policy_signals
+    runs = {}
+
+    def run(label, sp, **kw):
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        res = fleet.run_fleet(sp, classify=cls, **kw)
+        counts = ops.launch_counts()
+        if counts["episode_block"] == 0 or (
+                any(p in policy_signals.POLICIES for p in sp.policies)
+                and counts["policy_signals"] == 0):
+            raise RuntimeError(f"fleet {label}: launches {counts}")
+        for name, v in (*res.pooled._asdict().items(),
+                        *res.rei._asdict().items()):
+            if not np.isfinite(v).all():
+                raise RuntimeError(f"fleet {label}: non-finite {name}")
+        m = res.meta
+        log(f"[fleet {label}] {'+'.join(sp.policies)}, {m['workloads']} x "
+            f"{m['minutes']} in chunks of {m['w_chunk']}: wall "
+            f"{m['wall_s']:.4f} s ({m['lane_minutes_per_sec']:.6g} "
+            f"lane-minutes/s), {m['dispatches']} dispatches, peak device "
+            f"memory {m['peak_device_bytes']} bytes ({live} live before "
+            f"the run), host generation "
+            f"{m['gen_s']:.4f} s (share {m['gen_share']:.4f}), launches "
+            f"{counts}")
+        for i, p in enumerate(sp.policies):
+            log(f"[fleet {label}] {p}: slo_violation_rate "
+                f"{res.pooled.slo_violation_rate[i]} replica_minutes "
+                f"{res.pooled.replica_minutes[i]} scaling_actions "
+                f"{res.pooled.scaling_actions[i]} p95_ms "
+                f"{res.pooled.p95_response_ms[i]} rei {res.rei.rei[i]}")
+        runs[label] = dict(meta=m, launches=counts)
+        return res
+
+    sp = fleet.spec("fleet_1e5", policies=("hpa", "aapa"),
+                    scenario="burst_storm", n_workloads=FLEET_LANES,
+                    w_chunk=FLEET_CHUNK, minutes=FLEET_MINUTES, seed=0)
+    one = run("one-dispatch 1e5", sp, warmup=True)
+    streamed = run("stream 1e5", sp, stream=True)
+    fleet_close(streamed.pooled, one.pooled, 2e-6, "stream vs one-dispatch")
+    np.testing.assert_allclose(streamed.rei.rei, one.rei.rei, rtol=2e-6)
+    log("[fleet] the stream equals the one-dispatch run (rtol 2e-6, "
+        "quantiles at the half-bin bound)")
+    hpa = dataclasses.replace(sp, name="fleet_hpa_1e5", policies=("hpa",))
+    base = run("stream hpa 1e5", hpa, stream=True)
+    big = run("stream hpa 1e6", dataclasses.replace(
+        hpa, name="fleet_hpa_1e6", n_workloads=10 * FLEET_LANES),
+        stream=True)
+    p5 = base.meta["peak_device_bytes"]
+    p6 = big.meta["peak_device_bytes"]
+    if abs(p6 - p5) > 0.05 * p5:
+        raise RuntimeError(f"the 1e6-lane stream's peak device memory {p6} "
+                           f"is not within 5% of the 1e5-lane stream's {p5}")
+    log(f"[fleet] 1e6-lane peak device memory {p6} bytes, "
+        f"{p6 / p5:.6f} x the 1e5-lane stream's")
+    feed = dataclasses.replace(sp, name="fleet_aapaset_1e5")
+    run("loader stream 1e5", feed, stream=True,
+        chunks=data_loader.rate_chunks(feed.n_workloads, feed.w_chunk,
+                                       minutes=feed.minutes))
+    # what one chunk's fold into the pooled accumulators costs beside its
+    # episode (HPA, the first chunk of the 1e5 fleet)
+    from repro_torch.evals import metrics
+    from repro_torch.sim.cluster import MinuteOut
+    cfg = sp.sim_config()
+    ctrl = fleet.controllers(hpa)[0]
+    chunk = torch.as_tensor(fleet.chunk_rates(sp, 0), device="cuda")
+    edges = metrics.response_edges(sp.bins, cfg.resp_cap_sec)
+    ep_ms, out = cuda_ms(lambda: ops.episode_block(chunk, ctrl, cfg),
+                         iters=3)
+    flat = MinuteOut(*(f.reshape(-1) for f in out))
+    acc = metrics.accum_init(sp.bins)
+    fold_ms = cuda_ms(lambda: metrics.accum_update_pooled(acc, flat, edges),
+                      iters=5)[0]
+    log(f"[fleet] per {FLEET_CHUNK} x {FLEET_MINUTES} HPA chunk: episode "
+        f"{ep_ms} ms, its fold into the pooled accumulators {fold_ms} ms")
+    runs["fold"] = dict(episode_ms=ep_ms, fold_ms=fold_ms)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -942,29 +1279,9 @@ def main() -> int:
     for label, params in (("240 trees of depth 4", cls.params),
                           ("240 trees of depth 6", seeded_classifier(
                               feats.cpu().numpy(), dev, depth=6).params)):
-        lg_k = ops.gbdt_logits(params, feats)
-        gb_var = gb_launcher.last_variant
-        lg_p = launch_free(lambda: ref.gbdt_logits_ref(params, feats),
-                           "gbdt_tables")
-        if not torch.equal(lg_k.argmax(-1), lg_p.argmax(-1)):
-            raise RuntimeError("gbdt_tables: argmax differs from the plain "
-                               "version")
-        ulp4 = 4 * float(np.spacing(np.float32(lg_p.abs().max().item())))
-        err = float((lg_k - lg_p).abs().max())
-        if err > ulp4:
-            raise RuntimeError(f"gbdt_tables: logits differ by {err} > "
-                               f"4 ulp ({ulp4})")
-        lg_g = gb_launcher(params, feats, variant="generic")
-        if not (torch.equal(lg_k, lg_p) and torch.equal(lg_k, lg_g)):
-            raise RuntimeError(f"gbdt_tables {gb_var}, {label}: logits "
-                               "differ from the plain version's or the "
-                               "generic kernel's bits")
+        err, gb_var = gbdt_equal(params, feats, label)
         gb_err = max(gb_err, err)
-        log(f"[gbdt_tables] {N} x 38, {label}, kernel {gb_var}: equal to "
-            f"the plain version and to the generic kernel bit for bit "
-            f"(argmax exact, within 4 ulp), max_abs_err={err}")
-        del lg_k, lg_p, lg_g
-    if gb_launcher.last_variant != "generic":
+    if gb_var != "generic":
         raise RuntimeError("the depth-6 ensemble did not take the generic "
                            "gbdt_tables kernel")
 
@@ -1091,8 +1408,14 @@ def main() -> int:
         f"ms), plain {w_chunk}x{AAPA_PLAIN_MINUTES} {aapa_plain_s * 1e3} ms "
         f"(one run, host clock), bound {aapa_bound} ms ({aapa_by})")
 
+    # ---- 21-22. AAPAset built and the classifier trained on the card;
+    # the AAPA and hybrid fleet rows of phases 10 and 14 classify with it
+    built, data_loader, aapaset_counts = aapaset_phase(dev)
+    tcls, train_info, train_counts = training_phase(data_loader, dev)
+
     # ---- 10. the AAPA fleet: Table IV row
-    aapa_counts, aapa_path, _ = fleet_row(actrl, cfg, fleet_rates, w_chunk,
+    tctrl = registry.make("aapa", cfg, classify=tcls)
+    aapa_counts, aapa_path, _ = fleet_row(tctrl, cfg, fleet_rates, w_chunk,
                                           "aapa fleet")
     profile_row(aapa_path, "AAPA fleet episode + metrics + REI")
 
@@ -1237,6 +1560,8 @@ def main() -> int:
     # ---- 14. a Table IV row for each of them, and the kernel's time
     pol_rows = {}
     for label, (name, kw) in pols.items():
+        if "classify" in kw:                  # the trained classifier
+            kw = dict(kw, classify=tcls)
         ctrl = registry.make(name, cfg, **kw)
         counts, _, pdowns = fleet_row(ctrl, cfg, fleet_rates, w_chunk,
                                       f"{label} fleet")
@@ -1458,6 +1783,10 @@ def main() -> int:
         f"{small.minutes} on the card matches the plain matrix on the CPU "
         f"(rtol 2e-6, counts exact), max_abs_err={small_err}")
 
+    # ---- 23. fleet runs through evals.fleet
+    del built
+    fleet_runs = fleet_phase(tcls, data_loader)
+
     kernels = [
         dict(name="plant_block", route="cuda",
              source="src/repro_torch/kernels/csrc/plant_block.cu",
@@ -1534,6 +1863,17 @@ def main() -> int:
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=None)
         for walk, row in walk_rows.items()]
+    # launches on this slice's paths (phases 21-23)
+    fleet_paths = {f"fleet {label}": run["launches"]
+                   for label, run in fleet_runs.items() if "launches" in run}
+    slice_paths = {
+        "window_features": {"aapaset build": aapaset_counts},
+        "gbdt_tables": {"training": train_counts},
+        "episode_block": fleet_paths, "policy_signals": fleet_paths}
+    for row in kernels:
+        if row["name"] in slice_paths:
+            row["paths"] = {path: counts[row["name"]] for path, counts in
+                            slice_paths[row["name"]].items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,11 +7,12 @@ and ``numpy`` only. Tensor-making entry points take an explicit
 the CPU path (the kernels' plain PyTorch versions) runs only when the
 caller asks for ``device="cpu"``.
 
-Ported so far: HPA and AAPA episodes through the cluster plant
-(``sim.cluster``, ``scaling``), AAPA's inference stack (``core``: window
-features, GBDT node tables, beta calibration, Table III, Algorithm 1,
-``TrainedAAPA.load``; ``data.windows``), the forecasters (``forecast``),
-the ``plant_block``, ``episode_block``, ``window_features`` and
-``gbdt_tables`` CUDA kernels (``kernels``), per-episode and pooled
-metrics (``evals.metrics``) and REI (``evals.rei``, ``core.rei``).
+Ported so far: episodes of all five policies through the cluster plant
+(``sim.cluster``, ``scaling``), AAPA's stack (``core``: window features,
+weak labels, GBDT and beta-calibration training and inference, Table
+III, Algorithm 1, ``TrainedAAPA``; ``data``), the AAPAset engine
+(``aapaset``), the forecasters (``forecast``), the evaluation plane
+(``evals``: metrics, REI, the Table IV matrix, fleet runs, result cards)
+and the ``plant_block``, ``episode_block``, ``window_features``,
+``gbdt_tables`` and ``holt_winters`` CUDA kernels (``kernels``).
 """

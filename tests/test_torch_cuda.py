@@ -699,3 +699,83 @@ def test_startup_pipeline_too_large_for_shared_memory_raises(cuda):
     want = ref.episode_block_ref(rates, registry.make("hpa", cfg), cfg)
     for a, e in zip(got, want):
         assert torch.equal(a, e)
+
+
+def _fit_inputs(n=20_000, seed=5):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 38)).astype(np.float32)
+    X[:, 7] = rng.integers(0, 60, n) / np.float32(60)    # quantized column
+    y = np.argmax(X[:, :4] + 0.7 * rng.normal(size=(n, 4)), 1)
+    return X, y.astype(np.int32)
+
+
+def test_gbdt_fit_on_the_card_is_deterministic(cuda):
+    """Two fits of the same inputs on the card give the same trees bit
+    for bit (each histogram bin is summed in row order after a stable
+    sort, never by float atomics)."""
+    X, y = _fit_inputs()
+    cfg = gbdt.GBDTConfig(n_rounds=6)
+    a = gbdt.fit(X, y, cfg, device=cuda)
+    b = gbdt.fit(X, y, cfg, device=cuda)
+    for name in ("feat", "thresh", "leaf", "bin_edges", "base"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+def test_gbdt_fit_on_the_card_equals_the_cpu(cuda):
+    """The card's fit gives the CPU's trees bit for bit: both sum every
+    histogram bin in row order, cumulate bins in the same order and take
+    correctly rounded exps."""
+    X, y = _fit_inputs(n=12_000, seed=6)
+    cfg = gbdt.GBDTConfig(n_rounds=3)
+    a = gbdt.fit(X, y, cfg, device=cuda)
+    b = gbdt.fit(X, y, cfg, device="cpu")
+    for name in ("feat", "thresh", "leaf", "bin_edges", "base"):
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+
+
+def test_featurize_windows_on_the_card_equals_the_cpu(cuda):
+    """The AAPAset featurize step on the card (the window_features kernel)
+    equals the CPU's (the plain features) bit for bit: features, labels,
+    confidence and votes."""
+    from repro_torch.aapaset import build
+    wins = windows.make_windows(azure_synth.generate_traces(
+        n_functions=24, n_days=2, seed=4)).windows
+    launches = window_features.window_features_cuda.launches
+    card = build.featurize_windows(wins, chunk=1000, device=cuda)
+    assert window_features.window_features_cuda.launches > launches
+    cpu = build.featurize_windows(wins, chunk=1000, device="cpu")
+    for a, e in zip(card, cpu):
+        assert a.dtype == e.dtype
+        np.testing.assert_array_equal(a.view(np.uint8), e.view(np.uint8))
+
+
+def test_run_fleet_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A fleet run on the card against the same run on the CPU (plain
+    episodes): pooled metrics and REI at rtol 2e-6, quantiles at the
+    histogram's half-bin bound, as the reference holds its own reordered
+    pooling. AAPA classifies with a classifier trained on the card and
+    loaded on both devices."""
+    from repro_torch.core import pipeline
+    from repro_torch.evals import fleet
+    from repro_torch.evals import metrics as EM
+    trained = pipeline.train_aapa(
+        azure_synth.generate_traces(n_functions=12, n_days=4, seed=2),
+        gbdt.GBDTConfig(n_rounds=6), device=cuda)
+    trained.save(tmp_path / "cls.npz")
+    sp = fleet.spec("t_fleet", policies=("hpa", "predictive", "aapa"),
+                    scenario="burst_storm", n_workloads=512, w_chunk=128,
+                    minutes=120, seed=3)
+    got = fleet.run_fleet(sp, device=cuda, classify=pipeline.TrainedAAPA.load(
+        tmp_path / "cls.npz", device=cuda).make_classify())
+    want = fleet.run_fleet(sp, device="cpu", stream=True,
+                           classify=pipeline.TrainedAAPA.load(
+                               tmp_path / "cls.npz",
+                               device="cpu").make_classify())
+    assert got.meta["peak_device_bytes"] > 0
+    q = 2.5 * EM.quantile_rel_bound()
+    for field in got.pooled._fields:
+        tol = max(2e-6, q) if field.startswith(("p95", "p99")) else 2e-6
+        np.testing.assert_allclose(getattr(got.pooled, field),
+                                   getattr(want.pooled, field), rtol=tol,
+                                   atol=1e-3, err_msg=field)
+    np.testing.assert_allclose(got.rei.rei, want.rei.rei, rtol=2e-6)

@@ -69,8 +69,13 @@ def test_package_reexports_match_reference(pkg):
                  "get_controller"]),
     ("forecast", ["Forecaster", "FState", "Interval", "interval_confidence",
                   "make_forecaster", "backtest", "conformal", "registry"]),
-    ("evals", ["artifacts", "matrix", "metrics", "rei", "EvalResult",
-               "MatrixRun", "MatrixSpec", "run", "smoke_spec", "spec"])])
+    ("evals", ["artifacts", "fleet", "matrix", "metrics", "rei",
+               "EvalResult", "MatrixRun", "MatrixSpec", "run", "smoke_spec",
+               "spec"]),
+    ("aapaset", ["AAPAsetLoader", "BuiltDataset", "DatasetConfig",
+                 "build_or_load", "config_hash", "dataset_card",
+                 "featurize_windows", "get", "is_cached", "read_manifest",
+                 "available", "register"])])
 def test_named_reexports(pkg, names):
     """The names the reference's namespaces are used by, each the port's
     own object from its submodule."""
