@@ -149,21 +149,59 @@ and prints no result line):
     ``burst_storm`` 100,000 x 1440 in chunks of 25,000 under HPA and
     AAPA (the trained classifier), one dispatch (after a warm-up run) and
     streamed; gate: equal at the reference's rtol 2e-6 (quantiles at the
-    histogram's half-bin bound). HPA streamed at 100,000 and at
-    1,000,000 x 1440 (40 chunks); gate: the 10^6-lane run's peak device
-    memory within 5% of the 10^5-lane run's. A stream fed by
+    histogram's half-bin bound). The same streamed at 200,000 x 1440 (8
+    chunks; HPA alone at 10^5 and 10^6 lanes until phases 24-26 needed the
+    time); gate: its peak device memory within 5% of the 10^5-lane
+    stream's. A stream fed by
     ``AAPAsetLoader.rate_chunks`` of phase 21's artifact, 100,000 x 1440
     under HPA and AAPA. Each prints wall, lane-minutes/s, dispatches,
     peak device memory, host generation time and share, and the pooled
     metrics per policy.
+24. Decision telemetry on the card (after 23): each of the five policies
+    (AAPA and hybrid with phase 22's classifier) traced by
+    ``simulate(..., decide_kernel=False, telemetry=True)`` on
+    ``archetype_mix`` 1024 x 240 at ci 15 and 7. Gates: its MinuteOut
+    equals the untraced unfused run's bit for bit and the fused kernel's
+    at the episode tolerance; its trace equals the same run's on the CPU:
+    discrete fields exact,
+    NaN where NaN, plant fields at the episode tolerance, forecast fields
+    at rtol 1e-4 / atol 1e-3; ``plant_block`` launched (and
+    ``gbdt_tables`` for AAPA and hybrid), ``episode_block`` not; the
+    default ``decide_kernel`` refuses ``telemetry`` with ValueError. Then
+    the fleet capture: phase 23's one-dispatch HPA + AAPA fleet with
+    ``FleetSpec.trace_lanes=16``; gates: pooled metrics equal the
+    untraced run's at rtol 2e-6, decisions [4, 1440, 4, 2, 16], every
+    traced lane's blame counts sum to its violated requests; prints wall,
+    lane-minutes/s, launches and peak device memory, and the card's busy
+    share under ``torch.profiler`` over the capture's first hour. The
+    traced path is host-bound, so each policy's runs, the fleet capture
+    and phase 25's obs card run in worker processes side by side
+    (CARD_WORKERS at a time); their walls are taken so.
+25. An obs card (``obs.artifacts.capture_matrix``) of
+    ``bench_autoscaling``'s SPEC, 4 lanes a cell traced, under a
+    temporary root: wall of the traced run, the blame walk and the
+    publish apart, and the blame totals. Gates: the card loads back equal
+    (card, trace, blame); ``violations_total`` equals the blame counts'
+    sum and the traced lanes' violations.
+26. Tuning on the card at ``benchmarks/bench_tuning.py``'s FULL sizes:
+    the 10^3-point HPA grid (8 x 240 ``archetype_pure``) in candidates/s
+    and the card's busy share under ``torch.profiler``; grid_refine and
+    population on ``archetype_pure`` and ``diurnal_ramp`` with each REI
+    delta against the paper default. Gates: ``registry.make("tuned:hpa@
+    <hash>")`` rebuilt from the card runs the episode of
+    ``registry.make("hpa", **best)`` bit for bit; a second forced search
+    gives the same winner and hash; ``episode_block`` launched once a
+    candidate.
 
-Phases 4, 5, 8, 10, 12, 14, 19, 21, 22 and each run of 23 reset the
-kernels' launch counts just before they run and read them just after; a
-path whose kernel was never launched fails (the predictive, AAPA and
-hybrid rows: the pre-pass and the plant pass; the matrices: every
-policy's minute walk under every forecaster; the AAPAset build:
+Phases 4, 5, 8, 10, 12, 14, 19, 21, 22, each run of 23 and 24, 25 and 26
+reset the kernels' launch counts just before they run and read them just
+after; a path whose kernel was never launched fails (the predictive,
+AAPA and hybrid rows: the pre-pass and the plant pass; the matrices:
+every policy's minute walk under every forecaster; the AAPAset build:
 ``window_features``; training: ``gbdt_tables``; every fleet run:
-``episode_block``, and with AAPA ``policy_signals``). Kernel-vs-plain
+``episode_block``, and with AAPA ``policy_signals``; the traced runs and
+the obs card: ``plant_block``, and with AAPA or hybrid ``gbdt_tables``;
+tuning: ``episode_block``). Kernel-vs-plain
 comparisons and timing launches are not counted. The plain runs of
 phases 8, 9, 11, 13, 17, 18, 20 and 21 are checked to launch no kernel
 (the plain AAPA and hybrid episodes classify through the plain GBDT).
@@ -234,7 +272,7 @@ PREPASS_SLOT_BYTES = 16
 # holt_winters: the forecast (2 adds) and hw_step (13) per series and step
 HW_OPS_PER_STEP = 15
 HW_TOL = dict(rtol=1e-4, atol=1e-3)
-# phase 23's fleets: 10^5 lanes (and a 10x stream) x a day, 4 chunks each
+# phase 23's fleets: 10^5 lanes (and a 2x stream) x a day, 4 chunks each
 FLEET_LANES, FLEET_CHUNK, FLEET_MINUTES = 100_000, 25_000, 1440
 # radf2/3/4/5 of the real FFT, counted from features.cuh::radix_pass:
 # (first loop per k, the even-ido loop per k, the inner loop per (k, i))
@@ -700,7 +738,7 @@ def assert_episode(got, want, what: str) -> float:
 
 def profile_row(run, label: str):
     """`run()` under torch.profiler: prints device time by kernel and the
-    busy share of the wall time."""
+    busy share of the wall time; returns (device ms, wall s)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -718,6 +756,7 @@ def profile_row(run, label: str):
         f"wall)")
     for t, n, key in by_kernel[:10]:
         log(f"[profile]   {t / 1e3:10.3f} ms  x{n:<6d} {key[:90]}")
+    return device_ms, prof_s
 
 
 def fleet_row(controller, cfg, rates, w_chunk: int, label: str):
@@ -948,7 +987,8 @@ def training_phase(data_loader, dev):
     split.update(refit_s=refit_s, hist_ms=hist_ms, atomic_ms=atomic_ms)
     feats = torch.as_tensor(data_loader.data.features, device=dev)
     gbdt_equal(trained.params, feats, "the trained classifier")
-    return cls, dict(train_s=train_s, fit_s=trained.fit_seconds,
+    return cls, dict(dataset_id=trained.dataset_id, train_s=train_s,
+                     fit_s=trained.fit_seconds,
                      test_acc=trained.test_acc, ece=ece, split=split), counts
 
 
@@ -1010,22 +1050,20 @@ def fleet_phase(cls, data_loader) -> dict:
                     scenario="burst_storm", n_workloads=FLEET_LANES,
                     w_chunk=FLEET_CHUNK, minutes=FLEET_MINUTES, seed=0)
     one = run("one-dispatch 1e5", sp, warmup=True)
+    runs["one-dispatch 1e5"]["result"] = one
     streamed = run("stream 1e5", sp, stream=True)
     fleet_close(streamed.pooled, one.pooled, 2e-6, "stream vs one-dispatch")
     np.testing.assert_allclose(streamed.rei.rei, one.rei.rei, rtol=2e-6)
     log("[fleet] the stream equals the one-dispatch run (rtol 2e-6, "
         "quantiles at the half-bin bound)")
-    hpa = dataclasses.replace(sp, name="fleet_hpa_1e5", policies=("hpa",))
-    base = run("stream hpa 1e5", hpa, stream=True)
-    big = run("stream hpa 1e6", dataclasses.replace(
-        hpa, name="fleet_hpa_1e6", n_workloads=10 * FLEET_LANES),
-        stream=True)
-    p5 = base.meta["peak_device_bytes"]
+    big = run("stream 2e5", dataclasses.replace(
+        sp, name="fleet_2e5", n_workloads=2 * FLEET_LANES), stream=True)
+    p5 = streamed.meta["peak_device_bytes"]
     p6 = big.meta["peak_device_bytes"]
     if abs(p6 - p5) > 0.05 * p5:
-        raise RuntimeError(f"the 1e6-lane stream's peak device memory {p6} "
+        raise RuntimeError(f"the 2e5-lane stream's peak device memory {p6} "
                            f"is not within 5% of the 1e5-lane stream's {p5}")
-    log(f"[fleet] 1e6-lane peak device memory {p6} bytes, "
+    log(f"[fleet] 2e5-lane peak device memory {p6} bytes, "
         f"{p6 / p5:.6f} x the 1e5-lane stream's")
     feed = dataclasses.replace(sp, name="fleet_aapaset_1e5")
     run("loader stream 1e5", feed, stream=True,
@@ -1036,7 +1074,7 @@ def fleet_phase(cls, data_loader) -> dict:
     from repro_torch.evals import metrics
     from repro_torch.sim.cluster import MinuteOut
     cfg = sp.sim_config()
-    ctrl = fleet.controllers(hpa)[0]
+    ctrl = fleet.controllers(sp)[0]
     chunk = torch.as_tensor(fleet.chunk_rates(sp, 0), device="cuda")
     edges = metrics.response_edges(sp.bins, cfg.resp_cap_sec)
     ep_ms, out = cuda_ms(lambda: ops.episode_block(chunk, ctrl, cfg),
@@ -1049,6 +1087,418 @@ def fleet_phase(cls, data_loader) -> dict:
         f"{ep_ms} ms, its fold into the pooled accumulators {fold_ms} ms")
     runs["fold"] = dict(episode_ms=ep_ms, fold_ms=fold_ms)
     return runs
+
+
+# ---- phases 24-26: decision telemetry, obs cards and tuning on the card
+POLICIES5 = ("hpa", "kpa", "predictive", "aapa", "hybrid")
+ARCH_POLICIES = ("aapa", "hybrid")
+# the trace against the CPU's (tests/test_torch_obs.py): discrete fields
+# exact, plant fields at the episode tolerance, forecast fields at the
+# forecast tolerance (the port's and XLA's contraction differ there)
+TRACE_DISCRETE = ("minute", "sec", "scale_up", "scale_down",
+                  "cooldown_blocked", "capacity_capped", "archetype")
+TRACE_FORECAST = ("fc_point", "fc_lo", "fc_hi", "confidence", "guard_floor")
+FORECAST_TOL = dict(rtol=1e-4, atol=1e-3)
+TRACE_LANES = 16
+# phase 24's traced episodes: archetype_mix lanes x minutes; phases 24-25
+# run their 12 jobs in this many worker processes, each job bounded by
+# JOB_TIMEOUT_S (a lost worker must not hang the script)
+TELEMETRY_LANES, TELEMETRY_MINUTES = 1024, 240
+CARD_WORKERS = 7
+JOB_TIMEOUT_S = 600
+# benchmarks/bench_tuning.py's FULL sizes
+TUNING_FULL = dict(n_workloads=8, minutes=240, grid_points=10,
+                   refine=dict(points=5, rounds=4),
+                   population=dict(population=32, generations=6))
+
+
+def classify_on(cls, dev):
+    """`cls` (a ``core.pipeline.Classify``) with its ensemble and
+    calibration copied to `dev`."""
+    from repro_torch.core import calibration, gbdt, pipeline
+    p, c = cls.params, cls.cal
+    return pipeline.Classify(
+        gbdt.GBDTParams(*(t.to(dev) for t in (p.feat, p.thresh, p.leaf,
+                                              p.bin_edges, p.base))),
+        calibration.BetaCalibration(*(t.to(dev) for t in (c.a_raw, c.b_raw,
+                                                          c.c))))
+
+
+def phase_job(job: dict):
+    """One job of phases 24-25 in its own worker process (the traced path
+    is host-bound, so independent runs go to processes side by side): a
+    policy's traced rows, the fleet capture or the obs card. `job` holds
+    the classifier on the CPU; returns what the phase function returns."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    from repro_torch.kernels import _build
+    _build.extension()
+    cls = classify_on(job["classify"], torch.device("cuda"))
+    if job["kind"] == "row":
+        return traced_row(job["policy"], job["ci"], cls, job["classify"])
+    if job["kind"] == "fleet":
+        return fleet_capture(cls, job["one_dispatch"])
+    return obs_phase(cls, job["classifier_id"])
+
+
+def trace_close(got, want, what: str) -> float:
+    """A trace against another (each a ControlTrace of tensors or arrays):
+    NaN where NaN, discrete record fields exact, forecast fields at
+    FORECAST_TOL, the rest at the episode tolerance; returns the largest
+    difference of the plant fields."""
+    from repro_torch.obs import trace
+    got, want = trace.to_numpy(got), trace.to_numpy(want)
+    worst = 0.0
+    for field in trace.DecisionRecord._fields:
+        a, e = getattr(got.decisions, field), getattr(want.decisions, field)
+        if a.shape != e.shape or not np.array_equal(np.isnan(a),
+                                                    np.isnan(e)):
+            raise RuntimeError(f"{what}: {field} shape or NaN differ")
+        if field in TRACE_DISCRETE:
+            if not np.array_equal(a, e, equal_nan=True):
+                raise RuntimeError(f"{what}: {field} differs at "
+                                   f"{int((a != e).sum())} decisions")
+            continue
+        tol = FORECAST_TOL if field in TRACE_FORECAST else EPISODE_TOL
+        np.testing.assert_allclose(a, e, equal_nan=True,
+                                   err_msg=f"{what}: {field}", **tol)
+        if field not in TRACE_FORECAST and np.isfinite(a).any():
+            worst = max(worst, float(np.nanmax(np.abs(a - e))))
+    for field, a, e in zip(trace.MinuteTrace._fields, got.minutes,
+                           want.minutes):
+        np.testing.assert_allclose(a, e, err_msg=f"{what}: {field}",
+                                   **EPISODE_TOL)
+    return worst
+
+
+def blame_lanes(ct, cfg, lanes, what: str) -> dict:
+    """Blame every traced lane (``(pre, post)`` index pairs of `ct`); each
+    lane's blame counts must sum to its violated requests. Returns the
+    per-cause totals."""
+    from repro_torch.obs import attribute, trace
+    totals = {c: 0.0 for c in attribute.CAUSES}
+    for pre, post in lanes:
+        ln = trace.lane(ct, pre, post)
+        b = attribute.attribute(ln, cfg)
+        violated = float(np.asarray(ln.minutes.violated, np.float64).sum())
+        if not np.isclose(sum(b.counts.values()), violated, rtol=1e-9,
+                          atol=1e-6):
+            raise RuntimeError(f"{what} lane {pre}{post}: blame counts sum "
+                               f"to {sum(b.counts.values())}, violated "
+                               f"{violated}")
+        for c in totals:
+            totals[c] += b.counts[c]
+    return totals
+
+
+def telemetry_phases(tcls, one_dispatch, classifier_id: str) -> dict:
+    """24-25. Decision telemetry and an obs card on the card, each run in
+    its own worker process side by side (CARD_WORKERS at a time): the
+    five policies traced at ci 15 and 7 against their untraced, fused and
+    CPU runs; the 10^5-lane fleet capture against phase 23's untraced
+    one-dispatch run; the obs card."""
+    import multiprocessing
+    cpu_cls = classify_on(tcls, torch.device("cpu"))
+    jobs = {"fleet": dict(kind="fleet", one_dispatch=one_dispatch),
+            "obs card": dict(kind="obs", classifier_id=classifier_id)}
+    jobs.update({f"{policy} ci={ci}": dict(kind="row", policy=policy, ci=ci)
+                 for ci in (15, 7) for policy in POLICIES5})
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(CARD_WORKERS) as pool:
+        pending = {label: pool.apply_async(phase_job, (dict(
+            job, classify=cpu_cls),)) for label, job in jobs.items()}
+        done = {label: run.get(timeout=JOB_TIMEOUT_S)
+                for label, run in pending.items()}
+    log(f"[telemetry] phases 24-25 in {CARD_WORKERS} worker processes: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(rows={label: done[label] for label in jobs
+                      if jobs[label]["kind"] == "row"},
+                fleet=done["fleet"], obs=done["obs card"])
+
+
+def traced_row(policy: str, ci: int, tcls, cpu_cls) -> dict:
+    """One policy of phase 24 at control interval `ci` (AAPA and hybrid
+    with `tcls`): traced on the card over ``archetype_mix``, held against
+    its untraced and fused runs there and against the same traced run on
+    the CPU (with `cpu_cls`)."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace
+    from repro_torch.scaling import registry, scenarios
+    from repro_torch.sim import cluster
+    host = scenarios.archetype_mix(n_workloads=TELEMETRY_LANES,
+                                   minutes=TELEMETRY_MINUTES).rates
+    mix = torch.as_tensor(host, device="cuda")
+    cfg = cluster.SimConfig(control_interval_sec=ci)
+    H = len(trace.head_schedule(cfg))
+    arch = policy in ARCH_POLICIES
+    ctrl = registry.make(policy, cfg, **(dict(classify=tcls) if arch else {}))
+    label = f"{policy} ci={ci}"
+    if policy == "hpa":
+        try:
+            cluster.simulate(mix, ctrl, cfg, telemetry=True)
+        except ValueError:
+            pass
+        else:
+            raise RuntimeError("telemetry with the default decide_kernel "
+                               "did not raise")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, ct = cluster.simulate(mix, ctrl, cfg, decide_kernel=False,
+                               telemetry=True)
+    torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if (counts["plant_block"] == 0 or counts["episode_block"]
+            or (arch and counts["gbdt_tables"] == 0)):
+        raise RuntimeError(f"traced {label}: launches {counts}")
+    if tuple(ct.decisions.desired.shape) != (TELEMETRY_LANES,
+                                             TELEMETRY_MINUTES, H):
+        raise RuntimeError(f"traced {label}: decisions "
+                           f"{tuple(ct.decisions.desired.shape)}")
+    t0 = time.perf_counter()
+    base = cluster.simulate(mix, ctrl, cfg, decide_kernel=False)
+    torch.cuda.synchronize()
+    untraced_s = time.perf_counter() - t0
+    for field, a, b in zip(out._fields, out, base):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"traced {label}: MinuteOut.{field} differs "
+                               "from the untraced run")
+    fused_err = max_abs_err(out, cluster.simulate(mix, ctrl, cfg),
+                            EPISODE_TOL, f"traced {label} vs fused")
+    cctrl = registry.make(policy, cfg,
+                          **(dict(classify=cpu_cls) if arch else {}))
+    t0 = time.perf_counter()
+    cout, cct = cluster.simulate(torch.as_tensor(host), cctrl, cfg,
+                                 device="cpu", decide_kernel=False,
+                                 telemetry=True)
+    cpu_s = time.perf_counter() - t0
+    cpu_err = max(max_abs_err(tuple(a.cpu() for a in out), cout,
+                              EPISODE_TOL, f"traced {label} card vs CPU"),
+                  trace_close(ct, cct, f"trace {label} card vs CPU"))
+    log(f"[telemetry {label}] archetype_mix {TELEMETRY_LANES}x"
+        f"{TELEMETRY_MINUTES}: traced {traced_s:.3f} s, untraced "
+        f"{untraced_s:.3f} s (same MinuteOut bit for bit), the CPU's traced "
+        f"run {cpu_s:.3f} s; vs the fused kernel max_abs_err={fused_err}, "
+        f"trace vs the CPU's max_abs_err={cpu_err} (discrete fields exact);"
+        f" launches {counts}")
+    return dict(traced_s=traced_s, untraced_s=untraced_s, cpu_s=cpu_s,
+                fused_err=fused_err, cpu_err=cpu_err, launches=counts)
+
+
+def fleet_capture(tcls, one_dispatch) -> dict:
+    """Phase 24's fleet capture: phase 23's one-dispatch fleet with
+    TRACE_LANES lanes a chunk traced, against that untraced run."""
+    import dataclasses
+
+    from repro_torch.evals import fleet
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace
+    sp = dataclasses.replace(one_dispatch.spec, name="fleet_trace_1e5",
+                             trace_lanes=TRACE_LANES)
+    cfg = sp.sim_config()
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    res = fleet.run_fleet(sp, classify=tcls)
+    counts = ops.launch_counts()
+    if (counts["plant_block"] == 0 or counts["gbdt_tables"] == 0
+            or counts["episode_block"]):
+        raise RuntimeError(f"fleet capture: launches {counts}")
+    fleet_close(res.pooled, one_dispatch.pooled, 2e-6,
+                "fleet capture vs the untraced one-dispatch run")
+    np.testing.assert_allclose(res.rei.rei, one_dispatch.rei.rei, rtol=2e-6)
+    H = len(trace.head_schedule(cfg))
+    shape = (sp.n_chunks, sp.minutes, H, len(sp.policies), TRACE_LANES)
+    if res.trace.decisions.desired.shape != shape:
+        raise RuntimeError(f"fleet capture: decisions "
+                           f"{res.trace.decisions.desired.shape}, expected "
+                           f"{shape}")
+    blame = {p: blame_lanes(res.trace, cfg, [
+        ((c,), (i, k)) for c in range(sp.n_chunks)
+        for k in range(TRACE_LANES)], f"fleet capture {p}")
+        for i, p in enumerate(sp.policies)}
+    m = res.meta
+    log(f"[telemetry fleet] {'+'.join(sp.policies)}, {m['workloads']} x "
+        f"{m['minutes']} in chunks of {m['w_chunk']}, {TRACE_LANES} lanes "
+        f"a chunk traced: wall {m['wall_s']:.4f} s "
+        f"({m['lane_minutes_per_sec']:.6g} lane-minutes/s; untraced "
+        f"one-dispatch {one_dispatch.meta['wall_s']:.4f} s), peak device "
+        f"memory {m['peak_device_bytes']} bytes ({live} live before), "
+        f"launches {counts}; pooled metrics equal the untraced run "
+        f"(rtol 2e-6); decisions {shape}; every traced lane's blame sums "
+        f"to its violations")
+    for p, totals in blame.items():
+        log(f"[telemetry fleet] {p} blame over the traced lanes: {totals}")
+    # the path's host share: the first hour of the same capture under the
+    # profiler (a day's millions of eager launches would swamp it)
+    hour = dataclasses.replace(sp, minutes=60)
+    busy_ms, prof_s = profile_row(
+        lambda: fleet.run_fleet(hour, classify=tcls),
+        f"fleet capture, {hour.n_workloads} x {hour.minutes}")
+    return dict(meta=m, launches=counts, blame=blame,
+                hour_busy_share=busy_ms / (prof_s * 1e3))
+
+
+def obs_phase(tcls, classifier_id: str) -> dict:
+    """25. An obs card of ``bench_autoscaling``'s SPEC (Fig 2), four lanes
+    a cell traced, under a temporary root: published, loaded back equal,
+    its blame totals summing to the traced violations."""
+    import tempfile
+
+    from repro_torch.evals import matrix
+    from repro_torch.kernels import ops
+    from repro_torch.obs import artifacts
+    sp = bench_spec(matrix)
+    with tempfile.TemporaryDirectory() as root:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        cap = artifacts.capture_matrix(sp, tcls, classifier_id=classifier_id,
+                                       trace_lanes=4, root=root)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if counts["plant_block"] == 0 or counts["gbdt_tables"] == 0:
+            raise RuntimeError(f"obs card: launches {counts}")
+        back = artifacts.load_capture(sp.name, cap.card["key"], root)
+    if not back.cached or back.card != json.loads(json.dumps(
+            cap.card, default=float)):
+        raise RuntimeError("obs card: the published card does not load "
+                           "back equal")
+    for a, b in zip((*cap.trace.decisions, *cap.trace.minutes),
+                    (*back.trace.decisions, *back.trace.minutes)):
+        if not np.array_equal(a, b, equal_nan=True):
+            raise RuntimeError("obs card: the trace does not load back "
+                               "equal")
+    if list(back.blames) != list(cap.blames) or any(
+            back.blames[k].counts != cap.blames[k].counts
+            for k in cap.blames):
+        raise RuntimeError("obs card: the blame walked again differs")
+    totals = cap.card["blame_totals"]
+    violated = float(np.asarray(cap.trace.minutes.violated,
+                                np.float64).sum())
+    if not (np.isclose(cap.card["violations_total"], sum(totals.values()),
+                       rtol=1e-12)
+            and np.isclose(cap.card["violations_total"], violated,
+                           rtol=1e-9)):
+        raise RuntimeError(f"obs card: violations_total "
+                           f"{cap.card['violations_total']}, blame "
+                           f"{sum(totals.values())}, traced {violated}")
+    m = cap.meta
+    log(f"[obs card] {sp.name} ({len(cap.blames)} traced lanes, "
+        f"{cap.card['hash']}): wall {wall:.4f} s = traced run "
+        f"{m['run_s']:.4f} s + blame walk {m['blame_s']:.4f} s + publish "
+        f"{m['publish_s']:.4f} s; launches {counts}; loads back equal; "
+        f"violations_total {cap.card['violations_total']} = the blame "
+        f"counts' sum; blame totals {totals}")
+    return dict(wall_s=wall, **m, launches=counts, blame_totals=totals,
+                violations_total=cap.card["violations_total"])
+
+
+def tuning_phase() -> dict:
+    """26. Tuning on the card at ``benchmarks/bench_tuning.py``'s FULL
+    sizes: the 10^3-point HPA grid's throughput, grid_refine and
+    population on two scenarios, and the ``tuned:`` winner rebuilt."""
+    import tempfile
+
+    import repro_torch.tuning as tuning
+    from repro_torch.kernels import ops
+    from repro_torch.scaling import registry
+    from repro_torch.sim import cluster
+    from repro_torch.tuning import artifacts as tuning_artifacts
+    knobs = TUNING_FULL
+    sp = tuning.spec(
+        "bench_throughput", policy="hpa", strategy="grid",
+        points=knobs["grid_points"], scenario="archetype_pure",
+        n_workloads=knobs["n_workloads"], minutes=knobs["minutes"])
+    cands = tuning.grid_candidates(sp.space, sp.points)
+    rates = tuning.build_rates(sp)
+    evaluate = tuning.make_evaluator(sp)
+    evaluate(cands[:16], rates)                       # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, rei = evaluate(cands, rates)
+    grid_s = time.perf_counter() - t0
+    grid_counts = ops.launch_counts()
+    if grid_counts["episode_block"] != len(cands) or not np.isfinite(
+            rei).all():
+        raise RuntimeError(f"tuning grid: launches {grid_counts}")
+    busy_ms, prof_s = profile_row(lambda: (evaluate(cands[:100], rates),
+                                           torch.cuda.synchronize()),
+                                  "tuning, 100 HPA candidates")
+    log(f"[tuning] {len(cands)}-point HPA grid, {sp.n_workloads} x "
+        f"{sp.minutes} archetype_pure: {grid_s:.4f} s "
+        f"({len(cands) / grid_s:.6g} candidates/s, "
+        f"{len(cands) * sp.n_workloads * sp.minutes / grid_s:.6g} "
+        f"lane-minutes/s), launches {grid_counts}; the card busy "
+        f"{busy_ms / (prof_s * 1e3):.4f} of the wall under the profiler")
+    out = dict(grid=dict(candidates=len(cands), wall_s=grid_s,
+                         candidates_per_sec=len(cands) / grid_s,
+                         busy_share=busy_ms / (prof_s * 1e3),
+                         launches=grid_counts), searches={})
+    with tempfile.TemporaryDirectory() as root:
+        ops.reset_launch_counts()
+        for strategy in ("grid_refine", "population"):
+            for scenario in ("archetype_pure", "diurnal_ramp"):
+                ssp = tuning.spec(
+                    f"bench_{strategy}_{scenario}", policy="hpa",
+                    strategy=strategy, scenario=scenario,
+                    n_workloads=knobs["n_workloads"],
+                    minutes=knobs["minutes"],
+                    **knobs["refine" if strategy == "grid_refine"
+                            else "population"])
+                run = tuning.search(ssp, root=root, force=True)
+                r = run.result
+                out["searches"][f"{strategy}/{scenario}"] = dict(
+                    ref=f"tuned:hpa@{run.card['hash']}", best=r.best,
+                    best_rei=r.best_rei, default_rei=r.default_rei,
+                    rei_delta=r.best_rei - r.default_rei,
+                    candidates=r.meta["n_candidates"],
+                    candidates_per_sec=r.meta["candidates_per_sec"],
+                    wall_s=r.meta["wall_s"], compiles=r.meta["compiles"])
+                log(f"[tuning] {strategy} on {scenario}: best {r.best} REI "
+                    f"{r.best_rei} against the paper default's "
+                    f"{r.default_rei} (delta "
+                    f"{r.best_rei - r.default_rei:+.6f})"
+                    f", {r.meta['n_candidates']} candidates in "
+                    f"{r.meta['wall_s']:.4f} s "
+                    f"({r.meta['candidates_per_sec']:.6g}/s), static "
+                    f"groups {r.meta['compiles']}, card {run.card['hash']}")
+        search_counts = ops.launch_counts()
+        if search_counts["episode_block"] == 0:
+            raise RuntimeError(f"tuning searches: launches {search_counts}")
+        # the winner, rebuilt by name from its card
+        first = tuning.spec("bench_grid_refine_archetype_pure", policy="hpa",
+                            strategy="grid_refine", scenario="archetype_pure",
+                            n_workloads=knobs["n_workloads"],
+                            minutes=knobs["minutes"], **knobs["refine"])
+        info = out["searches"]["grid_refine/archetype_pure"]
+        saved = tuning_artifacts.DEFAULT_ROOT
+        tuning_artifacts.DEFAULT_ROOT = Path(root)
+        try:
+            cfg = first.sim_config()
+            tuned = registry.make(info["ref"], cfg)
+        finally:
+            tuning_artifacts.DEFAULT_ROOT = saved
+        direct = registry.make("hpa", cfg, **info["best"])
+        r_first = torch.as_tensor(tuning.build_rates(first), device="cuda")
+        for field, a, b in zip(cluster.MinuteOut._fields,
+                               cluster.simulate(r_first, tuned, cfg),
+                               cluster.simulate(r_first, direct, cfg)):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"tuned: episode {field} differs from "
+                                   "registry.make('hpa', **best)")
+        again = tuning.search(first, root=root, force=True)
+        if (again.result.best != info["best"]
+                or f"tuned:hpa@{again.card['hash']}" != info["ref"]):
+            raise RuntimeError("tuning: a second forced search gave another"
+                               " winner or hash")
+    log(f"[tuning] {info['ref']} rebuilds registry.make('hpa', "
+        f"**{info['best']}) bit for bit; a second forced search gives the "
+        f"same winner and hash; search launches {search_counts}")
+    out["search_launches"] = search_counts
+    return out
 
 
 def main() -> int:
@@ -1787,6 +2237,13 @@ def main() -> int:
     del built
     fleet_runs = fleet_phase(tcls, data_loader)
 
+    # ---- 24-26. telemetry, an obs card and tuning on the card
+    telemetry = telemetry_phases(
+        tcls, fleet_runs["one-dispatch 1e5"].pop("result"),
+        train_info["dataset_id"])
+    obs_card = telemetry["obs"]
+    tuning_runs = tuning_phase()
+
     kernels = [
         dict(name="plant_block", route="cuda",
              source="src/repro_torch/kernels/csrc/plant_block.cu",
@@ -1863,13 +2320,22 @@ def main() -> int:
              plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
              bound_by=row["bound_by"], library_ms=None)
         for walk, row in walk_rows.items()]
-    # launches on this slice's paths (phases 21-23)
+    # launches on the later slices' paths (phases 21-26)
     fleet_paths = {f"fleet {label}": run["launches"]
                    for label, run in fleet_runs.items() if "launches" in run}
+    traced_paths = {f"telemetry {label}": row["launches"]
+                    for label, row in telemetry["rows"].items()}
+    traced_paths.update({"telemetry fleet": telemetry["fleet"]["launches"],
+                         "obs card": obs_card["launches"]})
     slice_paths = {
         "window_features": {"aapaset build": aapaset_counts},
-        "gbdt_tables": {"training": train_counts},
-        "episode_block": fleet_paths, "policy_signals": fleet_paths}
+        "gbdt_tables": {"training": train_counts, **traced_paths},
+        "plant_block": traced_paths,
+        "episode_block": {**fleet_paths,
+                          "tuning grid": tuning_runs["grid"]["launches"],
+                          "tuning searches":
+                              tuning_runs["search_launches"]},
+        "policy_signals": fleet_paths}
     for row in kernels:
         if row["name"] in slice_paths:
             row["paths"] = {path: counts[row["name"]] for path, counts in

@@ -21,10 +21,21 @@ Two execution modes, one chunk body:
   chunk — the 10^6-lane mode.
 
 Both fold the same chunk accumulators in the same order. There is no
-device mesh: one card runs every lane (``meta["n_devices"]`` is 1). The
-decision trace (``FleetSpec.trace_lanes``) is not ported yet and raises.
-``run_fleet`` wraps either mode with throughput, host-generation time,
-peak host and device memory and the pooled REI.
+device mesh: one card runs every lane (``meta["n_devices"]`` is 1).
+``FleetSpec.trace_lanes > 0`` captures the decision trace of that many
+sampled lanes per chunk in the one-dispatch mode: the chunks then run the
+traced blocked episode (``matrix._lane_runner(telemetry=True)``: eager
+`decide` per control-period head, ``plant_block`` for the other ticks on
+the card) in place of the fused kernel, whose MinuteOut agrees with the
+fused kernel's at the episode tolerance. That path costs eager launches
+per control period whatever the lane count, so it advances all C chunks
+as the cells of one episode per policy (C times fewer launches) and keeps
+the whole fleet's per-minute outputs on the device, C times a chunk's;
+each chunk's accumulators still fold from its own lanes and sum in chunk
+order, so the pooled metrics are those of a chunk-by-chunk run. The
+stream refuses the trace, as in the reference. ``run_fleet`` wraps
+either mode with throughput, host-generation time, peak host and device
+memory and the pooled REI.
 """
 from __future__ import annotations
 
@@ -40,7 +51,8 @@ from repro_torch import _device
 from repro_torch.evals import metrics as EM
 from repro_torch.evals import rei as ER
 from repro_torch.evals.matrix import _lane_runner
-from repro_torch.scaling import batch, registry, scenarios
+from repro_torch.obs import trace as obs_trace
+from repro_torch.scaling import registry, scenarios
 from repro_torch.sim.cluster import SimConfig
 
 
@@ -64,8 +76,8 @@ class FleetSpec:
     seed: int = 0
     sim: tuple[tuple[str, Any], ...] = ()
     bins: int = EM.DEFAULT_BINS
-    #: the reference's decision-trace sample per chunk (0 = off); not
-    #: ported yet, so a run with trace_lanes > 0 raises
+    #: capture the decision trace for this many deterministically
+    #: sampled lanes PER CHUNK (0 = telemetry off); one-dispatch mode only
     trace_lanes: int = 0
 
     def __post_init__(self):
@@ -128,7 +140,6 @@ def build_rates(spec_: FleetSpec) -> np.ndarray:
 
 def _chunk_body(spec_: FleetSpec, classify, dev):
     """rates [Wc, M] on `dev` -> the chunk's pooled MetricAccum [P]."""
-    batch._no_telemetry(spec_.trace_lanes > 0)
     cfg = spec_.sim_config()
     edges = EM.response_edges(spec_.bins, cfg.resp_cap_sec, device=dev)
     lanes = _lane_runner(controllers(spec_, classify), cfg, edges,
@@ -150,9 +161,15 @@ def make_fleet_runner(spec_: FleetSpec, classify=None, *,
     """rates [C, Wc, M] -> pooled MetricAccum of [P] leaves on `device`,
     one call: the chunks run in order and their accumulators sum.
     `donate` is the reference's (it donates the rates buffer to XLA) and
-    does nothing here."""
+    does nothing here.
+
+    With ``spec_.trace_lanes > 0`` the runner returns ``(accum,
+    ControlTrace)``: K sampled lanes per chunk, decisions leaves
+    [C, M, H, P, K], minutes [C, M, P, K]."""
     del donate
     dev = _device.resolve(device)
+    if spec_.trace_lanes > 0:
+        return _traced_runner(spec_, classify, dev)
     body = _chunk_body(spec_, classify, dev)
 
     def run(rates) -> EM.MetricAccum:
@@ -161,6 +178,28 @@ def make_fleet_runner(spec_: FleetSpec, classify=None, *,
         for chunk in rates:
             acc = _add(acc, body(chunk))
         return acc
+
+    return run
+
+
+def _traced_runner(spec_: FleetSpec, classify, dev):
+    """rates [C, Wc, M] -> (pooled MetricAccum [P], ControlTrace with
+    decisions [C, M, H, P, K]): the chunks as the cells of one traced
+    episode per policy (see the module docstring), their pooled
+    accumulators summed in chunk order."""
+    cfg = spec_.sim_config()
+    edges = EM.response_edges(spec_.bins, cfg.resp_cap_sec, device=dev)
+    lanes = _lane_runner(controllers(spec_, classify), cfg, edges,
+                         per_workload=False, telemetry=True,
+                         trace_lanes=spec_.trace_lanes)
+
+    def run(rates):
+        rates = torch.as_tensor(rates).to(device=dev, dtype=torch.float32)
+        per_chunk, ct = lanes(rates)                  # accums [P, C]
+        acc = _acc0(spec_, dev)
+        for c in range(rates.shape[0]):
+            acc = _add(acc, EM.MetricAccum(*(a[:, c] for a in per_chunk)))
+        return acc, ct
 
     return run
 
@@ -184,7 +223,7 @@ class FleetResult(NamedTuple):
     pooled: EM.EpisodeMetrics    # [P] numpy, pooled over the whole fleet
     rei: ER.REIBreakdown         # [P] numpy
     meta: dict                   # wall_s, lane_minutes_per_sec, memory ...
-    trace: Any = None            # the reference's ControlTrace; always None
+    trace: Any = None            # ControlTrace (numpy) if trace_lanes > 0
 
 
 def _peak_rss_mb() -> float:
@@ -224,8 +263,15 @@ def run_fleet(spec_: FleetSpec, *, classify=None, stream: bool = False,
     seconds spent generating rates: `build_rates` before a one-dispatch
     call, the generator inside a stream), `gen_share` (that over the
     run's elapsed time) and `peak_device_bytes` (the run's
-    ``torch.cuda.max_memory_allocated``; None on the CPU)."""
-    batch._no_telemetry(spec_.trace_lanes > 0)
+    ``torch.cuda.max_memory_allocated``; None on the CPU). With
+    ``spec_.trace_lanes > 0`` the result's `trace` is the sampled lanes'
+    ControlTrace (numpy; decisions [C, M, H, P, K]); the stream refuses
+    it."""
+    telemetry = spec_.trace_lanes > 0
+    if telemetry and stream:
+        raise ValueError("trace_lanes requires the one-dispatch mode; "
+                         "the streaming fold keeps only the accumulator "
+                         "(set stream=False)")
     dev = _device.resolve(device)
     cfg = spec_.sim_config()
     edges = EM.response_edges(spec_.bins, cfg.resp_cap_sec, device=dev)
@@ -237,6 +283,7 @@ def run_fleet(spec_: FleetSpec, *, classify=None, stream: bool = False,
             torch.cuda.synchronize(dev)
 
     t_build = time.perf_counter()
+    ct = None
     if stream:
         fold = make_chunk_folder(spec_, classify, device=dev)
         feed, spent = _timed(rate_chunks(spec_) if chunks is None
@@ -264,8 +311,9 @@ def run_fleet(spec_: FleetSpec, *, classify=None, stream: bool = False,
             torch.cuda.reset_peak_memory_stats(dev)
         sync()
         t0 = time.perf_counter()
-        acc = run(rates)
+        out = run(rates)
         sync()
+        acc, ct = out if telemetry else (out, None)
         W, dispatches = spec_.n_workloads, 1
     wall = time.perf_counter() - t0
     pooled = EM.finalize(acc, edges)
@@ -289,4 +337,5 @@ def run_fleet(spec_: FleetSpec, *, classify=None, stream: bool = False,
     def host(tree):
         return type(tree)(*(a.cpu().numpy() for a in tree))
 
-    return FleetResult(spec_, host(pooled), host(rei_b), meta, None)
+    return FleetResult(spec_, host(pooled), host(rei_b), meta,
+                       None if ct is None else obs_trace.to_numpy(ct))

@@ -29,6 +29,14 @@ in-scan fold; they agree at its pooling tolerance.
 Policies that take no forecaster ignore the forecaster axis: lane (f, p)
 repeats the same controller for every f, which keeps the result dense;
 the runner runs such a controller once and repeats its cells.
+
+With ``telemetry=True`` each controller lane runs its episodes through
+the blocked loop with the decision trace instead
+(``sim.cluster.run_traced``: eager `decide` at every control-period head,
+``plant_block`` for the decision-free ticks on the card), all [S, Z, W]
+lanes in one episode, `trace_lanes` of each cell's W lanes traced. Its
+`MinuteOut` is the plain episode's bit for bit on the CPU, and the fused
+kernel's at the episode tolerance on the card.
 """
 from __future__ import annotations
 
@@ -41,7 +49,9 @@ import torch
 from repro_torch import _device
 from repro_torch.evals import metrics as EM
 from repro_torch.evals import rei as ER
+from repro_torch.obs import trace as obs_trace
 from repro_torch.scaling import batch, registry, scenarios
+from repro_torch.sim import cluster
 from repro_torch.sim.cluster import MinuteOut, SimConfig
 
 SCHEMA_VERSION = 1
@@ -164,16 +174,26 @@ def _stack(accs: list[EM.MetricAccum]) -> EM.MetricAccum:
 
 
 def _lane_runner(ctrls, cfg, edges, *, per_workload: bool = True,
-                 w_chunk: int | None = None):
+                 w_chunk: int | None = None, telemetry: bool = False,
+                 trace_lanes: int | None = None):
     """rates [G, W, M] (G independent cells of W workloads) ->
     MetricAccum of [L, G, W] leaves (hist [L, G, W, bins]), or with
     ``per_workload=False`` of [L, G] leaves pooled over W. Each of the L
     controllers runs `w_chunk` workloads per episode call
     (``kernels.ops.episode_block``); each chunk's outputs fold into the
     accumulators before the next chunk runs. The shared core of the
-    matrix runner and the controller evaluator."""
+    matrix runner and the controller evaluator.
+
+    ``telemetry=True`` runs each controller's G * W lanes in one traced
+    blocked episode (`w_chunk` must be None) and returns ``(accums,
+    ControlTrace)`` with decisions leaves [G, M, H, L, K] and minutes
+    [G, M, L, K], K = `trace_lanes` sampled lanes of each cell."""
     from repro_torch.kernels import ops
     bins = edges.shape[0]
+
+    def fold_pooled(acc, m):
+        return EM.accum_update_pooled(
+            acc, MinuteOut(*(f.reshape(-1) for f in m)), edges)
 
     def lanes(rates: torch.Tensor) -> EM.MetricAccum:
         G, W, M = rates.shape
@@ -196,14 +216,49 @@ def _lane_runner(ctrls, cfg, edges, *, per_workload: bool = True,
                 for sl in batch.chunks(W, w_chunk):
                     m = ops.episode_block(rates[g, sl].contiguous(), ctrl,
                                           cfg)
-                    acc = EM.accum_update_pooled(
-                        acc, MinuteOut(*(f.reshape(-1) for f in m)), edges)
+                    acc = fold_pooled(acc, m)
                     del m
                 cells.append(acc)
             out.append(_stack(cells))
         return _stack(out)
 
-    return lanes
+    def traced(rates: torch.Tensor):
+        G, W, M = rates.shape
+        dev = rates.device
+        idx = batch.trace_index(W, trace_lanes, dev)
+        K = W if idx is None else len(idx)
+        flat_idx = None if idx is None else (
+            torch.arange(G, device=dev)[:, None] * W + idx).reshape(-1)
+        accs, cts = [], []
+        for ctrl in ctrls:
+            m, ct = cluster.run_traced(rates.reshape(G * W, M), ctrl, cfg,
+                                       dev.type == "cuda", flat_idx)
+            if per_workload:
+                accs.append(EM.MetricAccum(*(
+                    f.reshape((G, W) + f.shape[1:])
+                    for f in EM._accum(m, bins, edges))))
+            else:
+                accs.append(_stack([fold_pooled(
+                    EM.accum_init(bins, device=dev),
+                    MinuteOut(*(f[g * W:(g + 1) * W] for f in m)))
+                    for g in range(G)]))
+            del m
+            cts.append(obs_trace.ControlTrace(
+                decisions=type(ct.decisions)(*(
+                    a.reshape(a.shape[:2] + (G, K)).movedim(2, 0)
+                    for a in ct.decisions)),
+                minutes=type(ct.minutes)(*(
+                    a.reshape((M, G, K)).movedim(1, 0)
+                    for a in ct.minutes))))
+        return _stack(accs), batch.stack_traces(cts, 3)
+
+    if not telemetry:
+        return lanes
+    if w_chunk is not None:
+        raise ValueError("telemetry runs each cell's workloads in one "
+                         "traced episode; it does not compose with "
+                         "w_chunk")
+    return traced
 
 
 def make_runner(spec_: MatrixSpec, classify=None, *,
@@ -219,10 +274,14 @@ def make_runner(spec_: MatrixSpec, classify=None, *,
     ``(pooled, None)``: the fleet-scale mode. `w_chunk` workloads run per
     episode call (per-workload mode: of the flattened S * Z * W lanes;
     pooled mode: of each cell's W, which it must divide). `shard` and
-    `donate` are the reference's and do nothing on one card; `telemetry`
-    is not ported yet and raises."""
-    del shard, donate, trace_lanes
-    batch._no_telemetry(telemetry)
+    `donate` are the reference's and do nothing on one card.
+
+    ``telemetry=True`` runs the traced blocked episodes (see the module
+    docstring; `w_chunk` must be None) and returns a 3-tuple ``(pooled,
+    per_workload, ControlTrace)`` with decisions leaves [S, Z, M, H, F,
+    P, K] and minutes leaves [S, Z, M, F, P, K] (K = `trace_lanes`
+    sampled workloads, all when None)."""
+    del shard, donate
     dev = _device.resolve(device)
     cfg = spec_.sim_config()
     S, Z, F, P = spec_.shape
@@ -234,7 +293,8 @@ def make_runner(spec_: MatrixSpec, classify=None, *,
     source = [lane if lane in runs else lane % P for lane in range(F * P)]
     edges = EM.response_edges(spec_.bins, cfg.resp_cap_sec, device=dev)
     lanes = _lane_runner([ctrls[lane] for lane in runs], cfg, edges,
-                         per_workload=per_workload, w_chunk=w_chunk)
+                         per_workload=per_workload, w_chunk=w_chunk,
+                         telemetry=telemetry, trace_lanes=trace_lanes)
     pick = torch.tensor([runs.index(lane) for lane in source], device=dev)
 
     def cells(a: torch.Tensor) -> torch.Tensor:
@@ -242,19 +302,33 @@ def make_runner(spec_: MatrixSpec, classify=None, *,
         a = a[pick].reshape((F, P, S, Z) + a.shape[2:])
         return a.permute(2, 3, 0, 1, *range(4, a.dim()))
 
+    def trace_cells(a: torch.Tensor, axis: int) -> torch.Tensor:
+        """[S * Z, ..., runs (at `axis`), K] -> [S, Z, ..., F, P, K]"""
+        a = a.index_select(axis, pick)
+        return a.reshape((S, Z) + a.shape[1:axis] + (F, P)
+                         + a.shape[axis + 1:])
+
     def run_fn(rates):
         rates = torch.as_tensor(rates).to(device=dev, dtype=torch.float32)
         if tuple(rates.shape[:2]) != (S, Z):
             raise ValueError(f"rates {tuple(rates.shape)}: expected "
                              f"[{S}, {Z}, W, M]")
-        accs = EM.MetricAccum(*(cells(a) for a in lanes(
-            rates.reshape((S * Z,) + rates.shape[2:]))))
+        out = lanes(rates.reshape((S * Z,) + rates.shape[2:]))
+        accs, ct = out if telemetry else (out, None)
+        accs = EM.MetricAccum(*(cells(a) for a in accs))
+        if telemetry:
+            ct = obs_trace.ControlTrace(
+                decisions=type(ct.decisions)(*(
+                    trace_cells(a, 3) for a in ct.decisions)),
+                minutes=type(ct.minutes)(*(
+                    trace_cells(a, 2) for a in ct.minutes)))
         if not per_workload:
-            return EM.finalize(accs, edges), None
-        per_w = EM.finalize(accs, edges)
-        pool = EM.finalize(EM.MetricAccum(*(
-            a.sum(4) for a in accs)), edges)
-        return pool, per_w
+            pool, per_w = EM.finalize(accs, edges), None
+        else:
+            per_w = EM.finalize(accs, edges)
+            pool = EM.finalize(EM.MetricAccum(*(
+                a.sum(4) for a in accs)), edges)
+        return (pool, per_w, ct) if telemetry else (pool, per_w)
 
     return run_fn
 
@@ -269,23 +343,33 @@ def make_controller_evaluator(ctrls: Sequence,
     """A single-scenario evaluator for ad-hoc controllers (ablation
     variants, custom bands): rates [W, M] -> (pooled EpisodeMetrics [P],
     per-workload [P, W]); with ``per_workload=False`` the workload axis
-    pools chunk by chunk and the result is ``(pooled [P], None)``."""
-    del shard, trace_lanes
-    batch._no_telemetry(telemetry)
+    pools chunk by chunk and the result is ``(pooled [P], None)``.
+    ``telemetry=True`` appends the ControlTrace (decisions leaves
+    [M, H, P, K], minutes [M, P, K]) as a third element."""
+    del shard
     dev = _device.resolve(device)
     edges = EM.response_edges(bins, cfg.resp_cap_sec, device=dev)
     lanes = _lane_runner(list(ctrls), cfg, edges,
-                         per_workload=per_workload, w_chunk=w_chunk)
+                         per_workload=per_workload, w_chunk=w_chunk,
+                         telemetry=telemetry, trace_lanes=trace_lanes)
 
     def run_fn(rates_w):
         rates_w = torch.as_tensor(rates_w).to(device=dev,
                                               dtype=torch.float32)
-        accs = EM.MetricAccum(*(a[:, 0] for a in lanes(rates_w[None])))
+        out = lanes(rates_w[None])
+        accs, ct = out if telemetry else (out, None)
+        accs = EM.MetricAccum(*(a[:, 0] for a in accs))
         if not per_workload:
-            return EM.finalize(accs, edges), None
-        pool = EM.finalize(EM.MetricAccum(*(a.sum(1) for a in accs)),
-                           edges)
-        return pool, EM.finalize(accs, edges)
+            pool, per_w = EM.finalize(accs, edges), None
+        else:
+            pool = EM.finalize(EM.MetricAccum(*(a.sum(1) for a in accs)),
+                               edges)
+            per_w = EM.finalize(accs, edges)
+        if not telemetry:
+            return pool, per_w
+        return pool, per_w, obs_trace.ControlTrace(
+            decisions=type(ct.decisions)(*(a[0] for a in ct.decisions)),
+            minutes=type(ct.minutes)(*(a[0] for a in ct.minutes)))
 
     return run_fn
 

@@ -7,6 +7,11 @@ lanes (one lane = one simulated workload; ``()`` is a single lane):
     on_minute(ctrl_state, rate_history, minute_idx) -> ctrl_state
     decide(ctrl_state, obs) -> (ctrl_state, desired_replicas, cooldown_sec)
 
+and an optional telemetry hook, `explain(ctrl_state, obs) ->
+repro_torch.obs.trace.ExplainOut`: the forecast, confidence and guard
+signals behind the decision `decide` is about to make, read from the
+pre-decide state (None: the policy reports no signals).
+
 `hyper` carries the policy's hyperparameters for the fused episode
 kernel (``repro_torch.kernels.episode_block``), whose `decide` is a CUDA
 device function chosen by the controller's `name`.
@@ -39,6 +44,7 @@ class Controller(NamedTuple):
     init: Callable[..., Any]                 # (lanes, device) -> state
     on_minute: Callable[[Any, torch.Tensor, int], Any]
     decide: Callable[[Any, Obs], tuple[Any, torch.Tensor, torch.Tensor]]
+    explain: Callable[[Any, Obs], Any] | None = None
     hyper: Mapping[str, float] = {}
 
 

@@ -21,8 +21,9 @@ the plain version. Lane (p, w) is ``simulate(rates[w], controllers[p])``.
 
 `shard=` and `donate=` are accepted and ignored: on one card the
 reference's sharding helpers are the identity without a mesh
-(``repro.dist.sharding.constrain``). `telemetry=True` (the in-scan
-decision trace) is not ported yet and raises.
+(``repro.dist.sharding.constrain``). `telemetry=True` runs each
+controller lane's episodes through the blocked loop with its decision
+trace (``sim.cluster.run_traced``), `trace_lanes` of the W lanes traced.
 """
 from __future__ import annotations
 
@@ -32,15 +33,11 @@ import numpy as np
 import torch
 
 from repro_torch import _device
+from repro_torch.obs import trace as obs_trace
 from repro_torch.scaling import registry
 from repro_torch.scaling.api import Controller
+from repro_torch.sim import cluster
 from repro_torch.sim.cluster import MinuteOut, SimConfig, simulate
-
-
-def _no_telemetry(telemetry: bool) -> None:
-    if telemetry:
-        raise NotImplementedError(
-            "telemetry (the in-scan decision trace) is not ported yet")
 
 
 def chunks(W: int, w_chunk: int | None) -> list[slice]:
@@ -53,6 +50,24 @@ def chunks(W: int, w_chunk: int | None) -> list[slice]:
     return [slice(i, i + w_chunk) for i in range(0, W, w_chunk)]
 
 
+def stack_traces(traces: list[obs_trace.ControlTrace], lane_axis: int
+                 ) -> obs_trace.ControlTrace:
+    """Per-controller time-major traces (decisions [M, H, ...],
+    minutes [M, ...]) stacked on a new controller axis: decisions at
+    `lane_axis`, minutes one axis earlier (they have no H axis)."""
+    def stack(parts, axis):
+        return type(parts[0])(*(torch.stack(f, axis) for f in zip(*parts)))
+    return obs_trace.ControlTrace(
+        decisions=stack([t.decisions for t in traces], lane_axis),
+        minutes=stack([t.minutes for t in traces], lane_axis - 1))
+
+
+def trace_index(W: int, trace_lanes: int | None, dev):
+    """The traced lanes of W as a LongTensor on `dev` (None: all)."""
+    idx = obs_trace.sample_lanes(W, trace_lanes)
+    return None if idx is None else torch.as_tensor(idx, device=dev)
+
+
 def make_batch_simulator(controllers: Sequence[Controller],
                          cfg: SimConfig = SimConfig(), *, device="cuda",
                          plant_kernel: bool | None = None,
@@ -63,14 +78,38 @@ def make_batch_simulator(controllers: Sequence[Controller],
     """rates [W, M] -> MinuteOut [P, W, M]: every controller's episodes
     over the W lanes, `w_chunk` lanes per episode call (one episode
     kernel launch each on the card, after the policy's pre-pass).
-    `plant_kernel` and `decide_kernel` are ``cluster.simulate``'s."""
-    del shard, donate, trace_lanes
-    _no_telemetry(telemetry)
+    `plant_kernel` and `decide_kernel` are ``cluster.simulate``'s.
+
+    `telemetry` returns ``(MinuteOut [P, W, M], ControlTrace)`` with the
+    trace time-major: decisions leaves [M, H, P, K], minutes [M, P, K]
+    (K = `trace_lanes` sampled lanes, ``obs.trace.sample_lanes``; all W
+    when None). It runs the blocked loop, so on the card it needs
+    ``decide_kernel=False`` (else ValueError, as in the reference), and
+    it refuses `w_chunk`: chunked capture is ``evals.fleet``'s
+    (``FleetSpec.trace_lanes``)."""
+    del shard, donate
     ctrls = list(controllers)
     dev = _device.resolve(device)
+    if telemetry and w_chunk is not None:
+        raise ValueError(
+            "telemetry does not compose with w_chunk here; for chunked "
+            "capture use repro_torch.evals.fleet with trace_lanes "
+            "(FleetSpec(..., trace_lanes=K) samples K lanes per chunk)")
+    if telemetry and cluster._use_decide_kernel(dev, decide_kernel):
+        cluster._reject_decide_kernel_telemetry()
+    use_kernel = dev.type == "cuda" if plant_kernel is None else plant_kernel
+
+    def traced(rates):
+        idx = trace_index(rates.shape[0], trace_lanes, dev)
+        outs, cts = zip(*(cluster.run_traced(rates, ctrl, cfg, use_kernel,
+                                             idx) for ctrl in ctrls))
+        return (MinuteOut(*(torch.stack(f) for f in zip(*outs))),
+                stack_traces(list(cts), 2))
 
     def run(rates) -> MinuteOut:
         rates = torch.as_tensor(rates).to(device=dev, dtype=torch.float32)
+        if telemetry:
+            return traced(rates)
         W, M = rates.shape
         per_ctrl = []
         for ctrl in ctrls:
@@ -168,12 +207,13 @@ def grid_split(name: str, grid: Sequence[dict], fixed: dict):
 
 
 def _grid_controllers(name: str, grid: Sequence[dict], cfg, classify,
-                      fixed: dict) -> list[Controller]:
+                      fixed: dict) -> tuple[list[Controller], list]:
     """The registry's controller of each grid point (defaults, then
-    `fixed`, then the point), in grid order."""
-    grid_split(name, grid, fixed)
+    `fixed`, then the point), in grid order, and the grid's static
+    groups (`grid_split`)."""
+    _, _, groups = grid_split(name, grid, fixed)
     return [registry.get_controller(name, cfg, classify=classify,
-                                    **fixed, **g) for g in grid]
+                                    **fixed, **g) for g in grid], groups
 
 
 def make_grid_simulator(name: str, grid: Sequence[dict],
@@ -183,7 +223,7 @@ def make_grid_simulator(name: str, grid: Sequence[dict],
     [W, M] -> MinuteOut [len(grid), W, M] in grid order."""
     return make_batch_simulator(
         _grid_controllers(name, [dict(g) for g in grid], cfg, classify,
-                          fixed), cfg, device=device)
+                          fixed)[0], cfg, device=device)
 
 
 def make_grid_evaluator(name: str, cfg: SimConfig = SimConfig(), *,
@@ -201,12 +241,14 @@ def make_grid_evaluator(name: str, cfg: SimConfig = SimConfig(), *,
     _validate_hyper(registry.spec(name), fixed, "fixed kwargs")
     bins = EM.DEFAULT_BINS if bins is None else bins
     rei_kw = dict(rei_kw or {})
+    structures: set[tuple] = set()
 
     def evaluate(grid, rates):
-        ctrls = _grid_controllers(name, [dict(g) for g in grid], cfg,
-                                  classify, fixed)
+        ctrls, groups = _grid_controllers(name, [dict(g) for g in grid],
+                                          cfg, classify, fixed)
         rates = torch.as_tensor(rates)
         W, M = rates.shape
+        structures.update((skey, len(idx), (W, M)) for skey, idx in groups)
         met, _ = matrix.make_controller_evaluator(
             ctrls, cfg, bins=bins, per_workload=False, device=device)(rates)
         rb = ER.rei(met.slo_violation_rate, met.replica_minutes,
@@ -214,4 +256,7 @@ def make_grid_evaluator(name: str, cfg: SimConfig = SimConfig(), *,
                     **{"minutes": M, "n_workloads": W, **rei_kw})
         return met, rb
 
+    # what the reference's compile cache counts: one entry per static
+    # group, group size and rates shape the evaluator has seen
+    evaluate._cache_size = lambda: len(structures)
     return evaluate

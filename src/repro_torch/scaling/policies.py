@@ -17,9 +17,11 @@
 
 Divisions by a constant are multiplies by its f32 reciprocal, which is
 what XLA compiles the reference's constant divisors to; the episode
-kernel does the same. Each controller's `hyper` dict is the one source
-of its hyperparameters: `decide`/`on_minute` read them there and the
-episode kernel's launcher passes the same values to the card.
+kernel does the same, and so do the `explain` hooks of predictive, AAPA
+and hybrid (hybrid's guard floor is its `decide`'s). Each controller's
+`hyper` dict is the one source of its hyperparameters: `decide`/
+`on_minute` read them there and the episode kernel's launcher passes the
+same values to the card.
 """
 from __future__ import annotations
 
@@ -37,7 +39,28 @@ from repro_torch.core.archetypes import table_iii_arrays
 from repro_torch.forecast import api as fapi
 from repro_torch.forecast import conformal as fconf
 from repro_torch.forecast import registry as forecast_registry
+from repro_torch.obs.trace import ExplainOut
 from repro_torch.scaling.api import Controller, Obs
+
+
+def _nan_like(t: torch.Tensor) -> torch.Tensor:
+    return torch.full_like(t, float("nan"))
+
+
+def _per_minute(fn):
+    """`fn(*inputs)` remembered for the inputs of its last call, compared
+    by identity: the rate signals a decide reads change only with the
+    minute hook's forecaster state and the rate history, so the control
+    periods of one minute share one evaluation (the episode kernel's
+    pre-pass likewise computes them once a minute). The inputs are held,
+    so an identity cannot be reused by another object."""
+    last: list = []
+
+    def call(*inputs):
+        if not (last and all(a is b for a, b in zip(last[0], inputs))):
+            last[:] = [inputs, fn(*inputs)]
+        return last[1]
+    return call
 
 
 def _select4(idx, v0, v1, v2, v3):
@@ -137,11 +160,19 @@ def predictive_controller(cfg, *, target: float = 0.70,
     def on_minute(state: PredState, hist, minute_idx):
         return PredState(fc=fcst.update(state.fc, hist[..., -1]))
 
-    def decide(state: PredState, obs: Obs):
-        return (state, *predictive_decide(
-            hyper, predictive_need(hyper, state.fc), obs))
+    need = _per_minute(lambda fstate: predictive_need(hyper, fstate))
 
-    return Controller("predictive", init, on_minute, decide, hyper=hyper)
+    def decide(state: PredState, obs: Obs):
+        return (state, *predictive_decide(hyper, need(state.fc), obs))
+
+    def explain(state: PredState, obs: Obs):
+        iv = fcst.forecast(state.fc, hyper["horizon_min"])
+        nan = _nan_like(iv.point)
+        return ExplainOut(fc_point=iv.point, fc_lo=iv.lo, fc_hi=iv.hi,
+                          confidence=nan, archetype=nan, guard_floor=nan)
+
+    return Controller("predictive", init, on_minute, decide, explain,
+                      hyper=hyper)
 
 
 def predictive_need(hyper: dict, fstate: fapi.FState) -> torch.Tensor:
@@ -233,12 +264,22 @@ def _aapa(cfg, hyper: dict) -> Controller:
         return AAPAState(fst, arch, conf, adj.target_cpu, adj.cooldown_min,
                          adj.min_replicas)
 
+    rate_signals = _per_minute(
+        lambda fstate, hist: aapa_rate_signals(hyper, fstate, hist))
+
     def decide(state: AAPAState, obs: Obs):
         return (state, *aapa_decide(cfg, hyper, state, obs,
-                                    *aapa_rate_signals(hyper, state.fc,
-                                                       obs.rate_history)))
+                                    *rate_signals(state.fc,
+                                                  obs.rate_history)))
 
-    return Controller("aapa", init, on_minute, decide, hyper=hyper)
+    def explain(state: AAPAState, obs: Obs):
+        iv = hyper["forecaster"].forecast(state.fc, hyper["horizon_min"])
+        return ExplainOut(fc_point=iv.point, fc_lo=iv.lo, fc_hi=iv.hi,
+                          confidence=state.conf,
+                          archetype=state.arch.to(torch.float32),
+                          guard_floor=_nan_like(iv.point))
+
+    return Controller("aapa", init, on_minute, decide, explain, hyper=hyper)
 
 
 def aapa_rate_signals(hyper: dict, fstate: fapi.FState, rate_history):
@@ -382,17 +423,26 @@ def _hybrid(cfg, hyper: dict) -> Controller:
         state, desired, cool = base.decide(state, obs)
         return state, hybrid_guard(hyper, desired, obs), cool
 
-    return Controller("hybrid", base.init, base.on_minute, decide,
+    def explain(state, obs: Obs):
+        return base.explain(state, obs)._replace(
+            guard_floor=_guard_floor(hyper, obs))
+
+    return Controller("hybrid", base.init, base.on_minute, decide, explain,
                       hyper=hyper)
+
+
+def _guard_floor(hyper: dict, obs: Obs):
+    """The hybrid guard's reactive floor: the replicas live utilization
+    and the live arrival rate need at `guard_target`."""
+    return torch.maximum(
+        torch.ceil(obs.ready_total * obs.util_ema * hyper["inv_guard"]),
+        torch.ceil(obs.rate_rps * hyper["inv_rps_guard"]))
 
 
 def hybrid_guard(hyper: dict, desired, obs: Obs):
     """The hybrid policy's guard around AAPA's decision: a reactive floor
     from live utilization and a bounded scale-down step."""
-    floor = torch.maximum(
-        torch.ceil(obs.ready_total * obs.util_ema * hyper["inv_guard"]),
-        torch.ceil(obs.rate_rps * hyper["inv_rps_guard"]))
-    guarded = torch.maximum(desired, floor)
+    guarded = torch.maximum(desired, _guard_floor(hyper, obs))
     step_floor = torch.ceil(obs.ready_total * hyper["down_keep"])
     return torch.where(guarded < obs.ready_total,
                        torch.maximum(guarded, step_floor), guarded)

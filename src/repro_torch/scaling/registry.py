@@ -8,7 +8,8 @@ All five policies of the reference are registered, with its defaults;
 asking for any other name raises a ``KeyError`` that lists them. Each
 spec also names its *stackable* hyperparameters (those a grid may vary
 without changing the episode's structure, ``scaling.batch``) and whether
-the policy takes a forecaster by name.
+the policy takes a forecaster by name. ``tuned:<policy>@<hash12>`` names
+the winner of a published tuning card (``tuning.artifacts``).
 """
 from __future__ import annotations
 
@@ -52,7 +53,19 @@ def available() -> list[str]:
     return sorted(_REGISTRY)
 
 
+#: ``registry.make("tuned:<policy>@<hash12>", cfg)`` rebuilds the winner
+#: of a published ``repro_torch.tuning`` search card exactly.
+TUNED_PREFIX = "tuned:"
+
+
+def _resolve_tuned(name: str) -> tuple[str, dict[str, Any]]:
+    from repro_torch.tuning import artifacts as tuning_artifacts
+    return tuning_artifacts.resolve(name[len(TUNED_PREFIX):])
+
+
 def spec(name: str) -> PolicySpec:
+    if name.startswith(TUNED_PREFIX):
+        return spec(_resolve_tuned(name)[0])
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -73,7 +86,16 @@ def get_controller(name: str, cfg, *, classify=None,
                    **overrides) -> Controller:
     """Build a registered controller with defaults + overrides applied;
     a policy that needs a classifier takes `classify` (default
-    `default_classify`)."""
+    `default_classify`).
+
+    ``tuned:<policy>@<hash12>`` names resolve through the tuning cards
+    (``tuning.artifacts.resolve``, its `DEFAULT_ROOT`): the card's best
+    point over the base policy's defaults, then `overrides` on top — the
+    controller the search scored."""
+    if name.startswith(TUNED_PREFIX):
+        base, params = _resolve_tuned(name)
+        return get_controller(base, cfg, classify=classify,
+                              **{**params, **overrides})
     sp = spec(name)
     kw = dict(sp.defaults)
     unknown = set(overrides) - set(kw)

@@ -26,6 +26,13 @@ whole episodes through the fused ``episode_block`` kernel; with
 ``decide_kernel=False`` the blocked loop below runs and its plant ticks
 go through the ``plant_block`` kernel. With ``device="cpu"`` both run
 their plain PyTorch versions (``repro_torch.kernels.ref``).
+
+Telemetry (``telemetry=True``) rides the blocked loop only: each block
+head also yields a ``obs.trace.DecisionRecord`` of the decision, built
+from values the step computes anyway and fed back into nothing, so the
+traced `MinuteOut` equals the untraced one bit for bit. The fused kernel
+keeps its decisions on the card, so asking it for a trace raises, as in
+the reference; run with ``decide_kernel=False``.
 """
 from __future__ import annotations
 
@@ -36,13 +43,15 @@ import torch
 
 from repro_torch import _device
 from repro_torch._numerics import recip
+from repro_torch.obs import trace as obs_trace
 from repro_torch.scaling.api import (Controller, LimiterState, Obs,
-                                     apply_decision, limiter_init)
+                                     ScaleAction, apply_decision,
+                                     limiter_init)
 
 __all__ = ["Controller", "Obs", "SimConfig", "SimState", "MinuteOut",
            "advance_plant", "initial_state", "minute_step",
-           "minute_step_reference", "plant_block_ref", "simulate",
-           "simulate_reference", "make_simulator"]
+           "minute_step_reference", "plant_block_ref", "run_traced",
+           "simulate", "simulate_reference", "make_simulator"]
 
 EPSF = 1e-9
 F32 = torch.float32
@@ -156,12 +165,23 @@ def _tree_where(mask, new, old):
     return type(new)(*(_tree_where(mask, n, o) for n, o in zip(new, old)))
 
 
+def _tree_index(tree, idx):
+    """Every tensor leaf of a (nested) NamedTuple indexed by `idx` along
+    its first (lane) axis."""
+    if isinstance(tree, torch.Tensor):
+        return tree[idx]
+    return type(tree)(*(_tree_index(t, idx) for t in tree))
+
+
 def _ctrl_tick(cfg: SimConfig, controller: Controller, state: SimState,
-               arrivals, minute_idx, do_ctrl=True):
+               arrivals, minute_idx, do_ctrl=True, telemetry: bool = False,
+               head_sec: float = 0.0, trace_idx=None):
     """One 1-second step with a controller decision. `do_ctrl` is True on
     block heads (the blocked path) or a bool mask (the reference path,
     which evaluates `decide` on every tick and discards off-interval
-    results)."""
+    results). `telemetry` also returns the DecisionRecord of this
+    decision (of the lanes `trace_idx` picks along the first lane axis,
+    all when None); it only reads the step's values."""
     ready, pipeline, pipe_sum = _pop_pipeline(
         state.ready, state.pipeline, state.pipe_sum)
     (queue, wait_sum, util_ema, served, violated, cold, resp,
@@ -174,9 +194,11 @@ def _ctrl_tick(cfg: SimConfig, controller: Controller, state: SimState,
     ctrl_state, desired, cool_req = controller.decide(state.ctrl_state, obs)
     if do_ctrl is not True:
         ctrl_state = _tree_where(do_ctrl, ctrl_state, state.ctrl_state)
+    desired_raw = desired
     desired = desired.clamp(0.0, cfg.max_replicas)
     lim, act = apply_decision(state.lim, total, desired, cool_req,
                               do_ctrl, dt=1.0)
+    ready_at_decision = ready
     ready, pipeline, pipe_sum = _apply_scaling(ready, pipeline, pipe_sum,
                                                act)
     new_state = SimState(ready=ready, pipeline=pipeline, pipe_sum=pipe_sum,
@@ -186,7 +208,34 @@ def _ctrl_tick(cfg: SimConfig, controller: Controller, state: SimState,
     out = (served, violated, cold, ready + pipe_sum, resp, util,
            act.scale_up.to(F32), act.scale_down.to(F32), act.oscillation,
            ready)
-    return new_state, out
+    if not telemetry:
+        return new_state, out
+    # the decision site's lane values, stacked and picked once (the
+    # trace's cost is the traced lanes', not the fleet's)
+    site = torch.stack([x if x.shape == desired.shape
+                        else torch.broadcast_to(x, desired.shape) for x in (
+        ready_at_decision, total, queue, util_ema, arrivals, desired_raw,
+        desired, cool_req, state.lim.cooldown, act.add, act.remove,
+        act.scale_up.to(F32), act.scale_down.to(F32))])
+    ctrl_before, hist = state.ctrl_state, state.rate_history
+    if trace_idx is not None:
+        site = site[:, trace_idx]
+        ctrl_before = _tree_index(ctrl_before, trace_idx)
+        hist = hist[trace_idx]
+    (r, tot, q, u, a, d_raw, d, c_req, c_before, add, remove, up,
+     down) = site.unbind(0)
+    exp = (controller.explain(ctrl_before, Obs(
+        ready_total=tot, ready=r, util_ema=u, queue=q, rate_rps=a,
+        rate_history=hist, minute_idx=minute_idx))
+        if controller.explain is not None
+        else obs_trace.explain_nan(d.shape, d.device))
+    rec = obs_trace.record(
+        cfg, minute_idx=minute_idx, sec=head_sec, ready=r, total=tot,
+        queue=q, util_ema=u, rate_rps=a, exp=exp, desired_raw=d_raw,
+        desired=d, cooldown_req=c_req, cooldown_before=c_before,
+        act=ScaleAction(add=add, remove=remove, scale_up=up,
+                        scale_down=down, oscillation=None))
+    return new_state, out, rec
 
 
 # ------------------------------------------------- minute accumulation ----
@@ -302,9 +351,13 @@ def _plant_block(cfg: SimConfig, state: SimState, acc, arrivals,
 
     from repro_torch.kernels import ops
     lanes = state.ready.shape
-    flat = lambda x: x.reshape(-1)                       # noqa: E731
+    # [B] lanes (a fleet) pass as they are: each view is one more eager
+    # dispatch a control period
+    flat, shaped = ((lambda x: x, lambda x, shape: x) if len(lanes) == 1
+                    else (lambda x: x.reshape(-1),
+                          lambda x, shape: x.reshape(shape)))
     (r, p, q, w, u, c, ps), ticks = ops.plant_tick_block(
-        flat(state.ready), state.pipeline.reshape(-1, cfg.startup_sec),
+        flat(state.ready), shaped(state.pipeline, (-1, cfg.startup_sec)),
         flat(state.queue), flat(state.wait_sum), flat(state.util_ema),
         flat(state.lim.cooldown), flat(state.pipe_sum),
         flat(arrivals),
@@ -312,13 +365,13 @@ def _plant_block(cfg: SimConfig, state: SimState, acc, arrivals,
         service_sec=cfg.service_sec, slo_sec=cfg.slo_sec,
         resp_cap_sec=cfg.resp_cap_sec, metric_tau_sec=cfg.metric_tau_sec)
     state = state._replace(
-        ready=r.reshape(lanes), pipeline=p.reshape(state.pipeline.shape),
-        queue=q.reshape(lanes), wait_sum=w.reshape(lanes),
-        util_ema=u.reshape(lanes), pipe_sum=ps.reshape(lanes),
-        lim=LimiterState(cooldown=c.reshape(lanes),
+        ready=shaped(r, lanes), pipeline=shaped(p, state.pipeline.shape),
+        queue=shaped(q, lanes), wait_sum=shaped(w, lanes),
+        util_ema=shaped(u, lanes), pipe_sum=shaped(ps, lanes),
+        lim=LimiterState(cooldown=shaped(c, lanes),
                          last_dir=state.lim.last_dir))
     served, violated, cold, total, resp, util, ready = (
-        t.reshape(lanes + (n_ticks,)) for t in ticks)
+        shaped(t, lanes + (n_ticks,)) for t in ticks)
     acc = (acc[0] + served.sum(-1), acc[1] + violated.sum(-1),
            acc[2] + cold.sum(-1), acc[3] + total.sum(-1),
            acc[4] + (resp * served).sum(-1),
@@ -328,29 +381,42 @@ def _plant_block(cfg: SimConfig, state: SimState, acc, arrivals,
 
 
 def _block(cfg, controller, state, acc, arrivals, minute_idx, n_ticks,
-           use_kernel):
+           use_kernel, telemetry: bool = False, head_sec: float = 0.0,
+           trace_idx=None):
     """One control period: decide at the head tick, then `n_ticks - 1`
-    plant-only ticks, all folded into the minute accumulator."""
-    state, head = _ctrl_tick(cfg, controller, state, arrivals, minute_idx)
+    plant-only ticks, all folded into the minute accumulator. With
+    `telemetry` also returns the head's DecisionRecord."""
+    state, head, *rec = _ctrl_tick(cfg, controller, state, arrivals,
+                                   minute_idx, telemetry=telemetry,
+                                   head_sec=head_sec, trace_idx=trace_idx)
     acc = _acc_fold(acc, head)
-    if n_ticks == 1:
-        return state, acc
-    return _plant_block(cfg, state, acc, arrivals, n_ticks - 1, use_kernel)
+    if n_ticks > 1:
+        state, acc = _plant_block(cfg, state, acc, arrivals, n_ticks - 1,
+                                  use_kernel)
+    return (state, acc, *rec)
 
 
 def _minute_blocked(cfg: SimConfig, controller: Controller, carry,
-                    rate_this_min: torch.Tensor, use_kernel: bool = False):
+                    rate_this_min: torch.Tensor, use_kernel: bool = False,
+                    telemetry: bool = False, trace_idx=None):
     """One minute = ceil(60/ci) control-period blocks (the last one runs
-    the `60 % ci` remainder ticks) + the minute-boundary hook."""
+    the `60 % ci` remainder ticks) + the minute-boundary hook. With
+    `telemetry` the per-minute output is ``(MinuteOut, records)``, the
+    minute's H head DecisionRecords in head order
+    (``obs.trace.head_schedule``)."""
     state, minute_idx = carry
     arrivals = rate_this_min * recip(60.0)
     ci, n_full, tail = _ci_blocks(cfg)
     acc = _acc_init(state.ready)
-    for n_ticks in [ci] * n_full + ([tail] if tail else []):
-        state, acc = _block(cfg, controller, state, acc, arrivals,
-                            minute_idx, n_ticks, use_kernel)
-    return _finish_minute(cfg, controller, state, minute_idx,
-                          rate_this_min, acc)
+    recs = []
+    for k, n_ticks in enumerate([ci] * n_full + ([tail] if tail else [])):
+        state, acc, *rec = _block(cfg, controller, state, acc, arrivals,
+                                  minute_idx, n_ticks, use_kernel,
+                                  telemetry, float(k * ci), trace_idx)
+        recs += rec
+    carry, m = _finish_minute(cfg, controller, state, minute_idx,
+                              rate_this_min, acc)
+    return (carry, (m, recs)) if telemetry else (carry, m)
 
 
 def _finish_minute(cfg, controller, state, minute_idx, rate_this_min, acc):
@@ -417,25 +483,84 @@ def _run_minutes(step, rates, controller, cfg, dev):
     return _stack_minutes(outs)
 
 
+def _use_decide_kernel(dev: torch.device, explicit: bool | None) -> bool:
+    """The fused episode kernel on the card, the blocked loop (its plain
+    version) elsewhere, unless the caller says otherwise."""
+    return dev.type == "cuda" if explicit is None else explicit
+
+
+def _reject_decide_kernel_telemetry():
+    raise ValueError(
+        "telemetry does not compose with decide_kernel: the fused "
+        "episode kernel keeps decisions on the card and never "
+        "materializes DecisionRecords; run with decide_kernel=False, or "
+        "capture sampled lanes via repro_torch.evals.fleet "
+        "(FleetSpec.trace_lanes)")
+
+
+def run_traced(rates: torch.Tensor, controller: Controller,
+               cfg: SimConfig, use_kernel: bool, trace_idx=None):
+    """The blocked episode with its decision trace: rates [..., M] ->
+    (MinuteOut of [..., M], ControlTrace time-major: decisions [M, H,
+    *lanes], minutes [M, *lanes]), where the traced lanes are those
+    `trace_idx` (a LongTensor) picks along the first lane axis, all when
+    None. The runners of ``scaling.batch``, ``evals.matrix`` and
+    ``evals.fleet`` stack these per controller."""
+    carry = (initial_state(controller, cfg, lanes=rates.shape[:-1],
+                           device=rates.device), 0)
+    outs, recs = [], []
+    M = rates.shape[-1]
+    for m in range(M):
+        carry, (out, rec) = _minute_blocked(
+            cfg, controller, carry, rates[..., m], use_kernel=use_kernel,
+            telemetry=True, trace_idx=trace_idx)
+        outs.append(out)
+        recs += rec
+    mo = _stack_minutes(outs)
+    H = len(obs_trace.head_schedule(cfg))
+    dec = obs_trace.DecisionRecord(*(
+        torch.stack(f).reshape((M, H) + f[0].shape) for f in zip(*recs)))
+    pick = (lambda a: a) if trace_idx is None else (lambda a: a[trace_idx])
+    minutes = obs_trace.MinuteTrace(*(
+        pick(a).movedim(-1, 0) for a in (rates, mo.served, mo.violated,
+                                         mo.queue_end, mo.ready_mean)))
+    return mo, obs_trace.ControlTrace(decisions=dec, minutes=minutes)
+
+
 def simulate(rates_per_min, controller: Controller,
              cfg: SimConfig = SimConfig(), *, device="cuda",
              plant_kernel: bool | None = None,
-             decide_kernel: bool | None = None) -> MinuteOut:
+             decide_kernel: bool | None = None, telemetry: bool = False):
     """Simulate workloads: rates [..., M] -> MinuteOut of [..., M].
 
     `decide_kernel` (default: on for CUDA) runs whole episodes through
     ``kernels.ops.episode_block``; otherwise the control-period-blocked
     loop runs here, its plant ticks through ``kernels.ops.plant_tick_block``
-    when `plant_kernel` (default: on for CUDA)."""
+    when `plant_kernel` (default: on for CUDA).
+
+    `telemetry=True` returns ``(MinuteOut, ControlTrace)`` with decisions
+    leaves [..., M, H] (H block heads a minute) and minutes leaves
+    [..., M]; the MinuteOut is the untraced run's bit for bit. It needs
+    the blocked loop: with the fused kernel (the card's default) it
+    raises ValueError."""
     dev = _device.resolve(device)
     rates = torch.as_tensor(rates_per_min).to(device=dev, dtype=F32)
     on_card = dev.type == "cuda"
-    if on_card if decide_kernel is None else decide_kernel:
+    if _use_decide_kernel(dev, decide_kernel):
+        if telemetry:
+            _reject_decide_kernel_telemetry()
         from repro_torch.kernels import ops
         lanes = rates.reshape(-1, rates.shape[-1]).contiguous()
         out = ops.episode_block(lanes, controller, cfg)
         return MinuteOut(*(o.reshape(rates.shape) for o in out))
     use_kernel = on_card if plant_kernel is None else plant_kernel
+    if telemetry:
+        out, ct = run_traced(rates, controller, cfg, use_kernel)
+        return out, obs_trace.ControlTrace(
+            decisions=obs_trace.DecisionRecord(*(
+                a.movedim((0, 1), (-2, -1)) for a in ct.decisions)),
+            minutes=obs_trace.MinuteTrace(*(
+                a.movedim(0, -1) for a in ct.minutes)))
 
     def step(carry, rate):
         return _minute_blocked(cfg, controller, carry, rate,
@@ -459,25 +584,37 @@ def simulate_reference(rates_per_min, controller: Controller,
 def make_simulator(controller: Controller, cfg: SimConfig = SimConfig(), *,
                    device="cuda", plant_kernel: bool | None = None,
                    decide_kernel: bool | None = None,
-                   w_chunk: int | None = None):
+                   w_chunk: int | None = None, telemetry: bool = False):
     """rates [W, M] -> MinuteOut of [W, M] arrays.
 
     `w_chunk` runs the workload axis in independent chunks of that many
     lanes (one episode-kernel launch each on the card), so scratch state
-    is [w_chunk] however large W grows; it must divide W."""
+    is [w_chunk] however large W grows; it must divide W. `telemetry`
+    returns ``(MinuteOut [W, M], ControlTrace)`` with decisions leaves
+    [W, M, H] and minutes leaves [W, M]; it needs the blocked loop
+    (``decide_kernel=False`` on the card, else ValueError)."""
     dev = _device.resolve(device)
+    if telemetry and _use_decide_kernel(dev, decide_kernel):
+        _reject_decide_kernel_telemetry()
 
     def run(rates):
         rates = torch.as_tensor(rates).to(device=dev, dtype=F32)
         W = rates.shape[0]
         sim = lambda r: simulate(r, controller, cfg, device=dev,  # noqa: E731
                                  plant_kernel=plant_kernel,
-                                 decide_kernel=decide_kernel)
+                                 decide_kernel=decide_kernel,
+                                 telemetry=telemetry)
         if w_chunk is None or w_chunk >= W:
             return sim(rates)
         if W % w_chunk:
             raise ValueError(f"w_chunk {w_chunk} must divide W {W}")
         outs = [sim(rates[i:i + w_chunk]) for i in range(0, W, w_chunk)]
-        return MinuteOut(*(torch.cat(f, 0) for f in zip(*outs)))
+        if not telemetry:
+            return MinuteOut(*(torch.cat(f, 0) for f in zip(*outs)))
+        cat = lambda parts: type(parts[0])(*(  # noqa: E731
+            torch.cat(f, 0) for f in zip(*parts)))
+        return (cat([o for o, _ in outs]), obs_trace.ControlTrace(
+            decisions=cat([c.decisions for _, c in outs]),
+            minutes=cat([c.minutes for _, c in outs])))
 
     return run

@@ -779,3 +779,141 @@ def test_run_fleet_on_the_card_matches_the_cpu(cuda, tmp_path):
                                    getattr(want.pooled, field), rtol=tol,
                                    atol=1e-3, err_msg=field)
     np.testing.assert_allclose(got.rei.rei, want.rei.rei, rtol=2e-6)
+
+
+# ------------------------------------------------- decision telemetry ----
+TRACE_DISCRETE = ("minute", "sec", "scale_up", "scale_down",
+                  "cooldown_blocked", "capacity_capped", "archetype")
+TRACE_FORECAST = ("fc_point", "fc_lo", "fc_hi", "confidence", "guard_floor")
+
+
+def _trained_pair(tmp_path, dev):
+    """One small classifier trained on the card, loaded on the card and on
+    the CPU: (its Classify on `dev`, on the CPU)."""
+    from repro_torch.core import pipeline
+    trained = pipeline.train_aapa(
+        azure_synth.generate_traces(n_functions=12, n_days=4, seed=2),
+        gbdt.GBDTConfig(n_rounds=6), device=dev)
+    trained.save(tmp_path / "cls.npz")
+    return tuple(pipeline.TrainedAAPA.load(tmp_path / "cls.npz",
+                                           device=d).make_classify()
+                 for d in (dev, "cpu"))
+
+
+def _assert_trace_close(got, want):
+    """The card's trace against the CPU's: NaN where NaN, discrete fields
+    exact, forecast fields rtol 1e-4 / atol 1e-3, the rest at the episode
+    tolerance."""
+    from repro_torch.obs import trace
+    got, want = trace.to_numpy(got), trace.to_numpy(want)
+    for field in trace.DecisionRecord._fields:
+        a, e = getattr(got.decisions, field), getattr(want.decisions, field)
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(e),
+                                      err_msg=field)
+        if field in TRACE_DISCRETE:
+            np.testing.assert_array_equal(a, e, err_msg=field)
+        else:
+            tol = (dict(rtol=1e-4, atol=1e-3) if field in TRACE_FORECAST
+                   else EPISODE_TOL)
+            np.testing.assert_allclose(a, e, equal_nan=True, err_msg=field,
+                                       **tol)
+    for field, a, e in zip(trace.MinuteTrace._fields, got.minutes,
+                           want.minutes):
+        np.testing.assert_allclose(a, e, err_msg=field, **EPISODE_TOL)
+
+
+@pytest.mark.parametrize("ci", [15, 7])
+@pytest.mark.parametrize("policy", ["hpa", "aapa"])
+def test_traced_episode_on_the_card(cuda, tmp_path, policy, ci):
+    """The traced unfused episode on the card: its MinuteOut equals the
+    untraced one bit for bit and the fused kernel's at the episode
+    tolerance, it launches `plant_block` (and `gbdt_tables` for AAPA), and
+    its trace equals the same run's on the CPU at the trace tolerances."""
+    cfg = cluster.SimConfig(control_interval_sec=ci)
+    rates = torch.as_tensor(scenarios.archetype_mix(n_workloads=96,
+                                                    minutes=40).rates)
+    kw, ckw = {}, {}
+    if policy == "aapa":
+        card_cls, cpu_cls = _trained_pair(tmp_path, cuda)
+        kw, ckw = dict(classify=card_cls), dict(classify=cpu_cls)
+    ctrl = registry.make(policy, cfg, **kw)
+    ops.reset_launch_counts()
+    out, ct = cluster.simulate(rates.to(cuda), ctrl, cfg,
+                               decide_kernel=False, telemetry=True)
+    counts = ops.launch_counts()
+    assert counts["plant_block"] > 0 and counts["episode_block"] == 0
+    assert (counts["gbdt_tables"] > 0) == (policy == "aapa")
+    base = cluster.simulate(rates.to(cuda), ctrl, cfg, decide_kernel=False)
+    for a, b in zip(out, base):
+        assert torch.equal(a, b)
+    for a, e in zip(out, cluster.simulate(rates.to(cuda), ctrl, cfg)):
+        torch.testing.assert_close(a, e, **EPISODE_TOL)
+    cout, cct = cluster.simulate(rates, registry.make(policy, cfg, **ckw),
+                                 cfg, device="cpu", decide_kernel=False,
+                                 telemetry=True)
+    for a, e in zip(out, cout):
+        torch.testing.assert_close(a.cpu(), e, **EPISODE_TOL)
+    _assert_trace_close(ct, cct)
+
+
+def test_default_decide_kernel_refuses_telemetry(cuda):
+    """On the card `simulate` defaults to the fused kernel, which keeps its
+    decisions on the card: asking it for a trace raises, never falls back
+    to the unfused path quietly."""
+    from repro_torch.scaling import batch
+    cfg = cluster.SimConfig()
+    ctrl = registry.make("hpa", cfg)
+    rates = _rates(4, cuda, w=8, m=3)
+    with pytest.raises(ValueError, match="decide_kernel"):
+        cluster.simulate(rates, ctrl, cfg, telemetry=True)
+    with pytest.raises(ValueError, match="decide_kernel"):
+        cluster.make_simulator(ctrl, cfg, telemetry=True)
+    with pytest.raises(ValueError, match="decide_kernel"):
+        batch.make_batch_simulator([ctrl], cfg, telemetry=True)
+
+
+def test_fleet_trace_lanes_on_the_card(cuda):
+    """`FleetSpec.trace_lanes` on the card: pooled metrics equal the
+    untraced one-dispatch run (the fused kernel) at rtol 2e-6, the trace
+    [C, M, H, P, K] equals the CPU's at the trace tolerances."""
+    from repro_torch.evals import fleet
+    from repro_torch.evals import metrics as EM
+    from repro_torch.obs import trace
+    kw = dict(policies=("hpa", "predictive", "kpa"), scenario="burst_storm",
+              n_workloads=256, w_chunk=128, minutes=60, seed=3)
+    base = fleet.run_fleet(fleet.spec("t_trace", **kw), device=cuda)
+    sp = fleet.spec("t_trace", trace_lanes=4, **kw)
+    ops.reset_launch_counts()
+    got = fleet.run_fleet(sp, device=cuda)
+    assert ops.launch_counts()["plant_block"] > 0
+    H = len(trace.head_schedule(sp.sim_config()))
+    assert got.trace.decisions.desired.shape == (2, 60, H, 3, 4)
+    q = 2.5 * EM.quantile_rel_bound()
+    for field in got.pooled._fields:
+        tol = max(2e-6, q) if field.startswith(("p95", "p99")) else 2e-6
+        np.testing.assert_allclose(getattr(got.pooled, field),
+                                   getattr(base.pooled, field), rtol=tol,
+                                   atol=1e-3, err_msg=field)
+    _assert_trace_close(got.trace, fleet.run_fleet(sp, device="cpu").trace)
+
+
+def test_tuning_evaluator_on_the_card_equals_the_cpu(cuda):
+    """`tuning.make_evaluator` on the card (one episode kernel launch a
+    candidate) against the CPU's: REI and pooled metrics at rtol 2e-6,
+    the same static-group count."""
+    import repro_torch.tuning as tuning
+    sp = tuning.spec("t_tune", policy="hpa", strategy="grid", points=3,
+                     n_workloads=8, minutes=120)
+    cands = tuning.grid_candidates(sp.space, sp.points)
+    rates = tuning.build_rates(sp)
+    ev_card, ev_cpu = (tuning.make_evaluator(sp, device=d)
+                       for d in (cuda, "cpu"))
+    ops.reset_launch_counts()
+    met, rei = ev_card(cands, rates)
+    assert ops.launch_counts()["episode_block"] == len(cands)
+    cmet, crei = ev_cpu(cands, rates)
+    np.testing.assert_allclose(rei, crei, rtol=2e-6)
+    for field, a, e in zip(met._fields, met, cmet):
+        np.testing.assert_allclose(a, e, rtol=2e-6, atol=1e-3,
+                                   err_msg=field)
+    assert ev_card._cache_size() == ev_cpu._cache_size() == 1

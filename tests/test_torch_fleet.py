@@ -99,13 +99,15 @@ def test_chunk_rates_bit_for_bit():
 
 
 def test_trace_lanes_raises():
+    """The decision trace needs the one-dispatch mode: a stream with
+    `trace_lanes` raises, as in the reference (the traced runs themselves
+    are tests/test_torch_obs.py's)."""
     sp = dataclasses.replace(FLEET_SPEC, trace_lanes=2)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        fleet.run_fleet(sp, device="cpu")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        fleet.make_fleet_runner(sp, device="cpu")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        fleet.make_chunk_folder(sp, device="cpu")
+    with pytest.raises(ValueError, match="one-dispatch"):
+        fleet.run_fleet(sp, stream=True, device="cpu")
+    with pytest.raises(ValueError, match="one-dispatch"):
+        ref_fleet.run_fleet(dataclasses.replace(REF_SPEC, trace_lanes=2),
+                            stream=True)
 
 
 def test_fleet_spec_validates_chunking():

@@ -354,15 +354,21 @@ def test_grid_split_validates_like_the_reference():
 
 
 def test_telemetry_is_refused_and_device_options_are_accepted():
-    """`telemetry=True` raises until the trace is ported; `shard=` and
-    `donate=` are accepted (no mesh on one card); a `w_chunk` that does
-    not divide the workloads is refused, as in the reference."""
+    """`telemetry=True` is refused where the reference refuses it: with the
+    fused episode kernel and with `w_chunk` (the traced runs themselves are
+    tests/test_torch_obs.py's); `shard=` and `donate=` are accepted (no
+    mesh on one card); a `w_chunk` that does not divide the workloads is
+    refused, as in the reference."""
     cfg = cluster.SimConfig()
     ctrls = [registry.get_controller("hpa", cfg)]
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        batch.make_batch_simulator(ctrls, cfg, device="cpu", telemetry=True)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        matrix.make_runner(matrix.smoke_spec(), device="cpu",
+    with pytest.raises(ValueError, match="decide_kernel"):
+        batch.make_batch_simulator(ctrls, cfg, device="cpu",
+                                   decide_kernel=True, telemetry=True)
+    with pytest.raises(ValueError, match="w_chunk"):
+        batch.make_batch_simulator(ctrls, cfg, device="cpu", w_chunk=2,
+                                   telemetry=True)
+    with pytest.raises(ValueError, match="w_chunk"):
+        matrix.make_runner(matrix.smoke_spec(), device="cpu", w_chunk=2,
                            telemetry=True)
     sim = batch.make_batch_simulator(ctrls, cfg, device="cpu", shard=False,
                                      donate=True, w_chunk=2)

@@ -49,8 +49,8 @@ def _ported(pkg: str, name: str, module: str | None) -> bool:
 
 
 def test_the_ported_packages_are_found():
-    assert {"aapaset", "core", "evals", "forecast", "kernels",
-            "scaling"} <= set(PACKAGES)
+    assert {"aapaset", "core", "evals", "forecast", "kernels", "obs",
+            "scaling", "tuning"} <= set(PACKAGES)
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)
