@@ -171,7 +171,9 @@ and prints no result line):
     the fleet capture: phase 23's one-dispatch HPA + AAPA fleet with
     ``FleetSpec.trace_lanes=16``; gates: pooled metrics equal the
     untraced run's at rtol 2e-6, decisions [4, 1440, 4, 2, 16], every
-    traced lane's blame counts sum to its violated requests; prints wall,
+    traced lane's blame counts sum to its violated requests, peak device
+    memory at most 3 GB (15,471,030,272 bytes before the traced runners
+    folded each minute as it ends); prints wall,
     lane-minutes/s, launches and peak device memory, and the card's busy
     share under ``torch.profiler`` over the capture's first hour. The
     traced path is host-bound, so each policy's runs, the fleet capture
@@ -192,16 +194,43 @@ and prints no result line):
     ``registry.make("hpa", **best)`` bit for bit; a second forced search
     gives the same winner and hash; ``episode_block`` launched once a
     candidate.
+27. The model substrate at smoke size on the card, every arch of
+    ``configs.ARCH_IDS``: forward, loss, prefill and decode shapes and
+    finite values; decode token by token against the full forward for
+    stablelm, mamba2 and zamba2 (rtol 0.05, atol 0.05; 0.1 for zamba2,
+    the reference's bf16 tolerance).
+28. The autoscaled serving endpoint at full width: ``stablelm_1_6b``
+    (24 layers, d_model 2048, vocab 100352, bf16, weights from a seeded
+    ``torch.Generator`` on the card) in a ``ServingEngine`` of 8 replicas
+    x 4 lanes (max_len 64), the launcher's 10-minute bursty script
+    (``launch.serve.bursty_rates``, 20 steps a minute) under AAPA with
+    the classifier trained on ``aapaset_ci`` on the card
+    (``GBDTConfig(n_rounds=10, depth=3)``), its features and logits
+    through ``kernels.ops`` (the plain versions are forbidden on this
+    path). Gates: ``window_features`` and ``gbdt_tables`` launched, as
+    many times as ``torch.profiler`` counts their kernels; requests
+    served; finite logits. Prints the summary, the run's wall, peak
+    device memory, and the decode step's median time (CUDA events, every
+    slot at the last position) beside its bound: weights read once (the
+    embedding table at the slots' rows), the KV cache read, the logits
+    written, over 3.35 TB/s.
+29. The same script on the CPU at smoke size with the card's classifier
+    carried across (``TrainedAAPA.save``/``load``): the scheduler never
+    reads the logits, so the summary must equal the card's exactly and
+    the decision log must match (discrete fields exact, forecast fields
+    at rtol 1e-4 / atol 1e-3, the rest at rtol/atol 1e-5); the CPU run
+    launches no kernel.
 
-Phases 4, 5, 8, 10, 12, 14, 19, 21, 22, each run of 23 and 24, 25 and 26
-reset the kernels' launch counts just before they run and read them just
+Phases 4, 5, 8, 10, 12, 14, 19, 21, 22, each run of 23 and 24, 25, 26
+and 28 reset the kernels' launch counts just before they run and read them just
 after; a path whose kernel was never launched fails (the predictive,
 AAPA and hybrid rows: the pre-pass and the plant pass; the matrices:
 every policy's minute walk under every forecaster; the AAPAset build:
 ``window_features``; training: ``gbdt_tables``; every fleet run:
 ``episode_block``, and with AAPA ``policy_signals``; the traced runs and
 the obs card: ``plant_block``, and with AAPA or hybrid ``gbdt_tables``;
-tuning: ``episode_block``). Kernel-vs-plain
+tuning: ``episode_block``; serving: ``window_features`` and
+``gbdt_tables``). Kernel-vs-plain
 comparisons and timing launches are not counted. The plain runs of
 phases 8, 9, 11, 13, 17, 18, 20 and 21 are checked to launch no kernel
 (the plain AAPA and hybrid episodes classify through the plain GBDT).
@@ -226,6 +255,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12          # float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # bf16 on the tensor cores, dense
 
 # f32 operations per lane and tick, counted from the CUDA sources:
 # flow_tick 28 (5 of them divisions), pipeline pop 3, cooldown decay 2,
@@ -1100,6 +1130,11 @@ TRACE_DISCRETE = ("minute", "sec", "scale_up", "scale_down",
 TRACE_FORECAST = ("fc_point", "fc_lo", "fc_hi", "confidence", "guard_floor")
 FORECAST_TOL = dict(rtol=1e-4, atol=1e-3)
 TRACE_LANES = 16
+# the fleet capture's peak device memory: its gate, and the 10^5 x 1440
+# HPA + AAPA capture's peak when the traced runner kept the whole
+# episode's MinuteOut (H100 80GB HBM3 at 700 W)
+TRACED_PEAK_LIMIT = 3_000_000_000
+TRACED_PEAK_BEFORE = 15_471_030_272
 # phase 24's traced episodes: archetype_mix lanes x minutes; phases 24-25
 # run their 12 jobs in this many worker processes, each job bounded by
 # JOB_TIMEOUT_S (a lost worker must not hang the script)
@@ -1319,6 +1354,13 @@ def fleet_capture(tcls, one_dispatch) -> dict:
         for k in range(TRACE_LANES)], f"fleet capture {p}")
         for i, p in enumerate(sp.policies)}
     m = res.meta
+    if m["peak_device_bytes"] > TRACED_PEAK_LIMIT:
+        raise RuntimeError(f"fleet capture: peak device memory "
+                           f"{m['peak_device_bytes']} bytes, over "
+                           f"{TRACED_PEAK_LIMIT}")
+    log(f"[telemetry fleet] peak device memory {m['peak_device_bytes']} "
+        f"bytes (the whole-episode MinuteOut of the traced runner before "
+        f"it folded each minute: {TRACED_PEAK_BEFORE} bytes)")
     log(f"[telemetry fleet] {'+'.join(sp.policies)}, {m['workloads']} x "
         f"{m['minutes']} in chunks of {m['w_chunk']}, {TRACE_LANES} lanes "
         f"a chunk traced: wall {m['wall_s']:.4f} s "
@@ -1499,6 +1541,267 @@ def tuning_phase() -> dict:
         f"same winner and hash; search launches {search_counts}")
     out["search_launches"] = search_counts
     return out
+
+
+# ---- phases 27-29: the model substrate and the autoscaled serving endpoint
+SERVE_MINUTES = 10
+SERVE_ARCH = "stablelm_1_6b"
+DECODE_ITERS = 20
+SERVE_KERNELS = {"window_features": ("window_features_kernel",),
+                 "gbdt_tables": ("gbdt_tables_kernel", "gbdt_shared_kernel")}
+MODEL_TOL = dict(rtol=0.05, atol=0.05)      # the reference's bf16 tolerance
+
+
+def model_phase(dev) -> dict:
+    """27. Every arch at smoke size on the card: the reference's smoke
+    claims (forward, loss, prefill and decode shapes, finite values) and
+    its prefill/decode consistency for the archs it names."""
+    from repro_torch.configs import ARCH_IDS, get_config, smoke_config
+    from repro_torch.models import model as M
+    B, S = 2, 32
+    t0 = time.perf_counter()
+    for arch in ARCH_IDS:
+        cfg = smoke_config(get_config(arch))
+        params = M.init(torch.Generator(device=dev).manual_seed(0), cfg)
+        n_text = S - (cfg.n_img_tokens or 0)
+        ones = torch.ones((B, n_text), dtype=torch.long, device=dev)
+        batch = {"tokens": ones}
+        if cfg.n_img_tokens:
+            batch["img_embeds"] = torch.zeros(
+                (B, cfg.n_img_tokens, cfg.d_model), dtype=cfg.jdtype,
+                device=dev)
+        if cfg.family == "encdec":
+            batch["enc_embeds"] = torch.zeros(
+                (B, cfg.enc_len, cfg.d_model), dtype=cfg.jdtype, device=dev)
+        loss, _ = M.loss_fn(params, dict(batch, labels=ones), cfg)
+        logits, _ = M.forward(params, batch, cfg)
+        lg, cache = M.prefill(params, batch, cfg, 64)
+        lg2, _ = M.decode_step(params, cache, ones[:, :1],
+                               n_text + (cfg.n_img_tokens or 0), cfg)
+        if (not torch.isfinite(loss) or logits.shape != (B, n_text, cfg.vocab)
+                or lg.shape != (B, 1, cfg.vocab)
+                or lg2.shape != (B, 1, cfg.vocab)
+                or not torch.isfinite(logits.float()).all()
+                or not torch.isfinite(lg2.float()).all()):
+            raise RuntimeError(f"{arch} smoke on the card: loss {loss}, "
+                               f"shapes {tuple(logits.shape)} "
+                               f"{tuple(lg.shape)} {tuple(lg2.shape)}")
+    worst = {}
+    for arch in ("stablelm_1_6b", "mamba2_2_7b", "zamba2_2_7b"):
+        cfg = smoke_config(get_config(arch))
+        params = M.init(torch.Generator(device=dev).manual_seed(1), cfg)
+        toks = torch.as_tensor(np.random.default_rng(2).integers(
+            0, cfg.vocab, (B, 8)), device=dev)
+        tol = dict(MODEL_TOL, atol=0.1) if arch == "zamba2_2_7b" \
+            else MODEL_TOL
+        full, _ = M.forward(params, {"tokens": toks}, cfg, remat=False)
+        lg, cache = M.prefill(params, {"tokens": toks[:, :4]}, cfg, 16)
+        got, want = [lg[:, 0]], [full[:, 3]]
+        for t in range(4, 8):
+            lg, cache = M.decode_step(params, cache, toks[:, t:t + 1], t,
+                                      cfg)
+            got.append(lg[:, 0])
+            want.append(full[:, t])
+        worst[arch] = max_abs_err([g.float() for g in got],
+                                  [w.float() for w in want], tol,
+                                  f"{arch} prefill/decode consistency")
+    wall = time.perf_counter() - t0
+    log(f"[models] {len(ARCH_IDS)} archs at smoke size on the card: "
+        f"forward, loss, prefill and decode shapes and finite values; "
+        f"decode token by token equals the full forward "
+        f"(rtol 0.05, atol 0.05 / 0.1 hybrid), max_abs_err {worst}; "
+        f"{wall:.1f} s")
+    return dict(wall_s=wall, consistency_err=worst)
+
+
+def decode_bound(cfg, params, slots: int, max_len: int) -> tuple:
+    """(bytes, operations, bound ms, bound_by) of one decode step of
+    `slots` tokens: every weight read once (the embedding table only at
+    the slots' rows), the whole KV cache read and one position written,
+    the logits written; two operations a weight per token."""
+    n_params = sum(t.numel() for t in _leaves(params))
+    itemsize = cfg.jdtype.itemsize
+    table = cfg.vocab * cfg.d_model
+    weights = (n_params - table + slots * cfg.d_model) * itemsize
+    kv = 2 * cfg.n_layers * slots * max_len * cfg.kv_heads * cfg.hdim \
+        * cfg.cache_jdtype.itemsize
+    kv_write = kv // max_len
+    logits = slots * cfg.vocab * itemsize
+    n_bytes = weights + kv + kv_write + logits
+    ops_ = 2 * (n_params - table) * slots \
+        + 4 * cfg.n_layers * slots * max_len * cfg.n_heads * cfg.hdim
+    ms, by = bound_ms(n_bytes, ops_ * F32_OPS_PER_S / BF16_OPS_PER_S)
+    return n_bytes, ops_, ms, by
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def serving_phase(dev) -> dict:
+    """28-29. The launcher's 10-minute bursty script at the full width of
+    `SERVE_ARCH` on the card under AAPA (the classifier trained on
+    ``aapaset_ci`` there), its kernels counted and profiled, its decode
+    step timed against its bound; then the same script on the CPU at
+    smoke size with the same classifier carried across: the same
+    summary, the decision log within tolerance."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core import gbdt, pipeline
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import model as M
+    from repro_torch.obs import trace as obs_trace
+
+    t_phase = t0 = time.perf_counter()
+    trained = pipeline.train_classifier(
+        "aapaset_ci", gbdt.GBDTConfig(n_rounds=10, depth=3), device=dev)
+    train_s = time.perf_counter() - t0
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = M.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    rates = launcher.bursty_rates(SERVE_MINUTES)
+    lines = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with forbidden(ref, "gbdt_logits_ref"), \
+            forbidden(ref, "extract_features_ref"), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng, auto = launcher.serve(SERVE_MINUTES, "aapa", trained, params,
+                                   cfg, rates, np.random.default_rng(0),
+                                   device=dev, log=lines.append)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    device_events = [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    profiled = {name: sum(e.count for e in device_events
+                          if any(k in e.key for k in kernel_names))
+                for name, kernel_names in SERVE_KERNELS.items()}
+    for name in SERVE_KERNELS:
+        if counts[name] == 0 or profiled[name] != counts[name]:
+            raise RuntimeError(
+                f"serving: {name} launches {counts[name]}, profiled "
+                f"{profiled[name]} (device events: "
+                f"{sorted(e.key[:60] for e in device_events)[:40]})")
+    summary = eng.summary()
+    card_trace = auto.decision_trace()
+    logits = eng.last_logits
+    if (summary["served"] == 0 or logits.shape != (eng.max_replicas
+                                                   * eng.lanes, 1, cfg.vocab)
+            or not torch.isfinite(logits.float()).all()):
+        raise RuntimeError(f"serving: summary {summary}, logits "
+                           f"{tuple(logits.shape)}")
+    for line in lines:
+        log(f"[serve] {line}")
+    log(f"[serve] {cfg.name} at full width ({n_params} parameters, "
+        f"{weight_bytes} bytes of {cfg.dtype} weights, initialized on the "
+        f"card in {init_s:.2f} s), {eng.max_replicas} replicas x "
+        f"{eng.lanes} lanes, max_len {eng.max_len}, AAPA with the "
+        f"classifier trained on {trained.dataset_id} (test acc "
+        f"{trained.test_acc:.4f}, {train_s:.1f} s): {SERVE_MINUTES} minutes "
+        f"x {launcher.STEPS_PER_MIN} steps in {serve_s:.3f} s, "
+        f"{eng.decode_steps} decode steps, {len(auto.decisions)} control "
+        f"steps, peak device memory {peak} bytes; launches {counts} "
+        f"(the profiler counts {profiled})")
+    log(f"[serve] summary {summary}")
+
+    # the decode step at the run's shape: every slot, the last position
+    slots = eng.max_replicas * eng.lanes
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        1, 8, (slots, 1)), device=dev)
+    step = lambda: M.decode_step(params, eng.cache, toks,  # noqa: E731
+                                 eng.max_len - 1, cfg)
+    step()
+    times = []
+    for _ in range(DECODE_ITERS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    decode_ms = float(np.median(times))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_ITERS):
+        step()
+    torch.cuda.synchronize()
+    decode_wall_ms = (time.perf_counter() - t0) * 1e3 / DECODE_ITERS
+    d_bytes, d_ops, d_bound, d_by = decode_bound(cfg, params, slots,
+                                                 eng.max_len)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    step_kernels = sum(e.count for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+    log(f"[decode] {cfg.name} full width, {slots} slots x max_len "
+        f"{eng.max_len}: median {decode_ms:.4f} ms a step on the card "
+        f"(CUDA events, {DECODE_ITERS} steps; {decode_wall_ms:.4f} ms of "
+        f"wall a step back to back), {step_kernels} kernel launches a "
+        f"step; bound {d_bound:.4f} ms by {d_by} ({d_bytes} bytes: weights "
+        f"read once, the KV cache read, the logits written; {d_ops} "
+        f"operations at the bf16 peak)")
+
+    # 29. the same script on the CPU at smoke size, the same classifier
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "classifier.npz"
+        trained.save(path)
+        cpu_trained = pipeline.TrainedAAPA.load(path, device="cpu")
+    scfg = smoke_config(cfg)
+    t0 = time.perf_counter()
+    ceng, cauto = launch_free(lambda: launcher.serve(
+        SERVE_MINUTES, "aapa", cpu_trained, M.init(0, scfg, device="cpu"),
+        scfg, rates, np.random.default_rng(0), device="cpu",
+        log=lambda *a: None), "serving on the CPU")
+    cpu_s = time.perf_counter() - t0
+    if ceng.summary() != summary:
+        raise RuntimeError(f"serving: the CPU's summary {ceng.summary()} "
+                           f"differs from the card's {summary}")
+    cpu_trace = cauto.decision_trace()
+    worst = 0.0
+    for field in obs_trace.DecisionRecord._fields:
+        a, e = getattr(card_trace, field), getattr(cpu_trace, field)
+        if field in TRACE_DISCRETE:
+            if not np.array_equal(a, e, equal_nan=True):
+                raise RuntimeError(f"serving trace {field}: the card's "
+                                   "decisions differ from the CPU's")
+            continue
+        tol = FORECAST_TOL if field in TRACE_FORECAST \
+            else dict(rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(a, e, equal_nan=True,
+                                   err_msg=f"serving trace {field}", **tol)
+        if np.isfinite(a).any():
+            worst = max(worst, float(np.nanmax(np.abs(a - e))))
+    log(f"[serve cpu] the same script on the CPU at smoke size "
+        f"({cpu_s:.2f} s): summary equal, {len(cpu_trace.desired)} "
+        f"decisions with discrete fields equal and the rest within "
+        f"tolerance (max_abs_err {worst}); phases 28-29 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=counts, profiled=profiled, serve_s=serve_s,
+                decode_ms=decode_ms, decode_wall_ms=decode_wall_ms,
+                decode_bound_ms=d_bound, decode_bound_by=d_by,
+                decode_bytes=d_bytes, decode_kernels=step_kernels,
+                decode_steps=eng.decode_steps, summary=summary,
+                peak_bytes=peak, trace_err=worst, cpu_s=cpu_s)
 
 
 def main() -> int:
@@ -2244,6 +2547,10 @@ def main() -> int:
     obs_card = telemetry["obs"]
     tuning_runs = tuning_phase()
 
+    # ---- 27-29. the model substrate and the autoscaled serving endpoint
+    model_phase(dev)
+    serving = serving_phase(dev)
+
     kernels = [
         dict(name="plant_block", route="cuda",
              source="src/repro_torch/kernels/csrc/plant_block.cu",
@@ -2328,8 +2635,10 @@ def main() -> int:
     traced_paths.update({"telemetry fleet": telemetry["fleet"]["launches"],
                          "obs card": obs_card["launches"]})
     slice_paths = {
-        "window_features": {"aapaset build": aapaset_counts},
-        "gbdt_tables": {"training": train_counts, **traced_paths},
+        "window_features": {"aapaset build": aapaset_counts,
+                            "serving": serving["launches"]},
+        "gbdt_tables": {"training": train_counts, **traced_paths,
+                        "serving": serving["launches"]},
         "plant_block": traced_paths,
         "episode_block": {**fleet_paths,
                           "tuning grid": tuning_runs["grid"]["launches"],

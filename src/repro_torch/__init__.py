@@ -12,7 +12,10 @@ Ported so far: episodes of all five policies through the cluster plant
 weak labels, GBDT and beta-calibration training and inference, Table
 III, Algorithm 1, ``TrainedAAPA``; ``data``), the AAPAset engine
 (``aapaset``), the forecasters (``forecast``), the evaluation plane
-(``evals``: metrics, REI, the Table IV matrix, fleet runs, result cards)
-and the ``plant_block``, ``episode_block``, ``window_features``,
-``gbdt_tables`` and ``holt_winters`` CUDA kernels (``kernels``).
+(``evals``: metrics, REI, the Table IV matrix, fleet runs, result cards),
+decision telemetry and tuning (``obs``, ``tuning``), the serving
+endpoint (``scaling.adapter``, the model substrate in ``models`` and
+``configs``, ``serve``, ``launch.serve``) and the ``plant_block``,
+``episode_block``, ``window_features``, ``gbdt_tables`` and
+``holt_winters`` CUDA kernels (``kernels``).
 """

@@ -1,0 +1,8 @@
+"""DeepSeek-67B [arXiv:2401.02954; hf]. Llama-arch, 95L GQA kv=8."""
+from repro_torch.models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="deepseek-67b", family="dense",
+    n_layers=95, d_model=8192, n_heads=64, n_kv_heads=8, d_ff=22016,
+    vocab=102400,
+)

@@ -40,11 +40,25 @@ class Classify:
     ``kernels.ops.gbdt_logits`` (the ``gbdt_tables`` kernel on CUDA
     tensors, its plain version on the CPU); a plain episode on the card
     passes ``kernels.ref.gbdt_logits_ref``. The AAPA episode kernel reads
-    `params` and `cal` to run the same classifier per lane."""
+    `params` and `cal` to run the same classifier per lane.
+
+    `classify_windows(windows [..., W])` is what the eager AAPA and
+    hybrid minute hooks call: the 38 features from `features([N, W])`,
+    by default ``kernels.ops.extract_features_fused`` (the
+    ``window_features`` kernel on CUDA tensors, its plain version on the
+    CPU; a plain episode on the card passes
+    ``kernels.ref.extract_features_ref``), then the classifier."""
     params: gbdt.GBDTParams
     cal: calibration.BetaCalibration
     logits: Callable[[gbdt.GBDTParams, torch.Tensor], torch.Tensor] | None \
         = None
+    features: Callable[[torch.Tensor], torch.Tensor] | None = None
+
+    def classify_windows(self, windows: torch.Tensor):
+        from repro_torch.kernels import ops
+        features = self.features or ops.extract_features_fused
+        feats = features(windows.reshape(-1, windows.shape[-1]).contiguous())
+        return self(feats.reshape(windows.shape[:-1] + feats.shape[-1:]))
 
     def __call__(self, feats: torch.Tensor):
         from repro_torch.kernels import ops

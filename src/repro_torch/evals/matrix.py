@@ -187,7 +187,9 @@ def _lane_runner(ctrls, cfg, edges, *, per_workload: bool = True,
     ``telemetry=True`` runs each controller's G * W lanes in one traced
     blocked episode (`w_chunk` must be None) and returns ``(accums,
     ControlTrace)`` with decisions leaves [G, M, H, L, K] and minutes
-    [G, M, L, K], K = `trace_lanes` sampled lanes of each cell."""
+    [G, M, L, K], K = `trace_lanes` sampled lanes of each cell. Pooled,
+    each minute folds into the cells' accumulators as it ends, and only
+    the K lanes' minutes are kept."""
     from repro_torch.kernels import ops
     bins = edges.shape[0]
 
@@ -231,18 +233,28 @@ def _lane_runner(ctrls, cfg, edges, *, per_workload: bool = True,
             torch.arange(G, device=dev)[:, None] * W + idx).reshape(-1)
         accs, cts = [], []
         for ctrl in ctrls:
-            m, ct = cluster.run_traced(rates.reshape(G * W, M), ctrl, cfg,
-                                       dev.type == "cuda", flat_idx)
             if per_workload:
+                m, ct = cluster.run_traced(rates.reshape(G * W, M), ctrl,
+                                           cfg, dev.type == "cuda", flat_idx)
                 accs.append(EM.MetricAccum(*(
                     f.reshape((G, W) + f.shape[1:])
                     for f in EM._accum(m, bins, edges))))
+                del m
             else:
-                accs.append(_stack([fold_pooled(
-                    EM.accum_init(bins, device=dev),
-                    MinuteOut(*(f[g * W:(g + 1) * W] for f in m)))
-                    for g in range(G)]))
-            del m
+                # each minute folds into its cell's pooled accumulator as
+                # it ends (the reference's in-scan order), in f64 and
+                # rounded to f32 once at the end: f32 running sums over
+                # 1,440 minutes drift ~1e-5 from a whole chunk's sum
+                acc = [EM.MetricAccum(*(a.double() for a in EM.accum_init(
+                    bins, (G,), device=dev)))]
+
+                def fold(out):
+                    acc[0] = EM.accum_update_pooled(acc[0], MinuteOut(*(
+                        f.reshape(G, W) for f in out)), edges)
+                _, ct = cluster.run_traced(rates.reshape(G * W, M), ctrl,
+                                           cfg, dev.type == "cuda", flat_idx,
+                                           fold=fold)
+                accs.append(EM.MetricAccum(*(a.float() for a in acc[0])))
             cts.append(obs_trace.ControlTrace(
                 decisions=type(ct.decisions)(*(
                     a.reshape(a.shape[:2] + (G, K)).movedim(2, 0)

@@ -113,12 +113,13 @@ def accum_init(bins: int = DEFAULT_BINS, lanes: tuple[int, ...] = (), *,
 
 def _scatter_hist(hist: torch.Tensor, idx: torch.Tensor,
                   weight: torch.Tensor) -> torch.Tensor:
-    """hist [L, bins] += weight [L, N] at bins idx [L, N], per lane."""
+    """hist [L, bins] += weight [L, N] at bins idx [L, N], per lane (the
+    weights in the histogram's dtype)."""
     L, bins = hist.shape
     flat = (torch.arange(L, device=hist.device)[:, None] * bins
             + idx).reshape(-1)
-    return hist.reshape(-1).index_add_(0, flat, weight.reshape(-1)) \
-        .reshape(L, bins)
+    return hist.reshape(-1).index_add_(
+        0, flat, weight.reshape(-1).to(hist.dtype)).reshape(L, bins)
 
 
 def accum_update(acc: MetricAccum, m: MinuteOut,

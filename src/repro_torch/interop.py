@@ -14,6 +14,12 @@ with the reference's so ``RefType(*fields)`` rebuilds it. Python numbers
 `trained_from_reference` carries a trained AAPA classifier across: a
 reference ``TrainedAAPA`` (its arrays as NumPy, or JAX arrays that NumPy
 can read) or the npz its ``save`` writes.
+
+`params_from_reference` carries a model's parameters across
+(``jax.tree.map(np.asarray, repro.models.model.init(key, cfg))``), and
+`cache_from_reference` a prefill/decode cache: the reference's
+layer-stacked subtrees (its ``lax.scan`` layout) become the port's
+per-layer lists, and every array keeps its dtype (bf16 and fp8 included).
 """
 from __future__ import annotations
 
@@ -99,3 +105,68 @@ def trained_from_reference(trained, device="cuda") -> TrainedAAPA:
         n_windows=int(trained.n_windows),
         fit_seconds=float(trained.fit_seconds),
         dataset_id=str(trained.dataset_id))
+
+
+#: top-level subtrees the reference stacks along a leading layer axis for
+#: lax.scan, in a model's parameters and in its cache
+_STACKED_PARAMS = ("layers", "enc_layers", "dec_layers")
+_STACKED_CACHE = ("layers", "shared", "dec")
+_LOW_PRECISION = ("bfloat16", "float8_e4m3fn", "float8_e5m2")
+
+
+def _model_leaf(a, dev) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name in _LOW_PRECISION:       # ml_dtypes arrays, exactly
+        return torch.tensor(a.astype(np.float32)).to(
+            device=dev, dtype=getattr(torch, a.dtype.name))
+    return torch.tensor(a).to(dev)
+
+
+def _unstack(tree: dict) -> list[dict]:
+    def n_of(t):
+        return n_of(next(iter(t.values()))) if isinstance(t, dict) \
+            else np.asarray(t).shape[0]
+
+    def take(t, i):
+        return {k: take(v, i) for k, v in t.items()} \
+            if isinstance(t, dict) else np.asarray(t)[i]
+    return [take(tree, i) for i in range(n_of(tree))]
+
+
+def _model_tree(tree, dev, stacked: tuple = ()):
+    """Leaves to tensors; the top-level `stacked` subtrees to per-layer
+    lists."""
+    if isinstance(tree, dict):
+        return {k: ([_model_tree(x, dev) for x in _unstack(v)]
+                    if k in stacked and isinstance(v, dict)
+                    else _model_tree(v, dev)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_model_tree(x, dev) for x in tree]
+    return _model_leaf(tree, dev)
+
+
+def _check_layers(tree, cfg) -> None:
+    key = "dec_layers" if cfg.family == "encdec" else "layers"
+    if key in tree and len(tree[key]) != cfg.n_layers - (
+            0 if cfg.family == "encdec" else cfg.first_k_dense):
+        raise ValueError(f"{len(tree[key])} {key} for {cfg.name}, whose "
+                         f"config has n_layers={cfg.n_layers}")
+
+
+def params_from_reference(params, cfg, device="cuda") -> dict:
+    """The reference's parameter pytree (NumPy leaves) for `cfg` (a
+    ``repro_torch.models.common.ModelConfig``) -> the port's parameters,
+    tensors on `device`. A block's or layer's own parameters (such as
+    ``init_moe``'s) carry across as they are."""
+    out = _model_tree(params, _device.resolve(device), _STACKED_PARAMS)
+    _check_layers(out, cfg)
+    return out
+
+
+def cache_from_reference(cache, cfg, device="cuda") -> dict:
+    """The reference's prefill/decode cache (NumPy leaves) -> the port's
+    per-layer cache on `device`, for `models.model.decode_step`."""
+    out = _model_tree(cache, _device.resolve(device), _STACKED_CACHE)
+    if cfg.family == "encdec" and len(out["dec"]) != cfg.n_layers:
+        raise ValueError(f"{len(out['dec'])} decoder caches for {cfg.name}")
+    return out

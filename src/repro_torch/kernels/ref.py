@@ -52,14 +52,16 @@ def _plain_controller(controller, cfg):
     """`controller`, or for an AAPA or hybrid controller with a GBDT
     classifier (``core.pipeline.Classify``) the same controller rebuilt on
     `cfg` (the episode kernel reads `cfg` too) with the classifier's
-    logits from `gbdt_logits_ref`; its forecaster and band are the
-    controller's own."""
+    logits from `gbdt_logits_ref` and its features from
+    `extract_features_ref`; its forecaster and band are the controller's
+    own."""
     h = controller.hyper
     if (controller.name not in ("aapa", "hybrid")
             or not isinstance(h["classify"], Classify)):
         return controller
     return policies.rebuild(controller, cfg, classify=dataclasses.replace(
-        h["classify"], logits=gbdt_logits_ref))
+        h["classify"], logits=gbdt_logits_ref,
+        features=extract_features_ref))
 
 
 def policy_signals_ref(rates, controller, cfg, *,

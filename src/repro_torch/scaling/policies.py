@@ -254,7 +254,10 @@ def _aapa(cfg, hyper: dict) -> Controller:
         fst = fcst.update(state.fc, hist[..., -1])
         if int(minute_idx) % hyper["stride_min"]:
             return state._replace(fc=fst)
-        arch, conf = hyper["classify"](F.extract_features(hist))
+        classify = hyper["classify"]
+        windows = getattr(classify, "classify_windows", None)
+        arch, conf = (windows(hist) if windows is not None
+                      else classify(F.extract_features(hist)))
         if hyper["forecast_confidence"]:
             iv = fcst.forecast(fst, hyper["horizon_min"])
             conf = conf * fapi.interval_confidence(iv, hyper["conf_scale"])

@@ -499,31 +499,45 @@ def _reject_decide_kernel_telemetry():
 
 
 def run_traced(rates: torch.Tensor, controller: Controller,
-               cfg: SimConfig, use_kernel: bool, trace_idx=None):
+               cfg: SimConfig, use_kernel: bool, trace_idx=None, fold=None):
     """The blocked episode with its decision trace: rates [..., M] ->
     (MinuteOut of [..., M], ControlTrace time-major: decisions [M, H,
     *lanes], minutes [M, *lanes]), where the traced lanes are those
     `trace_idx` (a LongTensor) picks along the first lane axis, all when
     None. The runners of ``scaling.batch``, ``evals.matrix`` and
-    ``evals.fleet`` stack these per controller."""
+    ``evals.fleet`` stack these per controller.
+
+    With `fold`, each minute's MinuteOut [...] goes to `fold(out)` as the
+    minute ends and is then dropped; only the traced lanes' minutes are
+    kept, so memory does not grow with the episode, and the MinuteOut
+    returned is None."""
     carry = (initial_state(controller, cfg, lanes=rates.shape[:-1],
                            device=rates.device), 0)
-    outs, recs = [], []
+    pick = (lambda a: a) if trace_idx is None else (lambda a: a[trace_idx])
+    outs, recs, kept = [], [], []
     M = rates.shape[-1]
     for m in range(M):
         carry, (out, rec) = _minute_blocked(
             cfg, controller, carry, rates[..., m], use_kernel=use_kernel,
             telemetry=True, trace_idx=trace_idx)
-        outs.append(out)
         recs += rec
-    mo = _stack_minutes(outs)
+        if fold is None:
+            outs.append(out)
+        else:
+            fold(out)
+            kept.append(tuple(pick(a) for a in (
+                out.served, out.violated, out.queue_end, out.ready_mean)))
     H = len(obs_trace.head_schedule(cfg))
     dec = obs_trace.DecisionRecord(*(
         torch.stack(f).reshape((M, H) + f[0].shape) for f in zip(*recs)))
-    pick = (lambda a: a) if trace_idx is None else (lambda a: a[trace_idx])
-    minutes = obs_trace.MinuteTrace(*(
-        pick(a).movedim(-1, 0) for a in (rates, mo.served, mo.violated,
-                                         mo.queue_end, mo.ready_mean)))
+    if fold is None:
+        mo = _stack_minutes(outs)
+        traced = [pick(a).movedim(-1, 0) for a in (
+            mo.served, mo.violated, mo.queue_end, mo.ready_mean)]
+    else:
+        mo = None
+        traced = [torch.stack(f) for f in zip(*kept)]
+    minutes = obs_trace.MinuteTrace(pick(rates).movedim(-1, 0), *traced)
     return mo, obs_trace.ControlTrace(decisions=dec, minutes=minutes)
 
 

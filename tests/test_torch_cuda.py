@@ -917,3 +917,113 @@ def test_tuning_evaluator_on_the_card_equals_the_cpu(cuda):
         np.testing.assert_allclose(a, e, rtol=2e-6, atol=1e-3,
                                    err_msg=field)
     assert ev_card._cache_size() == ev_cpu._cache_size() == 1
+
+
+# ---- the serving endpoint: adapter, model substrate and engine
+SERVE_DISCRETE = ("minute", "sec", "scale_up", "scale_down",
+                  "cooldown_blocked", "capacity_capped", "archetype")
+SERVE_FORECAST = ("fc_point", "fc_lo", "fc_hi", "confidence", "guard_floor")
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _classify_to(cls, dev):
+    p, c = cls.params, cls.cal
+    return Classify(
+        gbdt.GBDTParams(*(t.to(dev) for t in (p.feat, p.thresh, p.leaf,
+                                              p.bin_edges, p.base))),
+        calibration.BetaCalibration(*(t.to(dev) for t in (c.a_raw, c.b_raw,
+                                                          c.c))))
+
+
+def test_serving_adapter_on_the_card_equals_the_cpu(cuda):
+    """The launcher's 10-minute bursty script under AAPA on the card
+    (adapter, controller and classifier on CUDA tensors: the
+    `window_features` and `gbdt_tables` kernels) against the same script
+    on the CPU (their plain versions): summaries equal, decision logs with
+    discrete fields exact and forecast fields at rtol 1e-4 / atol 1e-3."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import model as M
+    cfg = smoke_config(get_config("stablelm_1_6b"))
+    params = M.init(0, cfg, device="cpu")
+    cls = _classifier("cpu")
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        ops.reset_launch_counts()
+        eng, auto = launcher.serve(
+            10, "aapa", None, _tree_to(params, dev), cfg,
+            launcher.bursty_rates(10), np.random.default_rng(0), device=dev,
+            classify=_classify_to(cls, dev),
+            log=lambda *a: None)
+        runs.append((eng.summary(), auto.decision_trace(),
+                     ops.launch_counts()))
+    (card, card_trace, counts), (cpu, cpu_trace, cpu_counts) = runs
+    assert counts["window_features"] > 0 and counts["gbdt_tables"] > 0
+    assert not any(cpu_counts.values())
+    assert card == cpu
+    for field in card_trace._fields:
+        a, e = getattr(card_trace, field), getattr(cpu_trace, field)
+        if field in SERVE_DISCRETE:
+            np.testing.assert_array_equal(a, e, err_msg=field)
+        else:
+            tol = (dict(rtol=1e-4, atol=1e-3) if field in SERVE_FORECAST
+                   else dict(rtol=1e-5, atol=1e-5))
+            np.testing.assert_allclose(a, e, equal_nan=True, err_msg=field,
+                                       **tol)
+
+
+@pytest.mark.parametrize("arch", [
+    "deepseek_v2_lite_16b", "qwen3_moe_30b_a3b", "stablelm_1_6b",
+    "deepseek_67b", "mistral_nemo_12b", "internlm2_1_8b", "mamba2_2_7b",
+    "zamba2_2_7b", "whisper_large_v3", "internvl2_76b"])
+def test_smoke_decode_on_the_card_equals_the_cpu(cuda, arch):
+    """Prefill and one decode step of the smoke-size model in bf16 on the
+    card against the CPU's, at the reference's bf16 tolerance (rtol 0.05,
+    atol 0.05; 0.1 for the hybrid)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import model as M
+    cfg = smoke_config(get_config(arch))
+    params = M.init(0, cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, 8)))}
+    if cfg.n_img_tokens:
+        batch["img_embeds"] = torch.as_tensor(rng.normal(
+            size=(2, cfg.n_img_tokens, cfg.d_model)), dtype=cfg.jdtype)
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.as_tensor(rng.normal(
+            size=(2, cfg.enc_len, cfg.d_model)), dtype=cfg.jdtype)
+    nxt = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 1)))
+    pos = 8 + (cfg.n_img_tokens or 0)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        p = _tree_to(params, dev)
+        lg, cache = M.prefill(p, _tree_to(batch, dev), cfg, 16)
+        lg2, _ = M.decode_step(p, cache, nxt.to(dev), pos, cfg)
+        outs.append((lg.float().cpu(), lg2.float().cpu()))
+    atol = 0.1 if arch == "zamba2_2_7b" else 0.05
+    for got, want in zip(*outs):
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0.05,
+                                   atol=atol)
+
+
+def test_cuda_serving_engine_refuses_without_a_card(monkeypatch):
+    """A ServingEngine asked for CUDA raises when CUDA is absent (here
+    made absent), rather than running on the CPU."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServingEngine
+    cfg = smoke_config(get_config("stablelm_1_6b"))
+    params = M.init(0, cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, params, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, params)

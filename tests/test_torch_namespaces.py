@@ -49,8 +49,40 @@ def _ported(pkg: str, name: str, module: str | None) -> bool:
 
 
 def test_the_ported_packages_are_found():
-    assert {"aapaset", "core", "evals", "forecast", "kernels", "obs",
-            "scaling", "tuning"} <= set(PACKAGES)
+    assert {"aapaset", "configs", "core", "dist", "evals", "forecast",
+            "kernels", "obs", "scaling", "tuning"} <= set(PACKAGES)
+
+
+@pytest.mark.parametrize("pkg,modules", [
+    ("models", ["common", "layers", "moe", "ssm", "transformer", "encdec",
+                "model"]),
+    ("configs", ["registry", "deepseek_67b", "deepseek_v2_lite_16b",
+                 "internlm2_1_8b", "internvl2_76b", "mamba2_2_7b",
+                 "mistral_nemo_12b", "qwen3_moe_30b_a3b", "stablelm_1_6b",
+                 "whisper_large_v3", "zamba2_2_7b"]),
+    ("dist", ["sharding"]),
+    ("serve", ["engine"]),
+    ("launch", ["serve"])])
+def test_serving_slice_modules_mirror_the_reference(pkg, modules):
+    """The serving slice's packages sit where the reference's do, with
+    the reference's module names; each ported module's public functions
+    and classes are the reference's names (the reference's ``models``,
+    ``serve`` and ``launch`` have no ``__init__`` to re-export from)."""
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    assert port.__file__ is not None          # a regular package
+    for name in modules:
+        assert (REF_ROOT / pkg / f"{name}.py").exists(), (pkg, name)
+        mod = importlib.import_module(f"repro_torch.{pkg}.{name}")
+        tree = ast.parse((REF_ROOT / pkg / f"{name}.py").read_text())
+        public = [n.name for n in tree.body
+                  if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                  and not n.name.startswith("_")]
+        if pkg == "launch":                   # the launcher's entry point
+            public = ["main"]
+        if pkg == "dist":                     # a mesh's resolved rules
+            public.remove("MeshRules")
+        missing = [n for n in public if not hasattr(mod, n)]
+        assert not missing, f"repro_torch.{pkg}.{name} lacks {missing}"
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

@@ -104,6 +104,24 @@ def _assert_equal_out(a, b, where=""):
         _same(x, y, f"{where} {field}")
 
 
+#: EpisodeMetrics fields that are counts or ratios of counts
+COUNT_FIELDS = ("overprovision_rate", "scaling_actions", "oscillations",
+                "mean_action_interval_min")
+
+
+def _assert_pooled_close(a, b, where=""):
+    """Pooled metrics of a minute-by-minute fold (the traced runners)
+    against a fold of whole [W, M] chunks (the untraced ones): the counts
+    exact, the sums at rtol 2e-6 (f32 summation order)."""
+    for field, x, y in zip(a._fields, a, b):
+        x, y = np.asarray(x), np.asarray(y)
+        if field in COUNT_FIELDS:
+            np.testing.assert_array_equal(x, y, err_msg=f"{where} {field}")
+        else:
+            np.testing.assert_allclose(x, y, rtol=2e-6, atol=0,
+                                       err_msg=f"{where} {field}")
+
+
 # --------------------------------------------------------------- simulate
 @pytest.mark.parametrize("policy", POLICIES)
 @pytest.mark.parametrize("ci", CIS)
@@ -234,9 +252,10 @@ def _matrix_specs(ci):
 @pytest.mark.parametrize("ci", CIS)
 def test_matrix_telemetry_matches_reference(ci):
     """`make_runner(telemetry=True)`: metrics bit for bit with the
-    untraced runner (per-workload and pooled), the trace [S, Z, M, H, F,
-    P, K] against the reference's; `make_controller_evaluator` the same
-    on one cell."""
+    untraced runner per workload, and pooled (folded minute by minute as
+    the traced episode runs) at `_assert_pooled_close`; the trace [S, Z,
+    M, H, F, P, K] against the reference's; `make_controller_evaluator`
+    the same on one cell."""
     rsp, sp = _matrix_specs(ci)
     rates = matrix.build_rates(sp)
     for per_workload in (True, False):
@@ -244,9 +263,10 @@ def test_matrix_telemetry_matches_reference(ci):
                                   per_workload=per_workload)(rates)
         got = matrix.make_runner(sp, device="cpu", per_workload=per_workload,
                                  telemetry=True, trace_lanes=2)(rates)
+        check = _assert_equal_out if per_workload else _assert_pooled_close
         for b, g in zip(base, got[:2]):
             if b is not None:
-                _assert_equal_out(b, g, f"per_workload={per_workload}")
+                check(b, g, f"per_workload={per_workload}")
     ct = got[2]
     S, Z, F, P = sp.shape
     H = len(T.head_schedule(sp.sim_config()))
@@ -269,16 +289,15 @@ def test_matrix_telemetry_matches_reference(ci):
 @pytest.mark.parametrize("ci", CIS)
 def test_fleet_trace_lanes_matches_reference(ci):
     """`FleetSpec.trace_lanes`: K sampled lanes per chunk, [C, M, H, P,
-    K]; pooled metrics bit for bit with the untraced one-dispatch run;
-    the stream refuses it."""
+    K]; pooled metrics (folded minute by minute) against the untraced
+    one-dispatch run at `_assert_pooled_close`; the stream refuses it."""
     kw = dict(policies=POLICIES, n_workloads=6, w_chunk=3, minutes=25,
               seed=1, sim={"control_interval_sec": ci})
     r0 = fleet.run_fleet(fleet.spec("t_obs", **kw), device="cpu")
     sp = fleet.spec("t_obs", trace_lanes=2, **kw)
     r1 = fleet.run_fleet(sp, device="cpu")
     assert r0.trace is None
-    for field, a, b in zip(r0.pooled._fields, r0.pooled, r1.pooled):
-        np.testing.assert_array_equal(a, b, err_msg=field)
+    _assert_pooled_close(r0.pooled, r1.pooled, "fleet")
     H = len(T.head_schedule(sp.sim_config()))
     assert r1.trace.decisions.desired.shape == (2, 25, H, len(POLICIES), 2)
     assert r1.trace.minutes.rate.shape == (2, 25, len(POLICIES), 2)
@@ -440,3 +459,32 @@ def test_obs_card_publish_cache_and_reference_card(tmp_path):
     with pytest.raises(ValueError, match="classifier_id"):
         OA.capture_matrix(sp, classify=registry.default_classify,
                           root=tmp_path, device="cpu")
+
+
+@pytest.mark.parametrize("ci", CIS)
+def test_traced_pooled_fold_is_the_minute_fold_of_the_episode(ci):
+    """The traced pooled runner folds each minute into its cells'
+    accumulators as the minute ends: bit for bit the minute-by-minute
+    `accum_update_pooled` fold (in f64, rounded to f32 at the end) of the
+    untraced episode's MinuteOut, with only the traced lanes' minutes
+    kept."""
+    from repro_torch.evals import metrics as EM
+    cfg = cluster.SimConfig(control_interval_sec=ci)
+    G, W, M = 2, 3, 20
+    rates = torch.as_tensor(np.random.default_rng(3).poisson(
+        900, (G, W, M)).astype(np.float32))
+    ctrl = registry.get_controller("hpa", cfg)
+    edges = EM.response_edges(EM.DEFAULT_BINS, cfg.resp_cap_sec,
+                              device="cpu")
+    acc, ct = matrix._lane_runner([ctrl], cfg, edges, per_workload=False,
+                                  telemetry=True, trace_lanes=2)(rates)
+    out = cluster.simulate(rates.reshape(G * W, M), ctrl, cfg, device="cpu")
+    want = EM.MetricAccum(*(a.double() for a in EM.accum_init(
+        EM.DEFAULT_BINS, (G,), device="cpu")))
+    for m in range(M):
+        want = EM.accum_update_pooled(want, cluster.MinuteOut(*(
+            f[:, m].contiguous().reshape(G, W) for f in out)), edges)
+    for field, a, b in zip(want._fields, acc, want):
+        assert a.dtype == torch.float32
+        _same(a[0], b.float(), f"pooled {field}")
+    assert ct.minutes.served.shape == (G, M, 1, 2)
