@@ -104,7 +104,10 @@ and prints no result line):
 17. Every registry forecaster in the episode: predictive, predictive
     conservative with the band, AAPA (phase 8's classifier, the forecast
     confidence on) and hybrid with the band, each under linear trend,
-    seasonal naive and EWMA, on ``archetype_mix`` 4,096 x 240, equal to
+    seasonal naive and EWMA, on ``archetype_mix`` 4,096 x 120 (two of
+    the seasonal forecaster's 60-minute periods, AAPA reclassifying every
+    10 minutes; 240 minutes until the training phases needed the time),
+    equal to
     their plain episodes bit for bit, archetypes included.
 18. The pre-pass's new minute walks (predictive conservative with the
     band and AAPA, under each of those forecasters) against
@@ -220,6 +223,37 @@ and prints no result line):
     the decision log must match (discrete fields exact, forecast fields
     at rtol 1e-4 / atol 1e-3, the rest at rtol/atol 1e-5); the CPU run
     launches no kernel.
+30. The LM trainer at full width: ``launch.train.main`` for 4 steps of
+    ``internlm2_1_8b`` (24 layers, d_model 2048, vocab 92,544, bf16,
+    weights from seed 0) at the launcher's batch (8 x 64 tokens, two
+    microbatches, the default AdamW). Prints the losses (finite), the
+    median ms a step over steps 2-4 (CUDA events between steps), the
+    launches of one more step (profiler), peak device memory and the
+    step's bound: params and optimizer state read and written once over
+    3.35 TB/s, or its products (counted on the meta device) at the bf16
+    and f32 peaks. The training path launches none of the five kernels
+    (their counts are read and must stay 0).
+31. Checkpoint and resume with deterministic algorithms: steps 1-2, an
+    ``AsyncCheckpointer.save`` of params and optimizer state, steps 3-4;
+    restored into new tensors, steps 3-4 again must equal the
+    uninterrupted run bit for bit (params, master, m, v, losses), and one
+    checkpoint is kept. At full width when the host has room for two
+    snapshots on disk and in RAM (else the params alone at full width,
+    read back bit for bit), then at smoke size with saves at steps 1 and
+    2. Prints the host copy's, the write's and the restore's times.
+32. The card against the CPU: ``internlm2_1_8b``, ``qwen3_moe_30b_a3b``
+    and ``mamba2_2_7b`` at smoke size in f32, the same weights and
+    batches, 3 train steps (two microbatches): losses at rtol 1e-4, then
+    1e-3; params and m at rtol 1e-4 / atol 1e-5 of each leaf's largest
+    entry (``tests/test_torch_train.py``'s tolerances).
+33. The launch tools: ``launch.dryrun.run_cell`` for all 32 cells on the
+    meta device and ``launch.roofline.probe_cell`` for each (a line per
+    cell: argument bytes, activation estimate, FLOPs, bytes, fits one
+    card, the roofline's terms); every cell the dry run says fits runs
+    for real on the card (a decode step, or a train step on two of its
+    microbatches) and must not run out of memory, its peak printed beside
+    the estimate; ``launch.train --arch internlm2_1_8b --dry-run`` must
+    exit 0. Each of phases 30-33 prints its wall.
 
 Phases 4, 5, 8, 10, 12, 14, 19, 21, 22, each run of 23 and 24, 25, 26
 and 28 reset the kernels' launch counts just before they run and read them just
@@ -242,6 +276,7 @@ Output: progress lines, then a JSON line of per-kernel numbers, then the
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -269,6 +304,9 @@ EPISODE_OPS_PER_HEAD = 52
 # minutes of the AAPA fleet chunk that phase 9 holds against the plain
 # episode
 AAPA_PLAIN_MINUTES = 480
+# minutes of phase 17's episodes (the plain episodes are host-bound: their
+# time grows with the minutes)
+FORECASTER_MINUTES = 120
 
 PLANT_TOL = dict(rtol=1e-5, atol=1e-5)
 EPISODE_TOL = dict(rtol=3e-6, atol=1e-4)
@@ -1804,11 +1842,499 @@ def serving_phase(dev) -> dict:
                 peak_bytes=peak, trace_err=worst, cpu_s=cpu_s)
 
 
+# ---- phases 30-33: training and the launch tools
+TRAIN_ARCH = "internlm2_1_8b"
+TRAIN_STEPS = 4
+TRAIN_BATCH = (8, 64)                 # the launcher's token batch
+CARD_ARCHS = ("internlm2_1_8b", "qwen3_moe_30b_a3b", "mamba2_2_7b")
+LOSS_RTOL = (1e-4, 1e-3, 1e-3)        # test_torch_train.py's, by step
+CKPT_WRITE_LIMIT_S = 90.0
+
+
+def train_step_bound(cfg, params, opt) -> tuple:
+    """(bytes, products, bound ms, bound_by) of one train step at the
+    launcher's batch: its inputs (params, optimizer state, tokens and
+    labels) read once and its outputs (new params and state) written
+    once; its products counted on the meta device (``launch.roofline``),
+    the bf16 ones at the tensor cores' peak, the f32 ones at the CUDA
+    cores'."""
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch import roofline
+    from repro_torch.train import optimizer as opt_lib
+    state = sum(t.numel() * t.element_size()
+                for t in opt_lib.leaves((params, opt)))
+    batch = 2 * TRAIN_BATCH[0] * TRAIN_BATCH[1] * 4
+    n_bytes = 2 * state + batch
+    counts = roofline.probe_counts(
+        cfg, ShapeSpec("launcher", TRAIN_BATCH[1], TRAIN_BATCH[0], "train"))
+    f32 = counts["flops_f32"]
+    t_ops = ((counts["flops"] - f32) / BF16_OPS_PER_S
+             + f32 / F32_OPS_PER_S) * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (n_bytes, counts["flops"], max(t_ops, t_bytes),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def scratch_dir() -> Path:
+    """``build/`` of the checkout (gitignored), for checkpoints."""
+    path = ROOT / "build"
+    path.mkdir(exist_ok=True)
+    return path
+
+
+def step_profile(fn) -> tuple[int, float]:
+    """(kernels, their summed device ms) the profiler counts on the card in
+    one call of `fn`."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in kernels),
+            sum(e.self_device_time_total for e in kernels) / 1e3)
+
+
+def lm_training_phase(dev, smi: str) -> dict:
+    """30. The LM trainer at full width: ``launch.train.main`` for
+    TRAIN_STEPS steps of TRAIN_ARCH (the launcher's batch, two
+    microbatches, the default AdamW) on the card, timed by CUDA events
+    between steps; one more step under the profiler for its launches."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    events, losses = [], []
+
+    def on_step(step, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        losses.append(metrics["loss"])
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # what earlier phases keep
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        params, opt = launcher.main(
+            ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+             "--ckpt-dir", tmp], on_step=on_step)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - held
+    losses = [float(x) for x in losses]
+    steps_ms = [events[i - 1].elapsed_time(events[i])
+                for i in range(1, len(events))]
+    step_ms = float(np.median(steps_ms))
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise RuntimeError(f"training at full width: losses {losses}")
+    if any(counts.values()):
+        raise RuntimeError(f"the train step launched the autoscaler's "
+                           f"kernels {counts}")
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, TRAIN_BATCH),
+                           dtype=torch.int32, device=dev)
+    step = make_train_step(cfg, microbatches=2)
+    t0 = time.perf_counter()
+    launches, busy_ms = step_profile(
+        lambda: step(params, opt, {"tokens": toks, "labels": toks}))
+    profiled_ms = (time.perf_counter() - t0) * 1e3
+    n_bytes, n_ops, bound, by = train_step_bound(cfg, params, opt)
+    log(f"[train] {cfg.name} at full width ({n_params} parameters, "
+        f"{cfg.dtype}), {TRAIN_STEPS} steps of {TRAIN_BATCH[0]} x "
+        f"{TRAIN_BATCH[1]} tokens, 2 microbatches, AdamW defaults, through "
+        f"launch.train.main in {wall:.2f} s: losses {losses}; median "
+        f"{step_ms:.2f} ms a step over steps 2-{TRAIN_STEPS} (CUDA events "
+        f"between steps: {[round(x, 2) for x in steps_ms]}), {launches} "
+        f"kernel launches and {busy_ms:.2f} ms of device time a step "
+        f"(profiler; the profiled step took {profiled_ms:.2f} ms); peak "
+        f"device memory {peak} bytes above the {held} earlier phases hold; "
+        f"bound {bound:.3f} ms by {by} ({n_bytes} bytes: params and "
+        f"optimizer state read and written once; {n_ops:.4e} product "
+        f"FLOPs); the autoscaler's kernels launched {counts} "
+        f"[{smi}]")
+    del params, opt, step
+    return dict(step_ms=step_ms, steps_ms=steps_ms, launches=launches,
+                busy_ms=busy_ms, profiled_ms=profiled_ms,
+                peak_bytes=peak, losses=losses, bound_ms=bound, bound_by=by,
+                bound_bytes=n_bytes, flops=n_ops, wall_s=wall,
+                n_params=n_params)
+
+
+def _host_copy(tree):
+    from repro_torch.train import optimizer as opt_lib
+    return opt_lib.tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+
+def _same_bits(got_tree, want_tree, what: str) -> None:
+    from repro_torch.train import optimizer as opt_lib
+    for i, (a, b) in enumerate(zip(opt_lib.leaves(got_tree),
+                                   opt_lib.leaves(want_tree))):
+        if a.dtype != b.dtype or not torch.equal(a.cpu(), b.cpu()):
+            raise RuntimeError(f"{what}: leaf {i} differs after the resume")
+
+
+def _disk_and_ram() -> dict:
+    import shutil
+    disk = shutil.disk_usage(scratch_dir())
+    ram = {}
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        key, val = line.split(":", 1)
+        if key in ("MemTotal", "MemAvailable"):
+            ram[key] = int(val.split()[0]) * 1024
+    return dict(disk_free=disk.free, ram_available=ram["MemAvailable"],
+                ram_total=ram["MemTotal"])
+
+
+def resume_round_trip(cfg, dev, root: Path, save_at=(2,)) -> dict:
+    """Steps 1-2 from seeded weights, ``AsyncCheckpointer.save`` (keep 1)
+    of the params and optimizer state after each step of `save_at`, steps
+    3-4; the checkpoint restored into new tensors and steps 3-4 again:
+    params, moments and losses must equal the uninterrupted run's bit for
+    bit, and one checkpoint is kept."""
+    from repro_torch.models import model as M
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    ts = make_train_step(cfg, microbatches=2)
+    rng = np.random.default_rng(5)
+    batches = [torch.as_tensor(rng.integers(0, cfg.vocab, TRAIN_BATCH),
+                               dtype=torch.int32, device=dev)
+               for _ in range(4)]
+    params = M.init(torch.Generator(device=dev).manual_seed(3), cfg)
+    opt = opt_lib.init(params)
+    writer = ckpt.AsyncCheckpointer(root, keep=1)
+    for i, toks in enumerate(batches[:2]):
+        params, opt, _ = ts(params, opt, {"tokens": toks, "labels": toks})
+        if i + 1 in save_at:
+            torch.cuda.synchronize()
+            t_save = time.perf_counter()
+            writer.save(i + 1, {"params": params, "opt": opt})
+            snap_s = time.perf_counter() - t_save
+    losses = []
+    for toks in batches[2:]:
+        params, opt, m = ts(params, opt, {"tokens": toks, "labels": toks})
+        losses.append(float(m["loss"]))
+    writer.close()
+    write_s = time.perf_counter() - t_save
+    kept = sorted(p.name for p in root.iterdir())
+    want = _host_copy({"params": params, "opt": opt})
+    del params, opt
+    torch.cuda.empty_cache()
+    shapes = M.init(0, cfg, device="meta")
+    t0 = time.perf_counter()
+    state, step = ckpt.restore(root, {"params": shapes,
+                                      "opt": opt_lib.init(shapes)},
+                               device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if step != 2 or kept != ["step_00000002"]:
+        raise RuntimeError(f"resume: restored step {step}, kept {kept}")
+    params, opt = state["params"], state["opt"]
+    del state
+    again = []
+    for toks in batches[2:]:
+        params, opt, m = ts(params, opt, {"tokens": toks, "labels": toks})
+        again.append(float(m["loss"]))
+    if again != losses:
+        raise RuntimeError(f"resume: losses {again} != {losses}")
+    _same_bits({"params": params, "opt": opt}, want, f"resume {cfg.name}")
+    del params, opt, want
+    torch.cuda.empty_cache()
+    ckpt_bytes = sum(f.stat().st_size for f in root.rglob("*")
+                     if f.is_file())
+    return dict(losses=losses, snapshot_s=snap_s, write_s=write_s,
+                restore_s=restore_s, kept=kept, ckpt_bytes=ckpt_bytes)
+
+
+def checkpoint_phase(dev, smi: str) -> dict:
+    """31. Checkpoint and resume, deterministic (the embedding's and MoE's
+    index accumulations sort instead of using atomics): the round trip of
+    `resume_round_trip` at full width when the host has room for two
+    snapshots (disk and RAM), else the params alone at full width; then
+    the round trip at smoke size, with retention."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.train import checkpoint as ckpt
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    room = _disk_and_ram()
+    state_bytes = cfg.param_count() * 14       # bf16 params, f32 x 3
+    full = min(room["disk_free"], room["ram_available"]) > 2 * state_bytes
+    out = dict(room=room, full_width=full)
+    try:
+        with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+            if full:
+                out["full"] = resume_round_trip(cfg, dev, Path(tmp) / "full")
+            else:
+                params = M.init(torch.Generator(device=dev).manual_seed(3),
+                                cfg)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ckpt.save(Path(tmp) / "params", 0, params)
+                write_s = time.perf_counter() - t0
+                back, _ = ckpt.restore(Path(tmp) / "params", params)
+                _same_bits(back, params, "params at full width")
+                out["params_only"] = dict(write_s=write_s)
+                del params, back
+            shutil.rmtree(Path(tmp) / "full", ignore_errors=True)
+            out["smoke"] = resume_round_trip(smoke_config(cfg), dev,
+                                             Path(tmp) / "smoke",
+                                             save_at=(1, 2))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    wall = time.perf_counter() - t_phase
+    if full:
+        r = out["full"]
+        if r["write_s"] > CKPT_WRITE_LIMIT_S:
+            log(f"[ckpt] the full-width write took {r['write_s']:.1f} s, "
+                f"over {CKPT_WRITE_LIMIT_S:.0f} s")
+        log(f"[ckpt] {cfg.name} at full width, deterministic: steps 1-2, "
+            f"AsyncCheckpointer.save of params and optimizer state "
+            f"({r['ckpt_bytes']} bytes on disk; the call returned after "
+            f"its host copy, {r['snapshot_s']:.2f} s, and the write behind "
+            f"steps 3-4 ended {r['write_s']:.2f} s after the call), "
+            f"restored in {r['restore_s']:.2f} s into "
+            f"new tensors: steps 3-4 again equal the uninterrupted run bit "
+            f"for bit (params, master, m, v; losses {r['losses']}) "
+            f"[{smi}]")
+    else:
+        log(f"[ckpt] host room {room} below two snapshots of "
+            f"{state_bytes} bytes: the params alone at full width, written "
+            f"in {out['params_only']['write_s']:.2f} s and read back bit "
+            f"for bit")
+    s = out["smoke"]
+    log(f"[ckpt] the round trip at smoke size on the card: bit for bit, "
+        f"losses {s['losses']}, saved at steps 1 and 2 and kept "
+        f"{s['kept']}; host disk free "
+        f"{room['disk_free']} bytes, RAM available {room['ram_available']} "
+        f"of {room['ram_total']} bytes; phase 31 {wall:.1f} s")
+    out["wall_s"] = wall
+    return out
+
+
+def card_vs_cpu_phase(dev) -> dict:
+    """32. CARD_ARCHS at smoke size in f32, the same seeded weights and
+    batches, three train steps (two microbatches, AdamW defaults) on the
+    card and on the CPU: losses at test_torch_train.py's tolerances by
+    step, params and moments at rtol 1e-4 / atol 1e-5 of each leaf's
+    largest entry."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    t0 = time.perf_counter()
+    worst = {}
+    for arch in CARD_ARCHS:
+        cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                                  dtype="float32", cache_dtype="float32")
+        base = M.init(0, cfg, device="cpu")
+        rng = np.random.default_rng(7)
+        batches = [rng.integers(0, cfg.vocab, (4, 32)) for _ in range(3)]
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            params = opt_lib.tree_map(lambda t: t.to(d), base)
+            opt = opt_lib.init(params)
+            ts = make_train_step(cfg, microbatches=2)
+            losses = []
+            for b in batches:
+                toks = torch.as_tensor(b, dtype=torch.int32, device=d)
+                params, opt, m = ts(params, opt, {"tokens": toks,
+                                                  "labels": toks})
+                losses.append(float(m["loss"]))
+            runs.append((losses, _host_copy({"params": params,
+                                             "m": opt.m})))
+        (card, card_tree), (cpu, cpu_tree) = runs
+        for i, (a, e) in enumerate(zip(card, cpu)):
+            if not np.isclose(a, e, rtol=LOSS_RTOL[i], atol=0.0):
+                raise RuntimeError(f"{arch}: loss {i + 1} on the card {a}, "
+                                   f"on the CPU {e}")
+        err = 0.0
+        for a, e in zip(opt_lib.leaves(card_tree), opt_lib.leaves(cpu_tree)):
+            scale = float(e.abs().max())
+            torch.testing.assert_close(a, e, rtol=1e-4,
+                                       atol=1e-5 * max(scale, 1e-30))
+            err = max(err, float((a - e).abs().max()))
+        worst[arch] = dict(losses_card=card, losses_cpu=cpu,
+                           max_abs_err=err)
+    wall = time.perf_counter() - t0
+    log(f"[train card vs cpu] {', '.join(CARD_ARCHS)} at smoke size, f32, "
+        f"3 steps of 4 x 32 tokens: losses within rtol {LOSS_RTOL}, params "
+        f"and m within rtol 1e-4 / atol 1e-5 of each leaf's largest entry: "
+        f"{worst}; {wall:.1f} s")
+    return dict(archs=worst, wall_s=wall)
+
+
+def _fit_run(arch: str, shape_name: str, rec: dict, dev) -> dict:
+    """One real run of a cell the dry run says fits: the decode step, or
+    the train step on two of its microbatches (the same microbatch,
+    accumulator and optimizer state, so the same peak), from seeded
+    weights; its peak device memory beside the estimate."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import specs as sp
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()      # what earlier phases keep
+    t0 = time.perf_counter()
+    params = M.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    gen = np.random.default_rng(0)
+    if shape.kind == "decode":
+        cache = M.init_cache(cfg, shape.global_batch, shape.seq_len,
+                             device=dev)
+        toks = torch.as_tensor(gen.integers(0, cfg.vocab,
+                                            (shape.global_batch, 1)),
+                               dtype=torch.int32, device=dev)
+
+        def step():
+            return M.decode_step(params, cache, toks, shape.seq_len - 1,
+                                 cfg)[0]
+        what = "one decode step"
+    elif shape.kind == "train":
+        mb = rec["microbatches"]
+        n = shape.global_batch // mb * min(mb, 2)
+        specs = sp.input_specs(cfg, dataclasses.replace(shape,
+                                                        global_batch=n))
+        batch = {k: torch.as_tensor(gen.integers(0, cfg.vocab, v.shape),
+                                    dtype=v.dtype, device=dev)
+                 if v.dtype == torch.int32 else
+                 torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                 for k, v in specs.items()}
+        opt = opt_lib.init(params)
+        ts = make_train_step(cfg, microbatches=min(mb, 2))
+
+        def step():
+            return ts(params, opt, batch)[2]["loss"]
+        what = f"the train step on {min(mb, 2)} of its {mb} microbatches"
+    else:
+        raise RuntimeError(f"no real run for a {shape.kind} cell")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()     # the arguments are resident
+    t0 = time.perf_counter()
+    out = step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    finite = bool(torch.isfinite(out.float()).all())
+    del params, out
+    torch.cuda.empty_cache()
+    if not finite:
+        raise RuntimeError(f"{arch} {shape_name}: non-finite output")
+    est = rec["memory"]["total_bytes"]
+    return dict(what=what, peak_bytes=peak, estimate_bytes=est,
+                estimate_err=(est - peak) / peak, wall_s=wall, init_s=init_s)
+
+
+def launch_tools_phase(dev, smi: str) -> dict:
+    """33. ``launch.dryrun.run_cell`` for every cell on the meta device,
+    ``launch.roofline.probe_cell`` for the ``train_4k`` cells, a real run
+    of every cell the dry run says fits (it must not run out of memory),
+    and ``launch.train --dry-run``."""
+    from repro_torch.configs import cells
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import train as launcher
+
+    t0 = time.perf_counter()
+    recs = {}
+    for arch, shape in cells():
+        recs[(arch, shape)] = rec = dryrun.run_cell(arch, shape)
+        if not rec.get("ok"):
+            raise RuntimeError(f"dry run {arch} {shape}: {rec}")
+    dry_s = time.perf_counter() - t0
+    t1 = time.perf_counter()      # the probes' counts are the dry run's
+    roof = {(a, s): roofline.probe_cell(a, s) for a, s in cells()}
+    roof_s = time.perf_counter() - t1
+    for (arch, shape), rec in recs.items():
+        r = roof[(arch, shape)]
+        log(f"[dryrun] {arch} {shape}: arguments "
+            f"{rec['memory']['argument_bytes']} bytes, activations ~"
+            f"{rec['memory']['activation_bytes']} bytes, "
+            f"{rec['flops_per_device']:.4e} FLOPs, "
+            f"{rec['bytes_accessed_per_device']:.4e} bytes moved, "
+            f"microbatches {rec['microbatches']}, fits one card "
+            f"{rec['fits_one_card']}; roofline compute {r['compute_s']:.4e} "
+            f"s, memory {r['memory_s']:.4e} s, dominant {r['dominant']}, "
+            f"useful {r['useful_flop_ratio']:.3f}")
+    fits = [k for k, r in recs.items() if r["fits_one_card"]]
+    real = {}
+    for arch, shape in fits:
+        real[f"{arch}|{shape}"] = run = _fit_run(arch, shape,
+                                                 recs[(arch, shape)], dev)
+        log(f"[dryrun real] {arch} {shape}: {run['what']} in "
+            f"{run['wall_s']:.2f} s (its arguments made in "
+            f"{run['init_s']:.2f} s), peak device memory {run['peak_bytes']} "
+            f"bytes (above what earlier phases hold) against the dry run's "
+            f"{run['estimate_bytes']} "
+            f"(estimate error {run['estimate_err']:+.3f}) [{smi}]")
+    try:
+        launcher.main(["--arch", TRAIN_ARCH, "--dry-run"])
+        code = None
+    except SystemExit as e:
+        code = e.code
+    if code != 0:
+        raise RuntimeError(f"launch.train --dry-run exited {code}")
+    wall = time.perf_counter() - t0
+    log(f"[launch tools] {len(recs)} cells dry-run in {dry_s:.1f} s, "
+        f"{len(roof)} roofline records in {roof_s:.1f} s, "
+        f"{len(fits)} cells fit one card and ran: "
+        f"{', '.join(f'{a} {s}' for a, s in fits)}; launch.train --dry-run "
+        f"exit 0; phase 33 {wall:.1f} s")
+    return dict(dry_s=dry_s, roof_s=roof_s, fits=[f"{a}|{s}" for a, s in fits],
+                real=real, wall_s=wall,
+                roofline={a: {k: r[k] for k in ("compute_s", "memory_s",
+                                                 "dominant",
+                                                 "useful_flop_ratio")}
+                          for (a, s), r in roof.items() if s == "train_4k"})
+
+
+def training_phases(dev, smi: str) -> dict:
+    """30-33, each timed."""
+    out = {}
+    for name, fn in (("train", lambda: lm_training_phase(dev, smi)),
+                     ("ckpt", lambda: checkpoint_phase(dev, smi)),
+                     ("card_vs_cpu", lambda: card_vs_cpu_phase(dev)),
+                     ("launch", lambda: launch_tools_phase(dev, smi))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        log(f"[phases] {name} {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
+    # cuBLAS is deterministic in phase 31 only with a fixed workspace,
+    # which it takes when its first handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import (_build, gbdt_tables, holt_winters, ops,
                                      plant_block, ref, window_features)
@@ -2434,7 +2960,8 @@ def main() -> int:
     new_fcs = [f for f in forecast_registry.available()
                if f != "holt_winters"]
     fmix = torch.as_tensor(scenarios.archetype_mix(
-        n_workloads=4096, minutes=240, seed=5).rates, device=dev)
+        n_workloads=4096, minutes=FORECASTER_MINUTES, seed=5).rates,
+        device=dev)
     fc_cases = {
         "predictive": ("predictive", {}),
         "predictive_conservative_band": ("predictive",
@@ -2455,13 +2982,15 @@ def main() -> int:
             outs = zip(got[0], want[0]) if arch else zip(got, want)
             if not all(torch.equal(a, e) for a, e in outs) or (
                     arch and not torch.equal(got[1], want[1])):
-                raise RuntimeError(f"episode {label}[{fname}] 4096x240 "
-                                   "differs from its plain version")
+                raise RuntimeError(f"episode {label}[{fname}] 4096x"
+                                   f"{FORECASTER_MINUTES} differs from its "
+                                   "plain version")
             del got, want
     torch.cuda.synchronize()
     log(f"[forecasters] {len(new_fcs) * len(fc_cases)} episodes "
         f"({', '.join(fc_cases)} x {', '.join(new_fcs)}) on archetype_mix "
-        f"4096x240 equal their plain versions bit for bit, archetypes "
+        f"4096x{FORECASTER_MINUTES} equal their plain versions bit for bit, "
+        f"archetypes "
         f"included ({time.perf_counter() - t0:.1f} s)")
 
     # ---- 18. the new pre-pass walks vs plain on the chunk, and their times
@@ -2550,6 +3079,9 @@ def main() -> int:
     # ---- 27-29. the model substrate and the autoscaled serving endpoint
     model_phase(dev)
     serving = serving_phase(dev)
+
+    # ---- 30-33. training and the launch tools
+    training_phases(dev, smi)
 
     kernels = [
         dict(name="plant_block", route="cuda",
@@ -2649,6 +3181,8 @@ def main() -> int:
         if row["name"] in slice_paths:
             row["paths"] = {path: counts[row["name"]] for path, counts in
                             slice_paths[row["name"]].items()}
+    log(f"[chip_smoke] phases 1-33 in {time.perf_counter() - t_start:.1f} "
+        f"s, the build included")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

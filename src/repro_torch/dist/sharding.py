@@ -16,10 +16,16 @@ _SINGLE = ("the PyTorch/CUDA port runs on a single device; {what} has no "
            "single-device counterpart")
 
 
+def unsupported(what: str) -> NotImplementedError:
+    """The error raised by every part of the reference that needs a mesh
+    (here and in ``launch``, ``train.checkpoint``)."""
+    return NotImplementedError(_SINGLE.format(what=what))
+
+
 def set_mesh(mesh) -> None:
     """`None` deactivates (a no-op here); a mesh raises."""
     if mesh is not None:
-        raise NotImplementedError(_SINGLE.format(what="set_mesh(mesh)"))
+        raise unsupported("set_mesh(mesh)")
     return None
 
 
@@ -35,16 +41,16 @@ def constrain(x, logicals):
 
 
 def lane_sharding(shape, *, w_axis: int = 1, strict: bool = False):
-    raise NotImplementedError(_SINGLE.format(what="lane_sharding"))
+    raise unsupported("lane_sharding")
 
 
 def param_shardings(tree: Any):
-    raise NotImplementedError(_SINGLE.format(what="param_shardings"))
+    raise unsupported("param_shardings")
 
 
 def batch_shardings(tree: Any):
-    raise NotImplementedError(_SINGLE.format(what="batch_shardings"))
+    raise unsupported("batch_shardings")
 
 
 def cache_shardings(cache: Any, cfg):
-    raise NotImplementedError(_SINGLE.format(what="cache_shardings"))
+    raise unsupported("cache_shardings")

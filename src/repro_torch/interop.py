@@ -16,10 +16,11 @@ reference ``TrainedAAPA`` (its arrays as NumPy, or JAX arrays that NumPy
 can read) or the npz its ``save`` writes.
 
 `params_from_reference` carries a model's parameters across
-(``jax.tree.map(np.asarray, repro.models.model.init(key, cfg))``), and
-`cache_from_reference` a prefill/decode cache: the reference's
-layer-stacked subtrees (its ``lax.scan`` layout) become the port's
-per-layer lists, and every array keeps its dtype (bf16 and fp8 included).
+(``jax.tree.map(np.asarray, repro.models.model.init(key, cfg))``),
+`cache_from_reference` a prefill/decode cache and `opt_from_reference`
+an AdamW ``OptState``: the reference's layer-stacked subtrees (its
+``lax.scan`` layout) become the port's per-layer lists, and every array
+keeps its dtype (bf16 and fp8 included).
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ from repro_torch.scaling.api import LimiterState
 from repro_torch.scaling.policies import (AAPAState, HPAState, KPAState,
                                           PredState)
 from repro_torch.sim.cluster import MinuteOut, SimState
+from repro_torch.train.optimizer import OptState
 
 _TYPES = {t.__name__: t for t in (SimState, LimiterState, HPAState,
                                   PredState, KPAState, AAPAState, FState,
@@ -170,3 +172,17 @@ def cache_from_reference(cache, cfg, device="cuda") -> dict:
     if cfg.family == "encdec" and len(out["dec"]) != cfg.n_layers:
         raise ValueError(f"{len(out['dec'])} decoder caches for {cfg.name}")
     return out
+
+
+def opt_from_reference(opt, cfg, device="cuda") -> OptState:
+    """The reference's AdamW ``OptState`` (NumPy leaves) for `cfg` -> the
+    port's, its master weights and moments laid out as
+    `params_from_reference` lays out the parameters, `step` a 0-d int32
+    tensor on `device`."""
+    dev = _device.resolve(device)
+    return OptState(
+        step=torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                          device=dev),
+        master=params_from_reference(opt.master, cfg, dev),
+        m=params_from_reference(opt.m, cfg, dev),
+        v=params_from_reference(opt.v, cfg, dev))

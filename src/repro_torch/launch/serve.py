@@ -12,8 +12,10 @@ cluster simulator runs. The AAPA classifier is trained on ``aapaset_ci``
 ``window_features`` and ``gbdt_tables`` kernels on the card. Everything
 runs on the card unless ``--device cpu`` is given.
 
-``--dry-run`` and ``--multi-pod`` (the reference's 512-device compile
-probe) have no counterpart here yet and exit with an error.
+``--dry-run`` runs ``launch.dryrun.run_cell`` for ``--shape`` (default
+``decode_32k``) and exits 0 or 1 on its ``ok``, as the reference's
+launcher does; ``--multi-pod`` (the reference's 2x16x16 mesh) has no
+single-device counterpart and exits with an error.
 """
 from __future__ import annotations
 
@@ -115,9 +117,14 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.dry_run or args.multi_pod:
-        raise SystemExit("--dry-run/--multi-pod: the compile probe "
-                         "(launch.dryrun) is not ported yet")
+    if args.multi_pod:
+        from repro_torch.dist import sharding as shd
+        raise SystemExit(str(shd.unsupported("--multi-pod (the 2x16x16 "
+                                             "mesh)")))
+    if args.dry_run:
+        from repro_torch.launch.dryrun import run_cell
+        rec = run_cell(args.arch, args.shape)
+        raise SystemExit(0 if rec.get("ok") else 1)
 
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.core import gbdt, pipeline

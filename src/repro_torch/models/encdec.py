@@ -51,15 +51,18 @@ def init(rng, cfg: ModelConfig, *, device="cuda"):
 
 
 def encode(params, enc_embeds, cfg: ModelConfig, *, remat=True):
-    """enc_embeds [B, T_enc, D] (stub frontend output) -> [B, T_enc, D]."""
-    del remat
-    h = enc_embeds.to(cfg.jdtype)
-    for lp in params["enc_layers"]:
+    """enc_embeds [B, T_enc, D] (stub frontend output) -> [B, T_enc, D];
+    with `remat` each layer is recomputed in the backward pass."""
+    def layer(lp, h):
         a = Lyr.rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps)
         a, _ = Lyr.attention(lp["attn"], a, cfg, causal=False)
         h = h + a
         m = Lyr.rms_norm(h, lp["ln2"]["scale"], cfg.norm_eps)
-        h = shd.constrain(h + Lyr.mlp(lp["mlp"], m), ("dp", "mp", None))
+        return shd.constrain(h + Lyr.mlp(lp["mlp"], m), ("dp", "mp", None))
+
+    h = enc_embeds.to(cfg.jdtype)
+    for lp in params["enc_layers"]:
+        h = Lyr.remat(layer, lp, h, enabled=remat)
     return Lyr.rms_norm(h, params["enc_norm"]["scale"], cfg.norm_eps)
 
 
@@ -82,12 +85,17 @@ def _dec_block(lp, h, enc_out, cfg, *, cache=None, pos=None):
 def forward(params, batch, cfg: ModelConfig, *, remat=True,
             return_hidden: bool = False):
     """Training forward: batch {"tokens": [B,S], "enc_embeds": [B,T,D]}.
-    Returns (logits [B,S,V], aux=0)."""
+    Returns (logits [B,S,V], aux=0); with `remat` each encoder and decoder
+    layer is recomputed in the backward pass."""
     enc_out = encode(params, batch["enc_embeds"], cfg, remat=remat)
     h = params["embed"][batch["tokens"]]
-    for lp in params["dec_layers"]:
+
+    def layer(lp, h):
         h, _ = _dec_block(lp, h, enc_out, cfg)
-        h = shd.constrain(h, ("dp", "mp", None))
+        return shd.constrain(h, ("dp", "mp", None))
+
+    for lp in params["dec_layers"]:
+        h = Lyr.remat(layer, lp, h, enabled=remat)
     h = Lyr.rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     aux = torch.zeros((), dtype=F32, device=h.device)
     if return_hidden:

@@ -20,14 +20,17 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as Fn
+import torch.utils.checkpoint
 
 from repro_torch.models.common import ModelConfig
 
 NEG_INF = -1e30
 F32 = torch.float32
 
-# The reference unrolls its scans for cost probes; the port loops in
-# Python already, so the flag is kept only as API.
+# Cost-probe mode (``launch.roofline`` and ``launch.dryrun``): the
+# reference unrolls its scans for its cost probes and takes 2048-wide
+# flash tiles there; the port loops in Python already, so the flag only
+# sets those tiles.
 _UNROLL = False
 
 
@@ -45,8 +48,30 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _normal(gen: torch.Generator, shape, dtype, std: float) -> torch.Tensor:
+    if gen.device.type == "meta":     # shapes only (`launch.specs`)
+        return torch.empty(shape, dtype=dtype, device="meta")
     return torch.randn(shape, generator=gen, dtype=dtype,
                        device=gen.device) * std
+
+
+def _requires_grad(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.requires_grad
+    if isinstance(x, dict):
+        return any(_requires_grad(v) for v in x.values())
+    return isinstance(x, (list, tuple)) and any(_requires_grad(v) for v in x)
+
+
+def remat(fn, *args, enabled: bool = True):
+    """`fn(*args)`, its activations recomputed in the backward pass (the
+    reference's ``jax.checkpoint``) when `enabled` and autograd records
+    through an argument (a layer's params or its input); plainly
+    otherwise, as in serving. The model draws no random numbers, so no
+    RNG state is kept."""
+    if enabled and torch.is_grad_enabled() and _requires_grad(args):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def rms_norm(x, scale, eps=1e-5):
@@ -141,9 +166,17 @@ def flash_attention(q, k, v, *, q_chunk=512, kv_chunk=1024, causal=True):
         if not causal:  # causal mask already excludes the tail
             kv_valid = torch.arange(Skv + pad, device=q.device) < Skv
     scale = 1.0 / (hd ** 0.5)
-    outs = [_flash_q_chunk(q[:, i * q_chunk:(i + 1) * q_chunk], k, v,
-                           i * q_chunk, kv_chunk, scale, causal=causal,
-                           kv_valid=kv_valid)
+    if _UNROLL:
+        q_chunk = min(2048, S)
+        kv_chunk = min(2048, k.shape[1])
+
+    # each query chunk is rematerialized, as in the reference: backward
+    # recomputes the chunk's scores instead of keeping every kv step's
+    # probability tile
+    def one(qb, q_pos0):
+        return _flash_q_chunk(qb, k, v, q_pos0, kv_chunk, scale,
+                              causal=causal, kv_valid=kv_valid)
+    outs = [remat(one, q[:, i * q_chunk:(i + 1) * q_chunk], i * q_chunk)
             for i in range(S // q_chunk)]
     out = torch.cat(outs, dim=1)
     return out[:, :S - q_pad] if q_pad else out

@@ -1,11 +1,12 @@
 """Family dispatch: one API over decoder-only and encoder-decoder models
-(port of ``repro.models.model``). `loss_fn` gives the forward value of
-the training loss; gradients and optimizer steps are not ported yet."""
+(port of ``repro.models.model``). `loss_fn` is differentiated by
+``torch.autograd`` in ``train.train_step``."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import encdec, transformer
+from repro_torch.models import layers as Lyr
 from repro_torch.models.common import ModelConfig
 
 F32 = torch.float32
@@ -40,7 +41,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _ce_chunk(hc, labels_c, lm_head):
-    """CE over one sequence chunk: (summed nll, valid count)."""
+    """CE over one sequence chunk: (summed nll, valid count); rematted
+    when the loss has several chunks, so the logits never persist."""
     logits = torch.einsum("bsd,dv->bsv", hc, lm_head).to(F32)
     valid = labels_c >= 0
     safe = torch.where(valid, labels_c, 0)
@@ -59,8 +61,10 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat: bool = True,
     labels = batch["labels"]
     S = h.shape[1]
     c = ce_chunk if S % ce_chunk == 0 else S
-    parts = [_ce_chunk(h[:, i:i + c], labels[:, i:i + c],
-                       params["lm_head"]) for i in range(0, S, c)]
+    chunked = remat and S // c > 1
+    parts = [Lyr.remat(_ce_chunk, h[:, i:i + c], labels[:, i:i + c],
+                       params["lm_head"], enabled=chunked)
+             for i in range(0, S, c)]
     nll = torch.stack([p[0] for p in parts])
     cnt = torch.stack([p[1] for p in parts])
     ce = torch.sum(nll) / torch.clamp_min(torch.sum(cnt), 1.0)

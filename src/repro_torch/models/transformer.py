@@ -8,7 +8,7 @@ reference's arrays).
 
 API:
     init(gen, cfg)                    -> params
-    forward(params, batch, cfg)       -> (logits, aux)   [no gradients yet]
+    forward(params, batch, cfg)       -> (logits, aux)
     prefill(params, tokens, cfg, L)   -> (logits_last, cache)
     decode_step(params, cache, tok, pos, cfg) -> (logits, cache)
 
@@ -28,11 +28,20 @@ from repro_torch.models.common import ModelConfig
 F32 = torch.float32
 
 
+class _ShapesOnly:
+    """The generator of a meta-device init: ``layers._normal`` draws
+    nothing from it (``torch.Generator`` has no meta device)."""
+    device = torch.device("meta")
+
+
 def generator(rng, device="cuda") -> torch.Generator:
     """`rng` as a ``torch.Generator`` on `device`: a generator passes
-    through, an int seeds a new one."""
-    if isinstance(rng, torch.Generator):
+    through, an int seeds a new one. On the meta device (``launch.specs``)
+    parameters get their shapes and dtypes only."""
+    if isinstance(rng, (torch.Generator, _ShapesOnly)):
         return rng
+    if torch.device(device).type == "meta":
+        return _ShapesOnly()
     gen = torch.Generator(device=device)
     gen.manual_seed(int(rng))
     return gen
@@ -138,9 +147,9 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
 def forward(params, batch, cfg: ModelConfig, *, remat: bool = True,
             return_hidden: bool = False):
     """Training forward. batch {"tokens": [B,S], ...} -> (logits, aux),
-    or (hidden, aux) with return_hidden=True. `remat` is the reference's
-    (it has no effect without gradients)."""
-    del remat
+    or (hidden, aux) with return_hidden=True. With `remat` each layer of
+    the stack (and the shared attention applied after it) is recomputed
+    in the backward pass, as the reference's checkpointed scan body."""
     h = shd.constrain(_embed_inputs(params, batch, cfg), ("dp", None, None))
     aux_total = torch.zeros((), dtype=F32, device=h.device)
 
@@ -149,12 +158,17 @@ def forward(params, batch, cfg: ModelConfig, *, remat: bool = True,
         aux_total = aux_total + aux
 
     shared = params.get("shared_attn")
-    for i, lp in enumerate(params["layers"]):
+
+    def layer(lp, h, i):
         h, aux, _ = block_forward(lp, h, cfg)
-        aux_total = aux_total + aux
         if shared is not None and cfg.attn_every \
                 and (i + 1) % cfg.attn_every == 0:
             h, _ = _shared_attn_block(shared, h, cfg)
+        return h, aux
+
+    for i, lp in enumerate(params["layers"]):
+        h, aux = Lyr.remat(layer, lp, h, i, enabled=remat)
+        aux_total = aux_total + aux
 
     h = Lyr.rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     if cfg.n_img_tokens and "img_embeds" in batch:

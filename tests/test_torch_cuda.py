@@ -1027,3 +1027,135 @@ def test_cuda_serving_engine_refuses_without_a_card(monkeypatch):
         ServingEngine(cfg, params, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(cfg, params)
+
+
+# ---- training and the launch tools
+def _f32_smoke(arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    return dataclasses.replace(smoke_config(get_config(arch)),
+                               dtype="float32", cache_dtype="float32")
+
+
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "qwen3_moe_30b_a3b",
+                                  "mamba2_2_7b"])
+def test_train_steps_on_the_card_equal_the_cpu(cuda, arch):
+    """Three train steps (two microbatches) at smoke size in f32 from the
+    same weights and batches on the card and on the CPU: losses at
+    rtol 1e-4 for the first step and 1e-3 after (AdamW's first update is
+    lr * sign(g)), params and m at rtol 1e-4 / atol 1e-5 of each leaf's
+    largest entry (test_torch_train.py's tolerances)."""
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+    cfg = _f32_smoke(arch)
+    base = M.init(0, cfg, device="cpu")
+    rng = np.random.default_rng(7)
+    batches = [rng.integers(0, cfg.vocab, (4, 32)) for _ in range(3)]
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        params = opt_lib.tree_map(lambda t: t.to(dev), base)
+        opt = opt_lib.init(params)
+        ts = make_train_step(cfg, microbatches=2)
+        losses = []
+        for b in batches:
+            toks = torch.as_tensor(b, dtype=torch.int32, device=dev)
+            params, opt, m = ts(params, opt, {"tokens": toks,
+                                              "labels": toks})
+            losses.append(float(m["loss"]))
+        runs.append((losses, opt_lib.leaves((params, opt.m))))
+    (card, card_leaves), (cpu, cpu_leaves) = runs
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4)
+    np.testing.assert_allclose(card[1:], cpu[1:], rtol=1e-3)
+    for a, e in zip(card_leaves, cpu_leaves):
+        e = e.numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), e, rtol=1e-4,
+                                   atol=1e-5 * max(np.abs(e).max(), 1e-30))
+
+
+def test_resume_on_the_card_is_bit_for_bit(cuda, tmp_path, monkeypatch):
+    """Deterministic algorithms on: two steps, an async checkpoint, two
+    more; restored into new tensors, the last two steps again give the
+    same params, moments and losses bit for bit."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        cfg = smoke_config(get_config("internlm2_1_8b"))
+        ts = make_train_step(cfg, microbatches=2)
+        rng = np.random.default_rng(5)
+        batches = [torch.as_tensor(rng.integers(0, cfg.vocab, (8, 64)),
+                                   dtype=torch.int32, device=cuda)
+                   for _ in range(4)]
+        params = M.init(torch.Generator(device=cuda).manual_seed(3), cfg)
+        opt = opt_lib.init(params)
+        for toks in batches[:2]:
+            params, opt, _ = ts(params, opt, {"tokens": toks,
+                                              "labels": toks})
+        writer = ckpt.AsyncCheckpointer(tmp_path, keep=1)
+        writer.save(2, {"params": params, "opt": opt})
+        losses = []
+        for toks in batches[2:]:
+            params, opt, m = ts(params, opt, {"tokens": toks,
+                                              "labels": toks})
+            losses.append(float(m["loss"]))
+        writer.close()
+        shapes = M.init(0, cfg, device="meta")
+        state, step = ckpt.restore(tmp_path, {"params": shapes,
+                                              "opt": opt_lib.init(shapes)},
+                                   device=cuda)
+        assert step == 2
+        p2, o2 = state["params"], state["opt"]
+        again = []
+        for toks in batches[2:]:
+            p2, o2, m = ts(p2, o2, {"tokens": toks, "labels": toks})
+            again.append(float(m["loss"]))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert again == losses
+    for a, b in zip(opt_lib.leaves((p2, o2)), opt_lib.leaves((params, opt))):
+        assert torch.equal(a, b)
+
+
+def test_launch_train_on_the_card(cuda, tmp_path):
+    """``launch.train`` at smoke size with its default device (the card):
+    finite losses, a checkpoint every two steps, a resume."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import checkpoint as ckpt
+    seen = []
+    argv = ["--arch", "internlm2_1_8b", "--local-smoke", "--ckpt-dir",
+            str(tmp_path), "--ckpt-every", "2"]
+    params, _ = launcher.main(argv + ["--steps", "4"],
+                              on_step=lambda s, m: seen.append(
+                                  float(m["loss"])))
+    assert len(seen) == 4 and np.isfinite(seen).all()
+    assert params["embed"].is_cuda and ckpt.latest_step(tmp_path) == 4
+
+
+def test_dry_run_fitting_cell_runs_on_the_card(cuda):
+    """A cell the dry run says fits (mamba2's batch-1 524,288-token
+    decode) runs for real on the card, its peak device memory within 5%
+    of the dry run's estimate (the caching allocator rounds each block
+    up)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    rec = dryrun.run_cell("mamba2_2_7b", "long_500k")
+    assert rec["ok"] and rec["fits_one_card"]
+    cfg, shape = get_config("mamba2_2_7b"), SHAPES["long_500k"]
+    torch.cuda.empty_cache()
+    params = M.init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    cache = M.init_cache(cfg, 1, shape.seq_len, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()      # the arguments are resident
+    logits, _ = M.decode_step(params, cache, torch.ones(
+        (1, 1), dtype=torch.int32, device=cuda), shape.seq_len - 1, cfg)
+    assert torch.isfinite(logits.float()).all()
+    peak = torch.cuda.max_memory_allocated()
+    assert abs(peak - rec["memory"]["total_bytes"]) <= 0.05 * peak

@@ -1,5 +1,6 @@
-"""The port stands alone: no file of ``src/repro_torch`` or
-``chip_smoke.py`` imports JAX or the JAX package, and none imports the
+"""The port stands alone: no file of ``src/repro_torch``,
+``chip_smoke.py`` or ``tools/run_training_phases.py`` imports JAX or the
+JAX package, and none imports the
 CUDA extension builder or Triton at module level (importing the port on
 a machine without nvcc must not build anything). ``chip_smoke.py``
 refuses to run without a card."""
@@ -12,7 +13,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "run_training_phases.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 

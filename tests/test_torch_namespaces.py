@@ -85,6 +85,39 @@ def test_serving_slice_modules_mirror_the_reference(pkg, modules):
         assert not missing, f"repro_torch.{pkg}.{name} lacks {missing}"
 
 
+@pytest.mark.parametrize("pkg,modules", [
+    ("train", ["optimizer", "train_step", "checkpoint"]),
+    ("launch", ["serve", "train", "specs", "dryrun", "roofline", "mesh"])])
+def test_training_slice_modules_mirror_the_reference(pkg, modules):
+    """Training and the launch tools sit where the reference's do, with
+    its module names, and each module has every public function and class
+    of the reference's (``launch.train`` and ``launch.serve``: ``main``)."""
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    assert port.__file__ is not None          # a regular package
+    for name in modules:
+        mod = importlib.import_module(f"repro_torch.{pkg}.{name}")
+        tree = ast.parse((REF_ROOT / pkg / f"{name}.py").read_text())
+        public = [n.name for n in tree.body
+                  if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                  and not n.name.startswith("_")]
+        missing = [n for n in public if not hasattr(mod, n)]
+        assert public and not missing, \
+            f"repro_torch.{pkg}.{name} lacks {missing}"
+
+
+def test_the_port_has_every_reference_module():
+    """The two trees' module lists differ only by the port's own helpers."""
+    def modules(root):
+        return {str(p.relative_to(root).with_suffix(""))
+                for p in root.rglob("*.py")}
+    port_root = Path(importlib.util.find_spec("repro_torch").origin).parent
+    ref, port = modules(REF_ROOT), modules(port_root)
+    assert ref - port == set()
+    assert {m for m in port - ref if not m.endswith("__init__")} == {
+        "_device", "_numerics", "interop", "kernels/_build",
+        "kernels/policy_signals"}
+
+
 @pytest.mark.parametrize("pkg", PACKAGES)
 def test_package_reexports_match_reference(pkg):
     port = importlib.import_module(f"repro_torch.{pkg}")

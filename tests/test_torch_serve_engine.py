@@ -277,13 +277,17 @@ def test_launcher_decisions_match_reference_adapter(tmp_path):
 
 
 def test_launcher_flags():
-    """Unknown policies exit with the list; the compile probe is not
-    ported and exits with an error."""
+    """Unknown policies exit with the list; ``--multi-pod`` has no
+    single-device counterpart and exits with an error; ``--dry-run`` runs
+    the dry run of the ``decode_32k`` cell on the meta device and exits
+    0."""
     with pytest.raises(SystemExit, match="available"):
         launcher.main(["--arch", "stablelm_1_6b", "--policy", "nope",
                        "--device", "cpu"])
-    for flag in ("--dry-run", "--multi-pod"):
-        with pytest.raises(SystemExit, match="not ported"):
-            launcher.main(["--arch", "stablelm_1_6b", flag])
+    with pytest.raises(SystemExit, match="single device"):
+        launcher.main(["--arch", "stablelm_1_6b", "--multi-pod"])
+    with pytest.raises(SystemExit) as done:
+        launcher.main(["--arch", "stablelm_1_6b", "--dry-run"])
+    assert done.value.code == 0
     rates = launcher.bursty_rates(10)
     assert rates[5] == 2000.0 and (np.delete(rates, 5) == 120.0).all()
