@@ -43,7 +43,10 @@ and prints no result line):
    the rest at rtol/atol 5e-4), for the 28 features and for all 38 in one
    launch (the classification path's), with the kernel compiled for
    W = 60, with the generic kernel forced at W = 60 (timed too) and at
-   W = 45 (the windows' first 45 samples); a seeded GBDT at the paper's
+   W = 45 (the windows' first 45 samples), and with the wide kernel at
+   W = 65, 72, 90, 120, 211, 360 and 1,024 (windows of the same traces
+   at stride 140, ~20,000 a width; each timed beside its plain version,
+   its bound and ``torch.fft.rfft``); a seeded GBDT at the paper's
    size (60 rounds x 4 classes, depth 4, 64
    bins, 38 features; bin edges are quantiles of the port's own
    features over these windows) through ``gbdt_tables`` (its tables in
@@ -60,7 +63,12 @@ and prints no result line):
    (remainder block) with stride 10 and 2, and the first 480 minutes of
    one 25,000-lane chunk of the AAPA fleet; all 12 MinuteOut fields at
    the episode tolerance and the archetype of every lane after every
-   minute exactly.
+   minute exactly. Then AAPA and hybrid at ``history_len`` 45, 90 and 120
+   on ``archetype_mix`` 1024 x 150, each equal to its plain episode bit
+   for bit, archetypes included (the reclassification on the generic
+   window_features kernel at 45, the wide one above), and the
+   reclassification of the 25,000 x 1440 chunk at each of those lengths
+   timed against its bound.
 10. The AAPA fleet: the same 100,000 x 1440 ``burst_storm`` rates as the
     HPA row through ``make_simulator(w_chunk=25_000)``, classified by
     phase 22's trained classifier, pooled metrics and REI, timed, then
@@ -93,14 +101,21 @@ and prints no result line):
 15. The pre-pass kernels against their plain version
     (``ref.policy_signals_ref``) bit for bit on the 25,000 x 1440 chunk:
     AAPA with the band and the forecast confidence (every signal, slot
-    and per-minute archetype), and predictive conservative with the band.
+    and per-minute archetype), and predictive conservative with the band;
+    then the reclassification alone (``policy_signals.reclassify_cuda``:
+    ``window_features`` on windows read in place from the rates,
+    ``gbdt_tables``, the calibration kernel) against
+    ``ref.reclassify_ref`` bit for bit, timed per 25,000 x 1440 launch
+    against its bound.
 16. For information: the plant pass over all 100,000 lanes in one launch
     against four 25,000-lane launches (HPA's episode, AAPA's plant pass),
     and each kernel entry's registers, stack and shared memory from
     ``cuobjdump --dump-resource-usage`` of the built extension; fails
-    unless both W = 60 ``window_features`` entries and both shared-memory
+    unless the three W = 60 ``window_features`` entries (28 and 38
+    features, and the pre-pass's windows) and both shared-memory
     ``gbdt_tables`` entries (the paper's depth and any depth) hold no
-    stack and no local memory.
+    stack and no local memory, and unless the three wide
+    ``window_features`` entries and the calibration kernel are there.
 17. Every registry forecaster in the episode: predictive, predictive
     conservative with the band, AAPA (phase 8's classifier, the forecast
     confidence on) and hybrid with the band, each under linear trend,
@@ -233,14 +248,15 @@ and prints no result line):
     3.35 TB/s, or its products (counted on the meta device) at the bf16
     and f32 peaks. The training path launches none of the five kernels
     (their counts are read and must stay 0).
-31. Checkpoint and resume with deterministic algorithms: steps 1-2, an
-    ``AsyncCheckpointer.save`` of params and optimizer state, steps 3-4;
-    restored into new tensors, steps 3-4 again must equal the
-    uninterrupted run bit for bit (params, master, m, v, losses), and one
-    checkpoint is kept. At full width when the host has room for two
-    snapshots on disk and in RAM (else the params alone at full width,
-    read back bit for bit), then at smoke size with saves at steps 1 and
-    2. Prints the host copy's, the write's and the restore's times.
+31. Checkpoint and resume with deterministic algorithms: the params
+    alone at full width, written and read back bit for bit (the full
+    state's round trip at full width was cut for time: ~140 s of the
+    script's limit on an H100 80GB HBM3 at 700 W); then at smoke size steps 1-2, an
+    ``AsyncCheckpointer.save`` of params and optimizer state at steps 1
+    and 2, steps 3-4; restored into new tensors, steps 3-4 again must
+    equal the uninterrupted run bit for bit (params, master, m, v,
+    losses), and one checkpoint is kept. Prints the write's and the
+    restore's times.
 32. The card against the CPU: ``internlm2_1_8b``, ``qwen3_moe_30b_a3b``
     and ``mamba2_2_7b`` at smoke size in f32, the same weights and
     batches, 3 train steps (two microbatches): losses at rtol 1e-4, then
@@ -261,7 +277,10 @@ after; a path whose kernel was never launched fails (the predictive,
 AAPA and hybrid rows: the pre-pass and the plant pass; the matrices:
 every policy's minute walk under every forecaster; the AAPAset build:
 ``window_features``; training: ``gbdt_tables``; every fleet run:
-``episode_block``, and with AAPA ``policy_signals``; the traced runs and
+``episode_block``, and with AAPA ``policy_signals`` and, with a GBDT
+classifier, its reclassification ``reclassify``; phase 9's other
+history lengths: ``episode_block``, ``policy_signals`` and
+``reclassify``; the traced runs and
 the obs card: ``plant_block``, and with AAPA or hybrid ``gbdt_tables``;
 tuning: ``episode_block``; serving: ``window_features`` and
 ``gbdt_tables``). Kernel-vs-plain
@@ -307,6 +326,15 @@ AAPA_PLAIN_MINUTES = 480
 # minutes of phase 17's episodes (the plain episodes are host-bound: their
 # time grows with the minutes)
 FORECASTER_MINUTES = 120
+# phase 8's widths past the generic window_features kernel's 64 samples
+# (the wide kernel; 211: ducc0 takes Bluestein's algorithm there), on
+# windows of the AAPAset traces at this stride (~20,000 a width)
+WIDE_WIDTHS = (65, 72, 90, 120, 211, 360, 1024)
+WIDE_STRIDE = 140
+# phase 9's AAPA and hybrid episodes on other history lengths
+# (SimConfig.history_len), on archetype_mix of these lanes x minutes
+HISTORY_LENS = (45, 90, 120)
+HISTORY_LANES, HISTORY_MINUTES = 1024, 150
 
 PLANT_TOL = dict(rtol=1e-5, atol=1e-5)
 EPISODE_TOL = dict(rtol=3e-6, atol=1e-4)
@@ -358,12 +386,27 @@ def stat_feature_ops(w: int) -> int:
             + 4 * (w - 2) + 30)
 
 
+def radfg_ops(ip: int, l1: int, ido: int) -> int:
+    """Operations of ducc0's generic pass for an odd factor ip > 5
+    (features.cuh::radfg): the twiddles (16 a complex pair), the
+    butterflies (2), per rotation l the two first terms (7 a column) and
+    4 a column for each further j, the sum over j, and the reorder (4 a
+    pair)."""
+    ipph, idl1, pairs = (ip + 1) // 2, ido * l1, (ido - 1) // 2
+    return ((ipph - 1) * l1 * (16 * pairs + 2)
+            + (ipph - 1) * idl1 * (7 + 4 * (ipph - 3))
+            + idl1 * (ipph - 1) + (ipph - 1) * l1 * pairs * 4)
+
+
 def fft_ops(w: int) -> int:
     """Operations of the real FFT of one window (features.cuh::radix_pass
     over core.features.rfft_plan(w))."""
     from repro_torch.core import features
     total = 0
     for ip, l1, ido, _ in features.rfft_plan(w):
+        if ip > 5:
+            total += radfg_ops(ip, l1, ido)
+            continue
         first, even, inner = FFT_PASS_OPS[ip]
         total += l1 * (first + (even if ido % 2 == 0 else 0)
                        + inner * ((ido - 1) // 2))
@@ -566,14 +609,28 @@ def aapa_episode_ops(B: int, M: int, heads: int, stride: int, downs: float,
                        reclassification_ops(cls, confidence), stride)
 
 
-def reclassification_ops(cls, confidence: bool) -> int:
-    """Operations of one reclassification: the 38 features, the trees,
-    the calibration and (with `confidence`) the interval confidence."""
+def reclassification_ops(cls, confidence: bool, width: int = 60) -> int:
+    """Operations of one reclassification of a `width`-minute window: the
+    38 features, the trees, the calibration and (with `confidence`) the
+    interval confidence."""
     t = cls.params.tables
     n_edges = cls.params.bin_edges.shape[1]
-    return (stat_feature_ops(60) + freq_feature_ops(60)
+    return (stat_feature_ops(width) + freq_feature_ops(width)
             + gbdt_ops(38, n_edges, t.feat.shape[0], cls.params.depth)
             + AAPA_CAL_OPS + (AAPA_CONF_OPS if confidence else 0))
+
+
+def reclassify_bound(cls, B: int, M: int, stride: int,
+                     width: int) -> tuple[float, str]:
+    """The bound of `policy_signals.reclassify_cuda` on rates [B, M]: the
+    rates and the classifier's tables read once, each slot's archetype
+    and confidence written once; per window its features, trees and
+    calibration."""
+    n = B * (M // stride)
+    table_bytes = sum(t.numel() * 4 for t in (
+        cls.params.bin_edges, *cls.params.tables, cls.params.base))
+    return bound_ms(4.0 * B * M + table_bytes + 8.0 * n,
+                    float(n) * reclassification_ops(cls, False, width))
 
 
 def prepass_bound(ctrl, B: int, M: int, cls) -> tuple[float, str]:
@@ -860,14 +917,18 @@ def fleet_row(controller, cfg, rates, w_chunk: int, label: str):
     t0 = time.perf_counter()
     out, episode_s, pool, score = row()
     row_s = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    from repro_torch.core.pipeline import Classify
     from repro_torch.kernels import policy_signals
+    counts = dict(ops.launch_counts(),
+                  reclassify=policy_signals.reclassify_cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+    classifies = isinstance(controller.hyper.get("classify"), Classify)
     if counts["episode_block"] == 0 or (
             controller.name in policy_signals.POLICIES
-            and counts["policy_signals"] == 0):
-        raise RuntimeError(f"{label} launched no episode_block kernel or no "
-                           f"pre-pass: {counts}")
+            and counts["policy_signals"] == 0) or (
+            classifies and counts["reclassify"] == 0):
+        raise RuntimeError(f"{label} launched no episode_block kernel, no "
+                           f"pre-pass or no reclassification: {counts}")
     if tuple(out.served.shape) != (W, M):
         raise RuntimeError(f"MinuteOut shape {tuple(out.served.shape)}")
     for name, v in (*pool._asdict().items(), *score._asdict().items()):
@@ -1848,7 +1909,6 @@ TRAIN_STEPS = 4
 TRAIN_BATCH = (8, 64)                 # the launcher's token batch
 CARD_ARCHS = ("internlm2_1_8b", "qwen3_moe_30b_a3b", "mamba2_2_7b")
 LOSS_RTOL = (1e-4, 1e-3, 1e-3)        # test_torch_train.py's, by step
-CKPT_WRITE_LIMIT_S = 90.0
 
 
 def train_step_bound(cfg, params, opt) -> tuple:
@@ -1983,18 +2043,6 @@ def _same_bits(got_tree, want_tree, what: str) -> None:
             raise RuntimeError(f"{what}: leaf {i} differs after the resume")
 
 
-def _disk_and_ram() -> dict:
-    import shutil
-    disk = shutil.disk_usage(scratch_dir())
-    ram = {}
-    for line in Path("/proc/meminfo").read_text().splitlines():
-        key, val = line.split(":", 1)
-        if key in ("MemTotal", "MemAvailable"):
-            ram[key] = int(val.split()[0]) * 1024
-    return dict(disk_free=disk.free, ram_available=ram["MemAvailable"],
-                ram_total=ram["MemTotal"])
-
-
 def resume_round_trip(cfg, dev, root: Path, save_at=(2,)) -> dict:
     """Steps 1-2 from seeded weights, ``AsyncCheckpointer.save`` (keep 1)
     of the params and optimizer state after each step of `save_at`, steps
@@ -2059,11 +2107,11 @@ def resume_round_trip(cfg, dev, root: Path, save_at=(2,)) -> dict:
 
 def checkpoint_phase(dev, smi: str) -> dict:
     """31. Checkpoint and resume, deterministic (the embedding's and MoE's
-    index accumulations sort instead of using atomics): the round trip of
-    `resume_round_trip` at full width when the host has room for two
-    snapshots (disk and RAM), else the params alone at full width; then
-    the round trip at smoke size, with retention."""
-    import shutil
+    index accumulations sort instead of using atomics): the params alone
+    at full width written and read back bit for bit (the full state's
+    round trip took ~140 s of the script's time limit on an H100 80GB
+    HBM3 at 700 W), then
+    `resume_round_trip` at smoke size, with retention."""
     import tempfile
 
     from repro_torch.configs import get_config, smoke_config
@@ -2074,57 +2122,35 @@ def checkpoint_phase(dev, smi: str) -> dict:
     torch.use_deterministic_algorithms(True)
     t_phase = time.perf_counter()
     cfg = get_config(TRAIN_ARCH)
-    room = _disk_and_ram()
-    state_bytes = cfg.param_count() * 14       # bf16 params, f32 x 3
-    full = min(room["disk_free"], room["ram_available"]) > 2 * state_bytes
-    out = dict(room=room, full_width=full)
+    out = {}
     try:
         with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
-            if full:
-                out["full"] = resume_round_trip(cfg, dev, Path(tmp) / "full")
-            else:
-                params = M.init(torch.Generator(device=dev).manual_seed(3),
-                                cfg)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                ckpt.save(Path(tmp) / "params", 0, params)
-                write_s = time.perf_counter() - t0
-                back, _ = ckpt.restore(Path(tmp) / "params", params)
-                _same_bits(back, params, "params at full width")
-                out["params_only"] = dict(write_s=write_s)
-                del params, back
-            shutil.rmtree(Path(tmp) / "full", ignore_errors=True)
+            params = M.init(torch.Generator(device=dev).manual_seed(3), cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save(Path(tmp) / "params", 0, params)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back, _ = ckpt.restore(Path(tmp) / "params", params)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            _same_bits(back, params, "params at full width")
+            out["params_only"] = dict(write_s=write_s, restore_s=restore_s)
+            del params, back
             out["smoke"] = resume_round_trip(smoke_config(cfg), dev,
                                              Path(tmp) / "smoke",
                                              save_at=(1, 2))
     finally:
         torch.use_deterministic_algorithms(was)
     wall = time.perf_counter() - t_phase
-    if full:
-        r = out["full"]
-        if r["write_s"] > CKPT_WRITE_LIMIT_S:
-            log(f"[ckpt] the full-width write took {r['write_s']:.1f} s, "
-                f"over {CKPT_WRITE_LIMIT_S:.0f} s")
-        log(f"[ckpt] {cfg.name} at full width, deterministic: steps 1-2, "
-            f"AsyncCheckpointer.save of params and optimizer state "
-            f"({r['ckpt_bytes']} bytes on disk; the call returned after "
-            f"its host copy, {r['snapshot_s']:.2f} s, and the write behind "
-            f"steps 3-4 ended {r['write_s']:.2f} s after the call), "
-            f"restored in {r['restore_s']:.2f} s into "
-            f"new tensors: steps 3-4 again equal the uninterrupted run bit "
-            f"for bit (params, master, m, v; losses {r['losses']}) "
-            f"[{smi}]")
-    else:
-        log(f"[ckpt] host room {room} below two snapshots of "
-            f"{state_bytes} bytes: the params alone at full width, written "
-            f"in {out['params_only']['write_s']:.2f} s and read back bit "
-            f"for bit")
+    log(f"[ckpt] {cfg.name}'s params at full width ({cfg.param_count()} "
+        f"bf16 parameters), deterministic: written in "
+        f"{out['params_only']['write_s']:.2f} s and restored in "
+        f"{out['params_only']['restore_s']:.2f} s, bit for bit [{smi}]")
     s = out["smoke"]
     log(f"[ckpt] the round trip at smoke size on the card: bit for bit, "
         f"losses {s['losses']}, saved at steps 1 and 2 and kept "
-        f"{s['kept']}; host disk free "
-        f"{room['disk_free']} bytes, RAM available {room['ram_available']} "
-        f"of {room['ram_total']} bytes; phase 31 {wall:.1f} s")
+        f"{s['kept']}; phase 31 {wall:.1f} s")
     out["wall_s"] = wall
     return out
 
@@ -2499,8 +2525,8 @@ def main() -> int:
     from repro_torch.core import features
     from repro_torch.data import azure_synth, windows
     t0 = time.perf_counter()
-    ds = windows.make_windows(azure_synth.generate_traces(
-        n_functions=150, n_days=14, seed=0))
+    traces = azure_synth.generate_traces(n_functions=150, n_days=14, seed=0)
+    ds = windows.make_windows(traces)
     wins = torch.as_tensor(ds.windows, device=dev)
     N = wins.shape[0]
     log(f"[classify] {N} windows x 60 ({wins.numel() * 4 / 1e6:.1f} MB) "
@@ -2549,6 +2575,54 @@ def main() -> int:
             f"version bit for bit (the 28 equal to the 28-feature launch), "
             f"max_abs_err={fx_err}")
         del x, wf_k, wf_p, fx_p
+    # the wide kernel past 64 samples, on windows of the same traces at a
+    # longer stride (~20,000 windows a width)
+    wide_rows = {}
+    for width in WIDE_WIDTHS:
+        x = torch.as_tensor(windows.make_windows(
+            traces, window=width, stride=WIDE_STRIDE).windows, device=dev)
+        n = x.shape[0]
+        err = 0.0
+        for freq in (False, True):
+            got = wf_launcher(x, freq=freq)
+            if wf_launcher.last_variant != "wide":
+                raise RuntimeError(f"window_features at W = {width} took "
+                                   f"the {wf_launcher.last_variant} kernel")
+            t0 = time.perf_counter()
+            want = launch_free(lambda: (
+                ref.extract_features_ref if freq
+                else ref.window_features_ref)(x), "window_features")
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            q = quant if freq else quant28
+            if not torch.equal(got[:, q], want[:, q]):
+                raise RuntimeError(f"window_features wide at W = {width}: "
+                                   "quantized features differ from the "
+                                   "plain version")
+            err = max(err, max_abs_err([got], [want], FEATURE_TOL,
+                                       f"window_features W={width}"))
+            if not torch.equal(got, want):
+                raise RuntimeError(f"window_features wide at W = {width}: "
+                                   f"the {got.shape[1]} features differ "
+                                   "from the plain version's bits")
+        del got, want
+        ms = cuda_ms(lambda: wf_launcher(x, freq=True), iters=3)[0]
+        centred = x - x.mean(-1, keepdim=True)
+        rfft = cuda_ms(lambda: torch.fft.rfft(centred, dim=-1), iters=3)[0]
+        bnd, by = bound_ms(
+            4.0 * n * (width + 38)
+            + 4.0 * features.fft_tables(width, dev)[0].numel(),
+            float(n) * (stat_feature_ops(width) + freq_feature_ops(width)))
+        wide_rows[width] = dict(windows=n, ms=ms, plain_ms=plain_s * 1e3,
+                                bound_ms=bnd, bound_by=by, max_abs_err=err,
+                                library_ms=rfft)
+        wf_err = max(wf_err, err)
+        log(f"[window_features] {n} x {width}, 28 and 38 features, kernel "
+            f"wide: equal to the plain version bit for bit (within rtol/atol "
+            f"5e-4, quantized features exact), max_abs_err={err}; 38 "
+            f"features {ms} ms, plain {plain_s * 1e3} ms (one run, host "
+            f"clock), bound {bnd} ms ({by}); torch.fft.rfft alone {rfft} ms")
+        del x, centred
     feats = ops.extract_features_fused(wins)
     cls = seeded_classifier(feats.cpu().numpy(), dev)
     gb_launcher = gbdt_tables.gbdt_logits_cuda
@@ -2686,6 +2760,59 @@ def main() -> int:
         f"{aapa_split['prepass_ms']} ms, plant pass {aapa_split['plant_ms']} "
         f"ms), plain {w_chunk}x{AAPA_PLAIN_MINUTES} {aapa_plain_s * 1e3} ms "
         f"(one run, host clock), bound {aapa_bound} ms ({aapa_by})")
+
+    # AAPA and hybrid on other rate histories: the pre-pass reclassifies on
+    # the generic (45) or the wide (90, 120) window_features kernel
+    from repro_torch.kernels import policy_signals
+    rc_launcher = policy_signals.reclassify_cuda
+    hmix = torch.as_tensor(scenarios.archetype_mix(
+        n_workloads=HISTORY_LANES, minutes=HISTORY_MINUTES, seed=3).rates,
+        device=dev)
+    history_rows, wide_launches = {}, 0
+    for hl in HISTORY_LENS:
+        hcfg = cluster.SimConfig(history_len=hl)
+        for policy in ("aapa", "hybrid"):
+            hctrl = registry.make(policy, hcfg, classify=cls)
+            ops.reset_launch_counts()
+            got = episode_block.aapa_episode_cuda(hmix, hctrl, hcfg)
+            torch.cuda.synchronize()
+            counts = dict(ops.launch_counts(),
+                          reclassify=rc_launcher.launches)
+            if not (counts["episode_block"] and counts["policy_signals"]
+                    and counts["reclassify"]):
+                raise RuntimeError(f"{policy} at history_len {hl} launched "
+                                   f"{counts}")
+            variant = rc_launcher.last_variant
+            if variant == "wide":
+                wide_launches += counts["reclassify"]
+            t0 = time.perf_counter()
+            want = launch_free(lambda: ref.aapa_episode_ref(hmix, hctrl,
+                                                            hcfg),
+                               f"{policy} history_len {hl}")
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            if not (all(torch.equal(a, e) for a, e in zip(got[0], want[0]))
+                    and torch.equal(got[1], want[1])):
+                raise RuntimeError(f"{policy} at history_len {hl}: the "
+                                   "episode differs from its plain "
+                                   "episode's bits")
+            n_arch = len(torch.unique(want[1]))
+            history_rows[f"{policy}@{hl}"] = dict(
+                launches=counts, variant=variant, plain_s=plain_s)
+            log(f"[episode_block<{policy}>] history_len {hl}, archetype_mix "
+                f"{HISTORY_LANES}x{HISTORY_MINUTES}: equal to the plain "
+                f"episode bit for bit, archetypes included ({n_arch} "
+                f"archetypes); reclassification kernel {variant}, launches "
+                f"{counts}; plain {plain_s:.1f} s (host clock)")
+            del got, want
+        hms = cuda_ms(lambda: rc_launcher(chunk, cls, stride, hl),
+                      iters=3)[0]
+        hbound, hby = reclassify_bound(cls, w_chunk, M, stride, hl)
+        history_rows[f"reclassify@{hl}"] = dict(ms=hms, bound_ms=hbound,
+                                                bound_by=hby)
+        log(f"[timing] reclassify {w_chunk}x{M} at history_len {hl} "
+            f"(kernel {rc_launcher.last_variant}): {hms} ms, bound {hbound} "
+            f"ms ({hby})")
 
     # ---- 21-22. AAPAset built and the classifier trained on the card;
     # the AAPA and hybrid fleet rows of phases 10 and 14 classify with it
@@ -2903,6 +3030,25 @@ def main() -> int:
     log(f"[timing] policy_signals<aapa_band> {w_chunk}x{M}: {pre_ms} ms, "
         f"plain {pre_plain_ms} ms (one run, host clock), bound {pre_bound} "
         f"ms ({pre_by})")
+    # the reclassification alone on the chunk, at the default 60 minutes
+    # (the W = 60 kernels): bit for bit with its plain version, and timed
+    got = rc_launcher(chunk, cls, stride, 60)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = launch_free(lambda: ref.reclassify_ref(chunk, cls, stride, 60),
+                       "reclassify")
+    torch.cuda.synchronize()
+    rc_plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise RuntimeError("reclassify on the chunk differs from its plain "
+                           "version")
+    del got, want
+    rc_ms = cuda_ms(lambda: rc_launcher(chunk, cls, stride, 60), iters=5)[0]
+    rc_bound, rc_by = reclassify_bound(cls, w_chunk, M, stride, 60)
+    log(f"[timing] reclassify {w_chunk}x{M} at history_len 60 (kernel "
+        f"{rc_launcher.last_variant}): {rc_ms} ms, equal to the plain "
+        f"version bit for bit (plain {rc_plain_ms} ms, one run, host "
+        f"clock), bound {rc_bound} ms ({rc_by})")
 
     # ---- 16. one launch over the fleet, and each kernel's resources
     hctrl = registry.make("hpa", cfg)
@@ -2937,11 +3083,17 @@ def main() -> int:
                            f"memory: {gb_entries}")
     w60_entries = {e: u for e, u in usage.items()
                    if "window_features_kernel<(bool)1" in e}
-    if len(w60_entries) != 2 or any(u["stack"] or u["local"]
+    if len(w60_entries) != 3 or any(u["stack"] or u["local"]
                                     for u in w60_entries.values()):
-        raise RuntimeError(f"the W = 60 window_features kernels are not two "
-                           f"entries without stack or local memory: "
+        raise RuntimeError(f"the W = 60 window_features kernels (28 and 38 "
+                           f"features, and the pre-pass's windows) are not "
+                           f"three entries without stack or local memory: "
                            f"{w60_entries}")
+    new_entries = [e for e in usage if "window_features_wide_kernel" in e
+                   or "calibrate_kernel" in e]
+    if len(new_entries) != 4:
+        raise RuntimeError(f"expected three wide window_features entries and "
+                           f"the calibration kernel: {new_entries}")
     plant_entries = {p: [u for e, u in usage.items()
                          if "episode_kernel" in e and f"::{p}>" in e]
                      for p in ("HPA", "AAPA", "Hybrid")}
@@ -3118,6 +3270,27 @@ def main() -> int:
              launches=aapa_counts["policy_signals"], max_abs_err=0.0,
              ms=pre_ms, plain_ms=pre_plain_ms, bound_ms=pre_bound,
              bound_by=pre_by, library_ms=None),
+        dict(name="reclassify", policy="aapa_band", route="cuda",
+             source="src/repro_torch/kernels/csrc/policy_signals.cu",
+             parts=["src/repro_torch/kernels/csrc/window_features.cu",
+                    "src/repro_torch/kernels/csrc/gbdt_tables.cu",
+                    "src/repro_torch/kernels/csrc/policy_signals.cu"],
+             replaces="src/repro/kernels/episode_block.py:210",
+             launches=aapa_counts["reclassify"], max_abs_err=0.0,
+             ms=rc_ms, plain_ms=rc_plain_ms, bound_ms=rc_bound,
+             bound_by=rc_by, library_ms=None,
+             history_len={hl: history_rows[f"reclassify@{hl}"]
+                          for hl in HISTORY_LENS}),
+        dict(name="window_features<wide>", route="cuda",
+             source="src/repro_torch/kernels/csrc/window_features.cu",
+             replaces="src/repro/kernels/window_features.py:163",
+             launches=wide_launches,
+             max_abs_err=max(r["max_abs_err"] for r in wide_rows.values()),
+             width=120, ms=wide_rows[120]["ms"],
+             plain_ms=wide_rows[120]["plain_ms"],
+             bound_ms=wide_rows[120]["bound_ms"],
+             bound_by=wide_rows[120]["bound_by"],
+             library_ms=wide_rows[120]["library_ms"], by_width=wide_rows),
         dict(name="window_features", route="cuda",
              source="src/repro_torch/kernels/csrc/window_features.cu",
              replaces="src/repro/kernels/window_features.py:163",

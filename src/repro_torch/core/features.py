@@ -25,7 +25,15 @@ module agree bit for bit:
   pass, twiddles rounded once from f64), then XLA's complex ``abs``
   (max * sqrt(fma(r, r, 1)), r = min / max) and the square, op for op in
   f32, so the power spectrum, and with it every frequency feature's ties,
-  is the reference's bit for bit at every window width.
+  is the reference's bit for bit wherever ducc0 runs those passes: every
+  width up to 136, and above it every width up to 1,024 without a prime
+  factor of 137 or more, but for the even widths 1,008 to 1,022. At the
+  others (211, 223, ...) ducc0 takes another algorithm (Bluestein's, for
+  a large prime factor), which the port does not repeat: there the
+  spectrum differs from the reference's by up to about 1e-6 of the
+  window's largest bin, and the features stay within the reference's
+  kernel tolerance (a standing difference, ``ROADMAP.md``;
+  ``tools/sweep_spectrum_widths.py`` lists the widths).
 """
 from __future__ import annotations
 

@@ -9,6 +9,7 @@
 #include <c10/cuda/CUDAGuard.h>
 
 #include <algorithm>
+#include <cstdint>
 #include <cstdio>
 #include <type_traits>
 #include <vector>
@@ -216,39 +217,56 @@ repro_torch::FreqTables freq_tables(const torch::Tensor& tw,
   return f;
 }
 
+// The window_features kernel variant a launch asks for at width W
+// (window_features.py: 0 "w60", 1 "generic", 2 "wide"), checked against
+// what each takes: "w60" W = 60 and its FFT plan kW60Plan, "generic" W <=
+// 64. freq: the FFT plan, or nullptr without the frequency features.
+repro_torch::WfVariant wf_variant(int64_t variant, int64_t W,
+                                  const repro_torch::FreqTables* freq) {
+  REQUIRE(variant >= repro_torch::kWfW60 && variant <= repro_torch::kWfWide,
+          "unknown window_features variant ", variant);
+  REQUIRE(variant != repro_torch::kWfW60 || W == repro_torch::kW60,
+          "the W = 60 window_features kernel got windows of ", W);
+  REQUIRE(variant != repro_torch::kWfGeneric ||
+              W <= repro_torch::kMaxWindow,
+          "the generic window_features kernel takes windows of at most ",
+          repro_torch::kMaxWindow, ", got ", W);
+  for (int q = 0; freq && variant == repro_torch::kWfW60 &&
+                  q < repro_torch::kW60Passes; ++q)
+    REQUIRE(freq->n_pass == repro_torch::kW60Passes &&
+                freq->ip[q] == repro_torch::kW60Plan[q][0] &&
+                freq->l1[q] == repro_torch::kW60Plan[q][1] &&
+                freq->ido[q] == repro_torch::kW60Plan[q][2],
+            "FFT plan: pass ", q, " differs from the one the W = 60 "
+            "kernel was compiled for");
+  return static_cast<repro_torch::WfVariant>(variant);
+}
+
 // windows [N, W] -> out [N, 28] or, with an FFT plan (empty otherwise),
 // out [N, 38] with the frequency features; inv_log_nb and inv_nb are
-// their f32 multipliers. w60: the kernel compiled for W == 60 and its FFT
-// plan.
+// their f32 multipliers. variant: see wf_variant.
 void window_features(torch::Tensor windows, torch::Tensor out_,
                      torch::Tensor tw, std::vector<int64_t> plan,
-                     double inv_log_nb, double inv_nb, bool w60) {
+                     double inv_log_nb, double inv_nb, int64_t variant) {
   REQUIRE(windows.dim() == 2, "windows must be [N, W]");
   const int64_t N = windows.size(0), W = windows.size(1);
   const bool freq = !plan.empty();
-  REQUIRE(N > 0 && W >= (freq ? 4 : 3) && W <= 64, "window_features "
-          "takes N >= 1 windows of 3 (4 with the frequency features) "
-          "to 64 samples");
+  REQUIRE(N > 0 && N <= INT32_MAX && W >= (freq ? 4 : 3) &&
+              W <= repro_torch::kMaxWideWindow,
+          "window_features takes 1 to 2^31 - 1 windows of 3 (4 with the "
+          "frequency features) to ", repro_torch::kMaxWideWindow,
+          " samples");
   check(windows, "windows", {N, W});
   check(out_, "out", {N, freq ? 38 : 28});
-  REQUIRE(!w60 || W == repro_torch::kW60, "the W = 60 window_features "
-          "kernel got windows of ", W);
   repro_torch::FreqTables tab{};
-  if (freq) {
-    tab = freq_tables(tw, plan, W, inv_log_nb, inv_nb);
-    for (int q = 0; w60 && q < repro_torch::kW60Passes; ++q)
-      REQUIRE(tab.n_pass == repro_torch::kW60Passes &&
-                  tab.ip[q] == repro_torch::kW60Plan[q][0] &&
-                  tab.l1[q] == repro_torch::kW60Plan[q][1] &&
-                  tab.ido[q] == repro_torch::kW60Plan[q][2],
-              "FFT plan: pass ", q, " differs from the one the W = 60 "
-              "kernel was compiled for");
-  }
+  if (freq) tab = freq_tables(tw, plan, W, inv_log_nb, inv_nb);
+  const repro_torch::WfVariant v = wf_variant(variant, W, freq ? &tab
+                                                               : nullptr);
   const c10::cuda::CUDAGuard guard(windows.device());
   repro_torch::window_features_launch(in(windows), out(out_),
                                       static_cast<int>(N),
                                       static_cast<int>(W),
-                                      freq ? &tab : nullptr, w60,
+                                      freq ? &tab : nullptr, v,
                                       at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -376,21 +394,15 @@ repro_torch::FcHyper fc_hyper(const std::vector<double>& fc_f,
   return h;
 }
 
-// AAPA's minute-hook hyperparameters. fhyper (21): Table III (12 floats:
+// AAPA's minute-hook hyperparameters. fhyper (19): Table III (12 floats:
 // target_cpu, cooldown_min, min_replicas by class), z, sqrt_h, trend_tbar,
-// trend_tvar, trend_step, inv_log_nb, inv_nb, band_q, band_scale. ihyper
-// (6): stride_min, horizon_min, forecast_confidence, classify, use_band,
-// use_scale. The classifier's tables are read only when classify is 1.
-repro_torch::AAPAHyper aapa_hyper(
-    const std::vector<double>& fhyper, const std::vector<int64_t>& ihyper,
-    const repro_torch::FcHyper& fc, const torch::Tensor& tw,
-    const std::vector<int64_t>& plan, const torch::Tensor& edges,
-    const torch::Tensor& feat, const torch::Tensor& thresh,
-    const torch::Tensor& leaf, const torch::Tensor& base,
-    const torch::Tensor& cal_a, const torch::Tensor& cal_b,
-    const torch::Tensor& cal_c) {
-  REQUIRE(fhyper.size() == 21 && ihyper.size() == 6,
-          "the AAPA policy takes 21 float and 6 int hyperparameters");
+// trend_tvar, trend_step, band_q, band_scale. ihyper (6): stride_min,
+// horizon_min, forecast_confidence, classify, use_band, use_scale.
+repro_torch::AAPAHyper aapa_hyper(const std::vector<double>& fhyper,
+                                  const std::vector<int64_t>& ihyper,
+                                  const repro_torch::FcHyper& fc) {
+  REQUIRE(fhyper.size() == 19 && ihyper.size() == 6,
+          "the AAPA policy takes 19 float and 6 int hyperparameters");
   REQUIRE(ihyper[0] >= 1 && ihyper[1] >= 1, "stride and horizon >= 1");
   repro_torch::AAPAHyper h{};
   for (int k = 0; k < 4; ++k) {
@@ -405,46 +417,86 @@ repro_torch::AAPAHyper aapa_hyper(
   h.trend_tbar = f(14);
   h.trend_tvar = f(15);
   h.trend_step = f(16);
-  h.band_q = f(19);
-  h.band_scale = f(20);
-  h.freq = freq_tables(tw, plan, 60, fhyper[17], fhyper[18]);
+  h.band_q = f(17);
+  h.band_scale = f(18);
   h.stride_min = static_cast<int>(ihyper[0]);
   h.horizon_min = static_cast<int>(ihyper[1]);
   h.forecast_confidence = static_cast<int>(ihyper[2]);
   h.classify = static_cast<int>(ihyper[3]);
   h.use_band = static_cast<int>(ihyper[4]);
   h.use_scale = static_cast<int>(ihyper[5]);
-  if (h.classify) {
-    h.gbdt = gbdt_tables(edges, feat, thresh, leaf, base);
-    REQUIRE(h.gbdt.n_features == 38 && h.gbdt.n_classes == 4,
-            "the AAPA classifier takes 38 features and 4 classes");
-    check(cal_a, "cal_a", {4});
-    check(cal_b, "cal_b", {4});
-    check(cal_c, "cal_c", {4});
-    h.cal = {in(cal_a), in(cal_b), in(cal_c)};
-  }
   return h;
+}
+
+// The AAPA and hybrid reclassifications: rates [B, M], every lane's window
+// of W minutes before minute r * stride, r in [1, R), R = M / stride + 1
+// -> cls_arch int32 and cls_conf [B, R - 1] (slot r at column r - 1).
+// Scratch: feats [B * (R - 1), 38] and logits [B * (R - 1), 4]. The
+// features take the FFT plan for W (tw, plan, inv_log_nb, inv_nb) and the
+// window_features variant (wf_variant); the GBDT its tables, in shared
+// memory when gbdt_shared; the calibration cal_a, cal_b, cal_c [4].
+void reclassify(torch::Tensor rates, torch::Tensor feats,
+                torch::Tensor logits, torch::Tensor cls_arch,
+                torch::Tensor cls_conf, int64_t stride, int64_t W,
+                torch::Tensor tw, std::vector<int64_t> plan,
+                double inv_log_nb, double inv_nb, int64_t variant,
+                torch::Tensor edges, torch::Tensor feat, torch::Tensor thresh,
+                torch::Tensor leaf, torch::Tensor base, bool gbdt_shared,
+                torch::Tensor cal_a, torch::Tensor cal_b,
+                torch::Tensor cal_c) {
+  REQUIRE(rates.dim() == 2, "rates must be [B, M]");
+  const int64_t B = rates.size(0), M = rates.size(1);
+  REQUIRE(stride >= 1 && W >= 4 && W <= repro_torch::kMaxWideWindow,
+          "a reclassification takes a stride >= 1 and windows of 4 to ",
+          repro_torch::kMaxWideWindow, " minutes");
+  const int64_t R = M / stride + 1, N = B * (R - 1);
+  REQUIRE(B > 0 && R > 1 && N <= INT32_MAX, "reclassify: B >= 1 lanes, at "
+          "least one slot (M >= stride), B * (M / stride) < 2^31");
+  check(rates, "rates", {B, M});
+  check(feats, "feats", {N, 38});
+  check(logits, "logits", {N, 4});
+  check_i32(cls_arch, "cls_arch", {B, R - 1});
+  check(cls_conf, "cls_conf", {B, R - 1});
+  const repro_torch::FreqTables tab =
+      freq_tables(tw, plan, W, inv_log_nb, inv_nb);
+  const repro_torch::WfVariant v = wf_variant(variant, W, &tab);
+  const repro_torch::GBDTTables g = gbdt_tables(edges, feat, thresh, leaf,
+                                                base);
+  REQUIRE(g.n_features == 38 && g.n_classes == 4,
+          "the AAPA classifier takes 38 features and 4 classes");
+  REQUIRE(!gbdt_shared || repro_torch::gbdt_shared_table_bytes(
+                              g.n_trees, g.depth) <=
+                              repro_torch::kGBDTSharedTableMax,
+          "gbdt_tables keeps node tables in shared memory only up to ",
+          repro_torch::kGBDTSharedTableMax, " bytes");
+  check(cal_a, "cal_a", {4});
+  check(cal_b, "cal_b", {4});
+  check(cal_c, "cal_c", {4});
+  const c10::cuda::CUDAGuard guard(rates.device());
+  repro_torch::reclassify_launch(
+      in(rates), out(feats), out(logits), cls_arch.data_ptr<int>(),
+      out(cls_conf), static_cast<int>(B), static_cast<int>(M),
+      static_cast<int>(R), static_cast<int>(stride), static_cast<int>(W),
+      tab, v, g, gbdt_shared, {in(cal_a), in(cal_b), in(cal_c)},
+      at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 // The AAPA and hybrid pre-pass: rates [B, M] -> rps [3, M, B], arch [R,
 // B] int32, adj [3, R, B] (R = M / stride + 1) and, if minute_arch has B *
-// M elements, the archetype after each minute into it. Scratch: cls_arch
-// [B, R] int32 and cls_conf [B, R], the forecaster's [slots, B].
+// M elements, the archetype after each minute into it. cls_arch [B, R - 1]
+// int32 and cls_conf [B, R - 1]: reclassify's output, read when classify
+// is 1. Scratch: the forecaster's [slots, B].
 void policy_signals_aapa(torch::Tensor rates, torch::Tensor rps,
                          torch::Tensor arch, torch::Tensor adj,
                          torch::Tensor minute_arch, torch::Tensor cls_arch,
                          torch::Tensor cls_conf, torch::Tensor scratch,
                          std::vector<double> fhyper,
                          std::vector<int64_t> ihyper,
-                         std::vector<double> fc_f, std::vector<int64_t> fc_i,
-                         torch::Tensor tw, std::vector<int64_t> plan,
-                         torch::Tensor edges, torch::Tensor feat,
-                         torch::Tensor thresh, torch::Tensor leaf,
-                         torch::Tensor base, torch::Tensor cal_a,
-                         torch::Tensor cal_b, torch::Tensor cal_c) {
+                         std::vector<double> fc_f,
+                         std::vector<int64_t> fc_i) {
   const repro_torch::AAPAHyper h =
-      aapa_hyper(fhyper, ihyper, fc_hyper(fc_f, fc_i), tw, plan, edges, feat,
-                 thresh, leaf, base, cal_a, cal_b, cal_c);
+      aapa_hyper(fhyper, ihyper, fc_hyper(fc_f, fc_i));
   REQUIRE(rates.dim() == 2, "rates must be [B, M]");
   const int64_t B = rates.size(0), M = rates.size(1);
   const int64_t R = M / h.stride_min + 1;
@@ -453,8 +505,8 @@ void policy_signals_aapa(torch::Tensor rates, torch::Tensor rps,
   check(rps, "rps", {3, M, B});
   check_i32(arch, "arch", {R, B});
   check(adj, "adj", {3, R, B});
-  check_i32(cls_arch, "cls_arch", {B, R});
-  check(cls_conf, "cls_conf", {B, R});
+  check_i32(cls_arch, "cls_arch", {B, R - 1});
+  check(cls_conf, "cls_conf", {B, R - 1});
   check(scratch, "forecaster scratch", {h.fc.slots, B});
   int* per_minute = nullptr;
   if (minute_arch.numel() > 0) {
@@ -464,7 +516,7 @@ void policy_signals_aapa(torch::Tensor rates, torch::Tensor rps,
   const c10::cuda::CUDAGuard guard(rates.device());
   repro_torch::policy_signals_aapa_launch(
       in(rates), out(rps), arch.data_ptr<int>(), out(adj), per_minute,
-      cls_arch.data_ptr<int>(), out(cls_conf), out(scratch),
+      cls_arch.data_ptr<int>(), in(cls_conf), out(scratch),
       static_cast<int>(B), static_cast<int>(M), h,
       at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
@@ -663,6 +715,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "episode_block CUDA kernel, AAPA or (with a guard) hybrid policy");
   m.def("policy_signals_aapa", &policy_signals_aapa,
         "policy_signals CUDA kernels, AAPA and hybrid pre-pass");
+  m.def("reclassify", &reclassify,
+        "the AAPA and hybrid pre-pass's reclassifications: window_features, "
+        "gbdt_tables and calibrate kernels");
   m.def("policy_signals_predictive", &policy_signals_predictive,
         "policy_signals CUDA kernel, predictive pre-pass");
   m.def("episode_block_predictive", &episode_block_predictive,

@@ -4,11 +4,13 @@
 // same order as the plain versions, in two forms.
 //
 // * stat_time_features / freq_features: one window per thread at any width
-//   (3 to 64), the window read through a pointer, scratch in local memory.
-//   Order statistics come from an insertion sort of the window: the exact
-//   order statistics, as the reference's sort and the TPU kernel's rank
-//   counting give them. The AAPA episode's pre-pass (policy_signals.cu)
-//   and the window_features kernel at widths other than 60 run these.
+//   (3 to 1,024), the window and the scratch read through pointers: the
+//   caller puts them where they fit (local arrays of kMaxWindow up to 64
+//   samples, rows of shared memory above). Order statistics come from an
+//   insertion sort of the window: the exact order statistics, as the
+//   reference's sort and the TPU kernel's rank counting give them. The
+//   window_features kernel runs these at widths other than 60, and on the
+//   AAPA pre-pass's windows of history_len other than 60.
 // * stat_time_features_w60 / freq_features_w60 (below them): one window
 //   per thread at 60 samples, the window in registers and no array on the
 //   stack. Every loop is unrolled, so each index is a constant: the sums
@@ -17,9 +19,10 @@
 //   statistics come from a sorting network (and, for a window holding NaN,
 //   from the insertion sort's own order, insertion_sorted_at) and the real
 //   FFT runs the plan for 60 samples. The window_features kernel runs these
-//   at W = 60, the classification path's width. Both forms give the same
-//   features on every window, NaN included (only the sign of a zero order
-//   statistic may differ where a window mixes -0 and +0).
+//   at W = 60, the classification path's and the AAPA pre-pass's width.
+//   Both forms give the same features on every window, NaN included (only
+//   the sign of a zero order statistic may differ where a window mixes -0
+//   and +0).
 #pragma once
 
 #include <type_traits>
@@ -29,7 +32,6 @@
 
 namespace repro_torch {
 
-constexpr int kMaxWindow = 64;
 constexpr int kStatFeatures = 28;
 constexpr int kFreqFeatures = 10;
 constexpr int kFeatures = kStatFeatures + kFreqFeatures;
@@ -51,7 +53,7 @@ __device__ __forceinline__ float sorted_quantile(const float* xs, int n,
   return xs[lo] * (1.0f - w) + xs[hi] * w;
 }
 
-// x [n] (3 <= n <= kMaxWindow), xs scratch [n] -> out [28]
+// x [n] (3 <= n <= kMaxWideWindow), xs scratch [n] -> out [28]
 __device__ inline void stat_time_features(const float* x, float* xs, int n,
                                    float* out) {
   const float rn = 1.0f / static_cast<float>(n);
@@ -422,15 +424,16 @@ __device__ __forceinline__ float complex_abs(float re, float im) {
   return hi == 0.0f ? 0.0f : h;
 }
 
-// x [n] (4 <= n <= kMaxWindow) -> out [10]. The power spectrum
-// |rfft(x - mean)|^2 without the DC bin, computed as the reference's
-// jnp.fft.rfft (ducc0's radix passes), abs and square run on
-// the CPU (core/features.py::power_spectrum).
+// x [n] (4 <= n <= kMaxWideWindow), a and b scratch [n] (a may be
+// stat_time_features' xs) -> out [10]. The power spectrum |rfft(x -
+// mean)|^2 without the DC bin, computed as the reference's jnp.fft.rfft
+// (ducc0's radix passes), abs and square run on the CPU
+// (core/features.py::power_spectrum); it goes into whichever of a and b
+// the last pass did not write.
 __device__ inline void freq_features(const float* x, int n, const FreqTables& f,
-                              float* out) {
+                                     float* a, float* b, float* out) {
   const int nb = n / 2;
   const float mean = window_mean(x, n);
-  float a[kMaxWindow], b[kMaxWindow], power[kMaxWindow / 2];
   for (int j = 0; j < n; ++j) a[j] = x[j] - mean;
   float* p1 = a;
   float* p2 = b;
@@ -440,6 +443,7 @@ __device__ inline void freq_features(const float* x, int n, const FreqTables& f,
     p1 = p2;
     p2 = t;
   }
+  float* power = p2;
   for (int k = 1; k <= nb; ++k) {
     const float h = complex_abs(p1[2 * k - 1], 2 * k < n ? p1[2 * k] : 0.0f);
     power[k - 1] = h * h;

@@ -1,15 +1,11 @@
 // GBDT inference over flattened node tables, one row per thread
-// (core/gbdt.py: bin_features, traverse_tables, table_logits), shared by
-// the standalone gbdt_tables kernel and the AAPA episode kernel.
+// (core/gbdt.py: bin_features, traverse_tables, table_logits): the
+// gbdt_tables kernel's "generic" variant, for ensembles whose tables do
+// not fit its shared-memory variant.
 //
-// The paper-size tables (240 trees x (15 + 15 + 16) words, ~44 KB, plus
-// ~9.6 KB of bin edges) exceed the 48 KB of static shared memory. They
-// are read through the read-only path (__ldg) instead of being staged in
-// dynamic shared memory: every thread of the card reads the same 54 KB,
-// which stays resident in each SM's L1 (up to 256 KB with shared memory),
-// and the episode kernel, which reclassifies a lane only every few
-// minutes, would otherwise pin the tables in shared memory for the whole
-// episode and hold fewer blocks per SM.
+// The tables are read through the read-only path (__ldg): every thread of
+// the card reads the same tables, which stay resident in each SM's L1 (up
+// to 256 KB with shared memory) as far as they fit.
 #pragma once
 
 #include "kernels.h"

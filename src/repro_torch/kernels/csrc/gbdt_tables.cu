@@ -45,8 +45,10 @@
 //   holds no stack.
 // * "generic" (gbdt_tables_kernel), any ensemble the binding admits: the
 //   per-thread kernel of gbdt.cuh (binary-search binning, tables through
-//   the read-only cache), which the AAPA pre-pass's classify_kernel runs
-//   too.
+//   the read-only cache).
+// The AAPA pre-pass's reclassification (policy_signals.cu) runs the same
+// launcher on its windows' features, in the variant the tables' size
+// picks.
 //
 // Bound on the H100: bytes. Per row the kernel reads 4 * n_features bytes
 // and writes 4 * n_classes; the work is 960 node tests (240 trees x depth

@@ -78,6 +78,14 @@ struct FreqTables {
   float inv_log_nb, inv_nb;
 };
 
+// The window_features kernel's variants (window_features.cu) and their
+// widest windows: the generic variant's local arrays hold kMaxWindow
+// samples, the wide variant takes up to kMaxWideWindow
+// (_numerics.MAX_TERMS: XLA's summation order is reproduced that far).
+enum WfVariant { kWfW60 = 0, kWfGeneric = 1, kWfWide = 2 };
+constexpr int kMaxWindow = 64;
+constexpr int kMaxWideWindow = 1024;
+
 // Beta calibration's a = softplus(a_raw), b = softplus(b_raw) and c, [K].
 struct CalCoeffs {
   const float* a;
@@ -128,10 +136,9 @@ struct AAPAHyper {
   // linear trend over the last 30 minutes: tbar, tvar and the step
   // (29 - tbar + horizon) to the forecast minute
   float trend_tbar, trend_tvar, trend_step;
-  int classify;  // 0: constant STATIONARY_NOISY at 0.5, 1: GBDT + cal
-  GBDTTables gbdt;
-  CalCoeffs cal;
-  FreqTables freq;
+  // 0: constant STATIONARY_NOISY at 0.5; 1: the reclassification's
+  // archetype and confidence (reclassify_launch) at each slot
+  int classify;
 };
 
 // scaling/policies.py::predictive_controller's forecast need with any
@@ -204,13 +211,27 @@ bool holt_winters_vec16_ok(const float* y, const float* out, int T);
 // The pre-pass (policy_signals.cu). AAPA and hybrid: rates [B, M] ->
 // signals rps [3, M, B], arch [R, B], adj [3, R, B] and, when minute_arch
 // is not null, the archetype each lane carries after each minute into
-// minute_arch [B, M]. Scratch: cls_arch and cls_conf [B, R] (the
-// classifier's raw output, read only when the hyperparameters' classify
-// is 1), the forecaster's scratch [hyper.fc.slots, B].
+// minute_arch [B, M]. cls_arch and cls_conf [B, R - 1] hold slot r's
+// archetype and confidence at column r - 1 (reclassify_launch's output,
+// read only when the hyperparameters' classify is 1); scratch the
+// forecaster's [hyper.fc.slots, B].
 void policy_signals_aapa_launch(const float* rates, float* rps, int* arch,
-                                float* adj, int* minute_arch, int* cls_arch,
-                                float* cls_conf, float* scratch, int B, int M,
+                                float* adj, int* minute_arch,
+                                const int* cls_arch, const float* cls_conf,
+                                float* scratch, int B, int M,
                                 AAPAHyper hyper, cudaStream_t stream);
+// The AAPA and hybrid reclassifications (policy_signals.cu): for every
+// lane b and slot r in [1, R), the window of W minutes of rates [B, M]
+// before minute r * stride (zero before minute 0) -> its 38 features
+// feats [B * (R - 1), 38] (window_features_slots_launch, kernel `variant`
+// at W, the FFT plan freq), their GBDT logits logits [B * (R - 1), 4]
+// (gbdt_tables_launch, tables in shared memory when gbdt_shared), then
+// softmax, beta calibration and argmax -> cls_arch, cls_conf [B, R - 1].
+void reclassify_launch(const float* rates, float* feats, float* logits,
+                       int* cls_arch, float* cls_conf, int B, int M, int R,
+                       int stride, int W, const FreqTables& freq,
+                       WfVariant variant, const GBDTTables& gbdt,
+                       bool gbdt_shared, CalCoeffs cal, cudaStream_t stream);
 // Predictive: rates [B, M] -> need [M, B]; the forecaster's scratch
 // [hyper.fc.slots, B].
 void policy_signals_predictive_launch(const float* rates, float* need,
@@ -244,15 +265,25 @@ void episode_block_hybrid_launch(const float* rates, float* out,
                                  EpisodeCfg cfg, HybridPlantHyper hyper,
                                  cudaStream_t stream);
 
-// windows [N, W] (3 <= W <= 64) -> features [N, 28]; with freq (the FFT
-// plan for W, 4 <= W <= 64) all 38 features [N, 38]. w60: the kernel
-// compiled for W == 60 (its FFT plan kW60Plan), else the one for any W.
+// windows [N, W] (3 <= W <= 1,024) -> features [N, 28]; with freq (the
+// FFT plan for W, W >= 4) all 38 features [N, 38]. variant: kWfW60, the
+// kernel compiled for W == 60 (its FFT plan kW60Plan); kWfGeneric, W <=
+// kMaxWindow (64), scratch in local arrays; kWfWide, any W, scratch in
+// shared memory.
 constexpr int kW60 = 60;
 constexpr int kW60Passes = 3;
 constexpr int kW60Plan[kW60Passes][3] = {{5, 12, 1}, {3, 4, 5}, {4, 1, 15}};
 void window_features_launch(const float* windows, float* out, int N, int W,
-                            const FreqTables* freq, bool w60,
+                            const FreqTables* freq, WfVariant variant,
                             cudaStream_t stream);
+// The same kernels on the AAPA pre-pass's windows, read in place from
+// rates [B, M]: window n = b * (R - 1) + r - 1, for r in [1, R), is the W
+// minutes before minute r * stride, zero before minute 0 -> out [B * (R -
+// 1), 38].
+void window_features_slots_launch(const float* rates, float* out, int B,
+                                  int M, int R, int stride, int W,
+                                  const FreqTables& freq, WfVariant variant,
+                                  cudaStream_t stream);
 
 // X [N, n_features] -> logits [N, n_classes]. shared: the node tables in
 // shared memory, for ensembles whose gbdt_shared_table_bytes are at most

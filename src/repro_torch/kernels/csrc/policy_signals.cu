@@ -7,37 +7,45 @@
 // the hook, episode_block.cu the plant. Plain version:
 // repro_torch/kernels/ref.py::policy_signals_ref.
 //
-// Why a pre-pass. cluster._finish_minute hands on_minute the last 60
-// input rates; nothing of the plant reaches the hook. So the forecaster's
-// update and peak forecast, AAPA's 30-minute trend and 15-minute mean, its
-// reclassification (38 features, the GBDT, the calibration), the interval
-// confidence and Algorithm 1 are functions of the rates, and need not run
-// on the plant's sequential chain, one thread per lane, with their
-// registers and local arrays held through every tick. Here:
-//   * classify_kernel runs every reclassification as an independent
-//     window, one thread per (lane, reclassification minute), slots of one
-//     lane on neighbouring threads so that their overlapping windows share
-//     cache lines: 25,000 lanes x 144 slots a day fill the card. Each
-//     window is read straight out of `rates`, with the zero history before
-//     minute 0 that cluster.initial_state gives.
+// Why a pre-pass. cluster._finish_minute hands on_minute the last
+// history_len input rates; nothing of the plant reaches the hook. So the
+// forecaster's update and peak forecast, AAPA's 30-minute trend and
+// 15-minute mean, its reclassification (38 features, the GBDT, the
+// calibration), the interval confidence and Algorithm 1 are functions of
+// the rates, and need not run on the plant's sequential chain, one thread
+// per lane, with their registers and local arrays held through every
+// tick. Here:
+//   * reclassify_launch runs every reclassification as an independent
+//     window of history_len (W) minutes, on the kernels of the
+//     classification path: window_features' kernel chosen by W (the
+//     register routines at 60, the generic ones up to 64, the wide ones in
+//     shared memory above) reading each window in place from `rates`
+//     with the zero history before minute 0 that cluster.initial_state
+//     gives, 3.6 M windows a 25,000-lane day; gbdt_tables' kernel on their
+//     38 features (the node tables in shared memory where they fit); and
+//     calibrate_kernel, the softmax, beta calibration and argmax, one
+//     window a thread. The features and logits pass through device memory
+//     (152 + 16 B a window): each step is a kernel redesigned for the
+//     card, and the trees' tables and a feature tile cannot share a
+//     block's shared memory with a window's scratch.
 //   * aapa_minutes_kernel and predictive_minutes_kernel walk each lane's
 //     minutes, one thread per lane: the forecaster is a recurrence
 //     (forecasters.cuh: Holt-Winters, linear trend, seasonal naive or
 //     EWMA, a template parameter of the walk; state indexed at run time in
 //     [slot, B] scratch, as holt_winters.cu keeps its season), the trend
-//     and mean read the last 30 rates from a register window. AAPA's walk
-//     turns each classification into the Algorithm 1 parameters with the
-//     forecast's interval confidence.
+//     and mean read the last 30 rates from a register window (history_len
+//     >= 30, so they do not depend on it). AAPA's walk turns each
+//     classification into the Algorithm 1 parameters with the forecast's
+//     interval confidence.
 //   * minute_arch_kernel spreads the slots' archetypes over minutes for
 //     the archetype output, one thread per (lane, minute), coalesced.
 // The outputs are laid out [minute or slot, lane]: the minute walks and
 // the plant pass read and write one minute of a warp's lanes at a time.
 //
 // The arithmetic is the device functions the episode kernel ran inline
-// before (features.cuh, gbdt.cuh, forecasters.cuh, numerics.cuh::xla_sum),
-// in the
-// same order, under the same -fmad=false build: the signals are bit for
-// bit those the plain minute hooks compute.
+// before (features.cuh, gbdt_tables.cu, forecasters.cuh,
+// numerics.cuh::xla_sum), in the same order, under the same -fmad=false
+// build: the signals are bit for bit those the plain minute hooks compute.
 //
 // Bound on the H100: operations. Per reclassification ~11,000 operations
 // of features, trees and calibration against 240 bytes of window; per
@@ -47,13 +55,11 @@
 // lane, as the plant pass is.
 #include "features.cuh"
 #include "forecasters.cuh"
-#include "gbdt.cuh"
 
 namespace repro_torch {
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kHistory = 60;  // SimConfig.history_len, the feature window
 constexpr int kTrendWindow = 30, kMeanWindow = 15;
 constexpr float kOneMinusEps = 0.999999f;  // calibration's 1 - EPS clip
 
@@ -61,31 +67,30 @@ __device__ __forceinline__ float select4(int idx, const float* v) {
   return idx == 0 ? v[0] : (idx == 1 ? v[1] : (idx == 2 ? v[2] : v[3]));
 }
 
-// The GBDT + beta-calibration classifier (core/pipeline.py::Classify) on
-// one 60-minute window x, oldest first: the archetype and its confidence.
-__device__ void classify_window(const AAPAHyper& h, const float* x,
-                                int& arch, float& conf) {
-  float xs[kHistory], feats[kFeatures];
-  stat_time_features(x, xs, kHistory, feats);
-  freq_features(x, kHistory, h.freq, feats + kStatFeatures);
-  int bins[kMaxGBDTFeatures];
-  float logits[4];
-  gbdt_logits(h.gbdt, feats, bins, logits);
-  // core/gbdt.py::softmax, core/calibration.py::calibrate
-  const float lmax = fmaxf(fmaxf(logits[0], logits[1]),
-                           fmaxf(logits[2], logits[3]));
+// core/gbdt.py::softmax, core/calibration.py::calibrate and the argmax
+// of core/pipeline.py::Classify on logits [N, 4] -> the archetype and its
+// confidence, cls_arch, cls_conf [N], one window a thread.
+__global__ void calibrate_kernel(const float* __restrict__ logits,
+                                 int* __restrict__ cls_arch,
+                                 float* __restrict__ cls_conf, int N,
+                                 CalCoeffs cal) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const float* lg = logits + static_cast<size_t>(n) * 4;
+  const float l[4] = {lg[0], lg[1], lg[2], lg[3]};
+  const float lmax = fmaxf(fmaxf(l[0], l[1]), fmaxf(l[2], l[3]));
   float u[4], q[4];
-  for (int k = 0; k < 4; ++k) u[k] = rexp(logits[k] - lmax);
+  for (int k = 0; k < 4; ++k) u[k] = rexp(l[k] - lmax);
   const float usum = ((u[0] + u[1]) + u[2]) + u[3];
   for (int k = 0; k < 4; ++k) {
     const float p = fminf(fmaxf(u[k] / usum, kFeatEps), kOneMinusEps);
-    const float z = __ldg(h.cal.a + k) * rlog(p) -
-                    __ldg(h.cal.b + k) * rlog1p(-p) + __ldg(h.cal.c + k);
+    const float z = __ldg(cal.a + k) * rlog(p) -
+                    __ldg(cal.b + k) * rlog1p(-p) + __ldg(cal.c + k);
     q[k] = 1.0f / (1.0f + rexp(-z));
   }
   const float qsum = ((q[0] + q[1]) + q[2]) + q[3] + kFeatEps;
-  arch = 0;
-  conf = q[0] / qsum;
+  int arch = 0;
+  float conf = q[0] / qsum;
   for (int k = 1; k < 4; ++k) {
     const float ck = q[k] / qsum;
     if (ck > conf) {
@@ -93,32 +98,8 @@ __device__ void classify_window(const AAPAHyper& h, const float* x,
       arch = k;
     }
   }
-}
-
-// Every reclassification slot r >= 1 of every lane: the window of the 60
-// minutes before minute r * stride -> cls_arch, cls_conf [B, R]. At most
-// 102 registers a thread (5 blocks an SM): unbounded, the features and
-// trees take 228 and the launch runs 1.4x slower at 2 blocks an SM
-// (4 blocks: 1.1x).
-__global__ void __launch_bounds__(kThreads, 5)
-    classify_kernel(const float* __restrict__ rates,
-                    int* __restrict__ cls_arch, float* __restrict__ cls_conf,
-                    int B, int M, int R, AAPAHyper h) {
-  const size_t per_lane = static_cast<size_t>(R - 1);
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<size_t>(B) * per_lane) return;
-  const size_t b = i / per_lane;
-  const int r = 1 + static_cast<int>(i % per_lane);
-  const int start = r * h.stride_min - kHistory;
-  const float* row = rates + b * M;
-  float x[kHistory];
-  for (int j = 0; j < kHistory; ++j)
-    x[j] = start + j >= 0 ? row[start + j] : 0.0f;
-  int arch;
-  float conf;
-  classify_window(h, x, arch, conf);
-  cls_arch[b * R + r] = arch;
-  cls_conf[b * R + r] = conf;
+  cls_arch[n] = arch;
+  cls_conf[n] = conf;
 }
 
 // scaling/policies.py::aapa_controller's on_minute and aapa_rate_signals,
@@ -168,8 +149,9 @@ __global__ void aapa_minutes_kernel(const float* __restrict__ rates,
       int arch = 2;  // scaling/registry.py::default_classify
       float conf = 0.5f;
       if (h.classify) {
-        arch = cls_arch[b * static_cast<size_t>(R) + r];
-        conf = cls_conf[b * static_cast<size_t>(R) + r];
+        const size_t at = b * static_cast<size_t>(R - 1) + r - 1;
+        arch = cls_arch[at];
+        conf = cls_conf[at];
       }
       if (h.forecast_confidence) {  // forecast/api.py interval_confidence
         const float half = h.use_band ? h.band_q * h.sqrt_h
@@ -271,14 +253,25 @@ void predictive_walk(const float* rates, float* need, float* scratch, int B,
 
 }  // namespace
 
+void reclassify_launch(const float* rates, float* feats, float* logits,
+                       int* cls_arch, float* cls_conf, int B, int M, int R,
+                       int stride, int W, const FreqTables& freq,
+                       WfVariant variant, const GBDTTables& gbdt,
+                       bool gbdt_shared, CalCoeffs cal, cudaStream_t stream) {
+  const int N = B * (R - 1);
+  window_features_slots_launch(rates, feats, B, M, R, stride, W, freq,
+                               variant, stream);
+  gbdt_tables_launch(feats, logits, N, gbdt, gbdt_shared, stream);
+  calibrate_kernel<<<blocks(N), kThreads, 0, stream>>>(logits, cls_arch,
+                                                       cls_conf, N, cal);
+}
+
 void policy_signals_aapa_launch(const float* rates, float* rps, int* arch,
-                                float* adj, int* minute_arch, int* cls_arch,
-                                float* cls_conf, float* scratch, int B, int M,
+                                float* adj, int* minute_arch,
+                                const int* cls_arch, const float* cls_conf,
+                                float* scratch, int B, int M,
                                 AAPAHyper hyper, cudaStream_t stream) {
   const int R = M / hyper.stride_min + 1;
-  if (hyper.classify && R > 1)
-    classify_kernel<<<blocks(static_cast<size_t>(B) * (R - 1)), kThreads, 0,
-                      stream>>>(rates, cls_arch, cls_conf, B, M, R, hyper);
   // the walk's instantiation for the forecaster's kind
   const auto walk = hyper.fc.kind == kLinearTrend ? aapa_walk<LinearTrendFc>
                     : hyper.fc.kind == kSeasonalNaive

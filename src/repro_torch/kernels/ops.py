@@ -100,6 +100,9 @@ def holt_winters(y: torch.Tensor, *, period: int = 60, alpha: float = 0.1,
 
 
 def launch_counts() -> dict[str, int]:
+    """Launches by kernel since the last reset. The pre-pass's own counts
+    (``policy_signals_cuda.by_walk``, ``reclassify_cuda.launches``) are
+    read on their wrappers."""
     return {name: fn.launches for name, fn in LAUNCHERS.items()}
 
 
@@ -107,3 +110,4 @@ def reset_launch_counts() -> None:
     for fn in LAUNCHERS.values():
         fn.launches = 0
     _signals.policy_signals_cuda.by_walk = {}
+    _signals.reclassify_cuda.launches = 0

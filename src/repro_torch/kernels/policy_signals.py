@@ -8,8 +8,9 @@ alone: the forecaster's peak forecast (predictive: the replicas it
 needs), and AAPA's and hybrid's 30-minute trend, 15-minute mean and, at
 each reclassification, the archetype and Algorithm 1's parameters. The
 pre-pass computes them for every lane and minute, in parallel where the
-work is independent (a reclassification is one window), before the
-episode kernel's plant pass (``kernels.episode_block``) reads them.
+work is independent (a reclassification is one window,
+`reclassify_cuda`), before the episode kernel's plant pass
+(``kernels.episode_block``) reads them.
 Every registry forecaster (Holt-Winters, linear trend, seasonal naive,
 EWMA), band-wrapped or not, runs as a template of the minute walks; its
 hyperparameters are run-time arguments (`forecaster_args`).
@@ -30,10 +31,15 @@ from repro_torch.core.archetypes import table_iii_arrays
 from repro_torch.core.pipeline import Classify
 from repro_torch.forecast import api as fapi
 from repro_torch.kernels import _build
-from repro_torch.kernels.gbdt_tables import table_args
+from repro_torch.kernels import window_features as _wf
+from repro_torch.kernels.gbdt_tables import (SHARED_TABLE_MAX,
+                                             shared_table_bytes, table_args)
 
-HISTORY = 60      # the AAPA policy's feature window (SimConfig.history_len)
 TREND_WINDOW = 30
+#: the AAPA policy's feature windows (SimConfig.history_len) the pre-pass
+#: takes: from the trend's 30 minutes, which the minute walks read from the
+#: history's end, to the widest window_features kernel
+MIN_HISTORY, MAX_HISTORY = TREND_WINDOW, _wf.MAX_W
 
 #: the policies whose episodes run the pre-pass
 POLICIES = ("predictive", "aapa", "hybrid")
@@ -153,45 +159,85 @@ def _check_rates(rates: torch.Tensor) -> None:
                          f"{rates.dtype}")
 
 
+def reclassify_cuda(rates: torch.Tensor, classify: Classify, stride: int,
+                    history_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the AAPA and hybrid reclassifications: for every lane b of
+    rates [B, M] (contiguous float32 on CUDA, M >= stride) and slot r in
+    [1, R), R = `n_slots(M, stride)`, the window of `history_len` minutes
+    before minute r * stride (zeros before minute 0) through `classify`
+    -> (archetype int32 [B, R - 1], confidence [B, R - 1]), slot r at
+    column r - 1. The window_features kernel chosen by `history_len`
+    reads the windows in place from the rates, gbdt_tables' kernel takes
+    their 38 features, a third kernel calibrates. Raises on any other
+    input."""
+    _check_rates(rates)
+    if classify.params.device != rates.device:
+        raise ValueError(f"classifier on {classify.params.device}, rates on "
+                         f"{rates.device}")
+    B, M = rates.shape
+    R = n_slots(M, stride)
+    if R < 2 or not 4 <= history_len <= _wf.MAX_W:
+        raise ValueError(f"reclassify: {M} minutes at stride {stride} and "
+                         f"windows of {history_len}: expected a slot and "
+                         f"4 <= history_len <= {_wf.MAX_W}")
+    dev = rates.device
+    N = B * (R - 1)
+    f32 = dict(dtype=torch.float32, device=dev)
+    arch = torch.empty((B, R - 1), dtype=torch.int32, device=dev)
+    conf = torch.empty((B, R - 1), **f32)
+    params = classify.params
+    shared = shared_table_bytes(params.tables.feat.shape[0],
+                                params.depth) <= SHARED_TABLE_MAX
+    _build.extension().reclassify(
+        rates, torch.empty((N, features.N_FEATURES), **f32),
+        torch.empty((N, 4), **f32), arch, conf, stride, history_len,
+        *features.fft_tables(history_len, dev),
+        *features.freq_constants(history_len),
+        _wf.VARIANTS.index(_wf.choose_variant(history_len)),
+        *table_args(params), shared,
+        *calibration.coefficients(classify.cal))
+    reclassify_cuda.launches += 1
+    reclassify_cuda.last_variant = _wf.choose_variant(history_len)
+    return arch, conf
+
+
+reclassify_cuda.launches = 0
+reclassify_cuda.last_variant = None
+
+
 def _aapa(ext, rates, hyper, cfg, minute_arch: bool) -> Signals:
     from repro_torch.scaling.registry import default_classify
     horizon = int(hyper["horizon_min"])
     fa = forecaster_args(hyper["forecaster"], horizon)
     scale = hyper["conf_scale"]
     cls = hyper["classify"]
-    if cfg.history_len != HISTORY:
+    H = int(cfg.history_len)
+    if not MIN_HISTORY <= H <= MAX_HISTORY:
         raise NotImplementedError(
-            f"episode_block's AAPA policy takes history_len {HISTORY}, got "
-            f"{cfg.history_len}")
-    B, M = rates.shape
-    dev = rates.device
-    if isinstance(cls, Classify):
-        if cls.params.device != dev:
-            raise ValueError(f"classifier on {cls.params.device}, rates on "
-                             f"{dev}")
-        tables = table_args(cls.params)
-        coeffs = calibration.coefficients(cls.cal)
-        kind = 1
-    elif cls is default_classify:     # the kernel reads no table
-        zf = torch.zeros(1, dtype=torch.float32, device=dev)
-        zi = torch.zeros((1, 1), dtype=torch.int32, device=dev)
-        tables, coeffs = (zf, zi, zi, zf, zf), (zf, zf, zf)
-        kind = 0
-    else:
+            f"episode_block's AAPA policy takes history_len {MIN_HISTORY} "
+            f"to {MAX_HISTORY}, got {H}")
+    if not (isinstance(cls, Classify) or cls is default_classify):
         raise NotImplementedError(
             "episode_block's AAPA policy takes core.pipeline.Classify or "
             "the registry's default_classify")
+    B, M = rates.shape
+    dev = rates.device
     stride = int(hyper["stride_min"])
+    R = n_slots(M, stride)
+    kind = int(isinstance(cls, Classify))
+    if kind and R > 1:
+        cls_arch, cls_conf = reclassify_cuda(rates, cls, stride, H)
+    else:                                # the walk reads no classification
+        cls_arch = torch.empty((B, R - 1), dtype=torch.int32, device=dev)
+        cls_conf = torch.empty((B, R - 1), dtype=torch.float32, device=dev)
     tab = table_iii_arrays()
     tbar, tvar = features.trend_constants(TREND_WINDOW)
-    inv_log_nb, inv_nb = features.freq_constants(HISTORY)
     fh = [*tab["target_cpu"], *tab["cooldown_min"], *tab["min_replicas"],
           _f32(fapi.NATIVE_Z), fa.sqrt_h, tbar, tvar,
-          _f32((TREND_WINDOW - 1) - tbar + horizon), inv_log_nb, inv_nb,
-          fa.band_q, 0.0 if scale is None else float(scale)]
+          _f32((TREND_WINDOW - 1) - tbar + horizon), fa.band_q,
+          0.0 if scale is None else float(scale)]
     ih = [stride, horizon, int(hyper["forecast_confidence"]), kind,
           fa.use_band, int(scale is not None)]
-    R = n_slots(M, stride)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     sig = Signals(rps=torch.empty((3, M, B), **f32),
@@ -202,9 +248,8 @@ def _aapa(ext, rates, hyper, cfg, minute_arch: bool) -> Signals:
     ext.policy_signals_aapa(
         rates, sig.rps, sig.arch, sig.adj,
         sig.minute_arch if minute_arch else torch.empty(0, **i32),
-        torch.empty((B, R), **i32), torch.empty((B, R), **f32),
-        torch.empty((fa.slots, B), **f32), fh, ih, fa.fc_f, fa.fc_i,
-        *features.fft_tables(HISTORY, dev), *tables, *coeffs)
+        cls_arch, cls_conf, torch.empty((fa.slots, B), **f32), fh, ih,
+        fa.fc_f, fa.fc_i)
     return sig
 
 

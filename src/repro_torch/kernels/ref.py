@@ -109,6 +109,24 @@ def policy_signals_ref(rates, controller, cfg, *,
         minute_arch=arch[after].T.contiguous() if minute_arch else None)
 
 
+def reclassify_ref(rates, classify: Classify, stride: int,
+                   history_len: int):
+    """rates [B, M] -> (archetype int32 [B, R - 1], confidence [B, R - 1]),
+    R = M // stride + 1: slot r's window, the `history_len` minutes
+    before minute r * stride with zeros before minute 0, through
+    `classify` with its features from `extract_features_ref` and its
+    logits from `gbdt_logits_ref` (what an AAPA or hybrid minute hook
+    computes at that slot). The plain version of
+    ``policy_signals.reclassify_cuda``; launches no kernel on the card."""
+    B, M = rates.shape
+    padded = torch.cat([torch.zeros((B, history_len), dtype=torch.float32,
+                                    device=rates.device), rates], -1)
+    wins = padded.unfold(-1, history_len, stride)[:, 1:M // stride + 1]
+    plain = dataclasses.replace(classify, logits=gbdt_logits_ref,
+                                features=extract_features_ref)
+    return plain.classify_windows(wins)
+
+
 def plant_pass_ref(rates, controller, cfg, signals: Signals | None):
     """rates [B, M] -> MinuteOut of [B, M]: the episode's plant ticks and
     decide as `episode_block_ref` runs them, with every signal of the

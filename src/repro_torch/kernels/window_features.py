@@ -10,11 +10,15 @@ and ``kernels.ref.extract_features_ref`` (``core.features.extract_features``);
 ``kernels.ops.window_features`` and ``kernels.ops.extract_features_fused``
 dispatch between kernel and plain version by device.
 
-The kernel has two variants, both hand-written and bit for bit with the
+The kernel has three variants, all hand-written and bit for bit with the
 plain versions: ``"w60"``, compiled for 60-sample windows (the
-classification path's and AAPAset's width) with the window in registers,
-and ``"generic"``, the routines for any width in [3, 64] that the AAPA
-episode's pre-pass runs too. ``choose_variant`` picks one from the width alone.
+classification path's and AAPAset's width) with the window in registers;
+``"generic"``, the routines for any width in [3, 64], scratch in local
+arrays; and ``"wide"``, the same routines with each window's scratch in
+shared memory, for any width up to 1,024 (``_numerics.MAX_TERMS``, where
+the plain version's XLA-order sums stop too). ``choose_variant`` picks
+one from the width alone. The AAPA pre-pass runs the same kernels on its
+windows, read in place from the rates (``policy_signals.reclassify_cuda``).
 """
 from __future__ import annotations
 
@@ -24,24 +28,41 @@ from repro_torch.core import features
 from repro_torch.kernels import _build
 
 N_FEATS = 28
-MIN_W, MAX_W = 3, 64
+MIN_W, MAX_W = 3, 1024
 #: the one width the register variant is compiled for (csrc/kernels.h kW60)
 W60 = 60
-VARIANTS = ("w60", "generic")
+#: the widest window the generic variant's local arrays hold
+#: (csrc/kernels.h kMaxWindow; MAX_W is its kMaxWideWindow)
+GENERIC_MAX_W = 64
+#: the variants in the order of csrc/kernels.h WfVariant
+VARIANTS = ("w60", "generic", "wide")
 
 
 def choose_variant(width: int) -> str:
     """Which kernel takes windows of `width` samples."""
-    return "w60" if width == W60 else "generic"
+    if width == W60:
+        return "w60"
+    return "generic" if width <= GENERIC_MAX_W else "wide"
+
+
+def check_variant(variant: str, width: int) -> int:
+    """`variant` at `width` as the binding takes it (its index in
+    VARIANTS); raises for a variant that does not take the width."""
+    if (variant not in VARIANTS or (variant == "w60" and width != W60)
+            or (variant == "generic" and width > GENERIC_MAX_W)):
+        raise ValueError(f"variant {variant!r} at W = {width}: expected one "
+                         f"of {VARIANTS}, 'w60' only at W = {W60}, "
+                         f"'generic' only up to W = {GENERIC_MAX_W}")
+    return VARIANTS.index(variant)
 
 
 def window_features_cuda(windows: torch.Tensor, *, freq: bool = False,
                          variant: str | None = None) -> torch.Tensor:
     """Launch the kernel: windows [N, W] (contiguous float32 on CUDA,
-    3 <= W <= 64) -> features [N, 28]; with `freq` (W >= 4) the 38
+    3 <= W <= 1024) -> features [N, 28]; with `freq` (W >= 4) the 38
     features [N, 38], the 10 frequency features after the 28. `variant`
-    forces a kernel (``"w60"`` only at W = 60); by default
-    ``choose_variant(W)``. Raises on any other input."""
+    forces a kernel (``"w60"`` only at W = 60, ``"generic"`` only up to
+    64); by default ``choose_variant(W)``. Raises on any other input."""
     if windows.device.type != "cuda":
         raise ValueError("window_features kernel needs a CUDA tensor, got "
                          f"{windows.device}")
@@ -54,9 +75,7 @@ def window_features_cuda(windows: torch.Tensor, *, freq: bool = False,
                          f"{tuple(windows.shape)} {windows.dtype}")
     N, W = windows.shape
     variant = choose_variant(W) if variant is None else variant
-    if variant not in VARIANTS or (variant == "w60" and W != W60):
-        raise ValueError(f"variant {variant!r} at W = {W}: expected one of "
-                         f"{VARIANTS}, 'w60' only at W = {W60}")
+    code = check_variant(variant, W)
     if freq:
         tw, plan = features.fft_tables(W, windows.device)
         inv_log_nb, inv_nb = features.freq_constants(W)
@@ -66,7 +85,7 @@ def window_features_cuda(windows: torch.Tensor, *, freq: bool = False,
     out = torch.empty((N, features.N_FEATURES if freq else N_FEATS),
                       dtype=torch.float32, device=windows.device)
     _build.extension().window_features(windows, out, tw, plan, inv_log_nb,
-                                       inv_nb, variant == "w60")
+                                       inv_nb, code)
     window_features_cuda.launches += 1
     window_features_cuda.last_variant = variant
     return out

@@ -62,13 +62,15 @@ def _rates():
     return t_scenarios.archetype_mix(n_workloads=W, minutes=M, seed=0).rates
 
 
-def _controllers(classifier, ci, **hyper):
+def _controllers(classifier, ci, policy="aapa", history_len=60, **hyper):
     ref_tr, port_tr = classifier
-    rcfg = ref_cluster.SimConfig(control_interval_sec=ci)
-    tcfg = t_cluster.SimConfig(control_interval_sec=ci)
-    rc = ref_registry.make("aapa", rcfg, classify=ref_tr.make_classify(),
+    rcfg = ref_cluster.SimConfig(control_interval_sec=ci,
+                                 history_len=history_len)
+    tcfg = t_cluster.SimConfig(control_interval_sec=ci,
+                               history_len=history_len)
+    rc = ref_registry.make(policy, rcfg, classify=ref_tr.make_classify(),
                            **hyper)
-    tc = t_registry.make("aapa", tcfg, classify=port_tr.make_classify(),
+    tc = t_registry.make(policy, tcfg, classify=port_tr.make_classify(),
                          **hyper)
     return (rcfg, rc), (tcfg, tc)
 
@@ -114,6 +116,28 @@ def test_episode_matches_reference(classifier, reference_run, ci, stride):
     _assert_minute_out(got_out, want_out)
     np.testing.assert_array_equal(got_arch.numpy(), want_arch)
     # the classifier does move lanes between archetypes here
+    assert len(np.unique(want_arch)) >= 3
+
+
+@pytest.mark.parametrize("history_len", [45, 90])
+@pytest.mark.parametrize("policy", ["aapa", "hybrid"])
+def test_episode_matches_reference_at_history_len(classifier, policy,
+                                                  history_len):
+    """AAPA and hybrid on a rate history of other than 60 minutes: each
+    reclassification's 38 features come from a window of `history_len`
+    (45: shorter than the default; 90: longer than the 64 samples one
+    window_features kernel block holds, and longer than the 90-minute
+    episode's history, so every window starts in the zero history). All
+    12 MinuteOut fields at the episode tolerance, every lane's archetype
+    after every minute exactly."""
+    (rcfg, rc), (tcfg, tc) = _controllers(classifier, 15, policy=policy,
+                                          history_len=history_len,
+                                          stride_min=5)
+    want_out, want_arch = _reference_minutes(rcfg, rc, _rates())
+    got_out, got_arch = t_ref.aapa_episode_ref(torch.as_tensor(_rates()),
+                                               tc, tcfg)
+    _assert_minute_out(got_out, want_out)
+    np.testing.assert_array_equal(got_arch.numpy(), want_arch)
     assert len(np.unique(want_arch)) >= 3
 
 

@@ -185,29 +185,57 @@ def _window_features_plain(x, freq, monkeypatch):
     return (ref.extract_features_ref if freq else ref.window_features_ref)(x)
 
 
-@pytest.mark.parametrize("width,freq", [(w, f) for w in range(3, 65)
+#: widths past the generic kernel's 64 samples: the wide kernel's (211:
+#: ducc0 takes Bluestein's algorithm there, the port its generic pass)
+WIDE_WIDTHS = (65, 72, 90, 120, 211, 360, 1024)
+
+
+@pytest.mark.parametrize("width,freq", [(w, f) for w in (*range(3, 65),
+                                                         *WIDE_WIDTHS)
                                         for f in (False, True)
                                         if w >= 4 or not f])
 def test_window_features_kernel_matches_plain(cuda, width, freq,
                                               monkeypatch):
     """The 28 features, and with `freq` all 38 (the classification path's
     launch, `ops.extract_features_fused`), bit for bit at every width the
-    kernel takes: the W = 60 kernel at 60 (and the generic one there too),
-    the generic one elsewhere; ties, constant, zero and spike windows."""
+    kernel takes up to 64 and at widths past it: the W = 60 kernel at 60,
+    the generic one elsewhere up to 64 (and at 60 too), the wide one above
+    64 (and, forced, at every width); ties, constant, zero and spike
+    windows."""
     x = _edge_windows(cuda, width)
     want = _window_features_plain(x, freq, monkeypatch)
-    before = window_features.window_features_cuda.launches
-    got = window_features.window_features_cuda(x, freq=freq)
+    launcher = window_features.window_features_cuda
+    before = launcher.launches
+    got = launcher(x, freq=freq)
     torch.cuda.synchronize()
-    assert window_features.window_features_cuda.launches == before + 1
-    assert window_features.window_features_cuda.last_variant == (
-        window_features.choose_variant(width))
+    assert launcher.launches == before + 1
+    assert launcher.last_variant == window_features.choose_variant(width)
+    assert launcher.last_variant == ("w60" if width == 60 else "generic"
+                                     if width <= 64 else "wide")
     assert torch.equal(got, want)
     if freq:
         assert torch.equal(ops.extract_features_fused(x), got)
     if width == window_features.W60:
-        assert torch.equal(window_features.window_features_cuda(
-            x, freq=freq, variant="generic"), want)
+        assert torch.equal(launcher(x, freq=freq, variant="generic"), want)
+    if width <= window_features.GENERIC_MAX_W:
+        assert torch.equal(launcher(x, freq=freq, variant="wide"), want)
+        assert launcher.last_variant == "wide"
+
+
+def test_window_features_variant_limits(cuda):
+    """The generic kernel's local arrays hold 64 samples and the wide
+    kernel takes up to 1,024 (the plain version's XLA-order sums stop
+    there too): anything else raises before a launch."""
+    launcher = window_features.window_features_cuda
+    before = launcher.launches
+    x = torch.ones((3, 65), device=cuda)
+    with pytest.raises(ValueError, match="generic"):
+        launcher(x, variant="generic")
+    with pytest.raises(ValueError, match="w60"):
+        launcher(x, variant="w60")
+    with pytest.raises(ValueError, match="1024"):
+        launcher(torch.ones((3, 1025), device=cuda))
+    assert launcher.launches == before
 
 
 @pytest.mark.parametrize("freq", [False, True])
@@ -430,16 +458,84 @@ def test_aapa_kernel_rejects_bare_callable_classify(cuda):
 
 
 def test_aapa_kernel_rejects_other_history_len(cuda):
-    """The pre-pass's feature window is 60 minutes at compile time: an
-    AAPA or hybrid episode on another `history_len` raises before any
-    launch, and never falls back to the plain path."""
-    cfg = cluster.SimConfig(history_len=45)
-    for policy in ("aapa", "hybrid"):
-        before = ops.launch_counts()
-        with pytest.raises(NotImplementedError, match="history_len"):
-            episode_block.episode_block_cuda(_rates(5, cuda),
-                                             registry.make(policy, cfg), cfg)
-        assert ops.launch_counts() == before
+    """The pre-pass's minute walks read the last 30 minutes of the
+    history for the trend, and the widest feature window is 1,024
+    minutes: an AAPA or hybrid episode on a `history_len` outside [30,
+    1024] raises before any launch, and never falls back to the plain
+    path."""
+    for history_len in (29, 1025):
+        cfg = cluster.SimConfig(history_len=history_len)
+        for policy in ("aapa", "hybrid"):
+            before = ops.launch_counts()
+            with pytest.raises(NotImplementedError, match="history_len"):
+                episode_block.episode_block_cuda(
+                    _rates(5, cuda), registry.make(policy, cfg), cfg)
+            assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("history_len", [45, 90, 120])
+@pytest.mark.parametrize("policy", ["aapa", "hybrid"])
+def test_aapa_kernel_at_other_history_len(cuda, policy, history_len):
+    """AAPA and hybrid on a rate history of 45, 90 and 120 minutes: the
+    pre-pass reclassifies on the generic (45) or the wide (90, 120)
+    window_features kernel, bit for bit with `policy_signals_ref`, and the
+    fused episode equals its plain episode bit for bit, archetypes
+    included; 293 lanes x 150 minutes, reclassifying every 10."""
+    cfg = cluster.SimConfig(history_len=history_len)
+    kw = dict(classify=_classifier(cuda), forecast_confidence=True)
+    if policy == "hybrid":
+        kw["band"] = _band(cuda)
+    ctrl = registry.make(policy, cfg, **kw)
+    rates = torch.as_tensor(scenarios.archetype_mix(
+        n_workloads=293, minutes=150, seed=history_len).rates, device=cuda)
+    ops.reset_launch_counts()
+    got = policy_signals.policy_signals_cuda(rates, ctrl, cfg,
+                                             minute_arch=True)
+    assert policy_signals.reclassify_cuda.launches == 1
+    assert policy_signals.reclassify_cuda.last_variant == (
+        "generic" if history_len <= 64 else "wide")
+    want = ref.policy_signals_ref(rates, ctrl, cfg, minute_arch=True)
+    torch.cuda.synchronize()
+    for name, a, e in zip(policy_signals.Signals._fields, got, want):
+        assert torch.equal(a, e), name
+    assert len(torch.unique(want.arch)) >= 3
+    out, arch = episode_block.aapa_episode_cuda(rates, ctrl, cfg)
+    want_out, want_arch = ref.aapa_episode_ref(rates, ctrl, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(arch, want_arch)
+    for a, e in zip(out, want_out):
+        assert torch.equal(a, e)
+
+
+@pytest.mark.parametrize("history_len,stride,depth", [
+    (60, 10, 4), (60, 2, 4), (60, 10, 6), (45, 10, 4), (90, 7, 4),
+    (120, 10, 6), (211, 10, 4), (1024, 30, 4)])
+def test_reclassify_kernel_matches_plain(cuda, history_len, stride, depth):
+    """The pre-pass's reclassifications (window_features on windows read
+    in place from the rates, gbdt_tables, the calibration kernel) against
+    `reclassify_ref` bit for bit: archetype and confidence of every lane
+    and slot; the paper's ensemble (tables in shared memory) and a
+    depth-6 one (the generic GBDT kernel); 293 lanes (not a multiple of
+    any block) x 1,100 minutes, windows from the zero history before
+    minute 0 to well inside the rates."""
+    cls = _classifier(cuda, depth=depth)
+    rates = torch.as_tensor(scenarios.archetype_mix(
+        n_workloads=293, minutes=1100, seed=depth).rates, device=cuda)
+    launcher = policy_signals.reclassify_cuda
+    before = launcher.launches
+    arch, conf = launcher(rates, cls, stride, history_len)
+    assert launcher.launches == before + 1
+    assert launcher.last_variant == window_features.choose_variant(
+        history_len)
+    assert arch.shape == (293, 1100 // stride)
+    ops.reset_launch_counts()
+    want_arch, want_conf = ref.reclassify_ref(rates, cls, stride,
+                                              history_len)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == dict.fromkeys(ops.LAUNCHERS, 0)
+    assert torch.equal(arch, want_arch)
+    assert torch.equal(conf, want_conf)
+    assert len(torch.unique(want_arch)) >= 3
 
 
 def _probe_tool():

@@ -16,12 +16,14 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
 from repro.scaling import registry as ref_registry
 from repro.sim import cluster as ref_cluster
+from repro_torch import _numerics
 from repro_torch.core import features
 from repro_torch.core import gbdt as t_gbdt
 from repro_torch.core.calibration import BetaCalibration
 from repro_torch.core.pipeline import Classify
 from repro_torch.kernels import (episode_block, gbdt_tables, holt_winters,
-                                 ops, plant_block, ref, window_features)
+                                 ops, plant_block, policy_signals, ref,
+                                 window_features)
 from repro_torch.scaling import registry as t_registry
 from repro_torch.sim import cluster as t_cluster
 
@@ -238,7 +240,8 @@ def test_holt_winters_variant_refuses_bad_period_and_copy_width():
 
 @pytest.mark.parametrize("width,want", [(3, "generic"), (59, "generic"),
                                         (60, "w60"), (61, "generic"),
-                                        (64, "generic")])
+                                        (64, "generic"), (65, "wide"),
+                                        (120, "wide"), (1024, "wide")])
 def test_window_features_variant_by_width(width, want):
     """Only W = 60 takes the kernel compiled for it, whose FFT plan
     (csrc/kernels.h kW60Plan) is the plan the launcher hands over."""
@@ -248,6 +251,41 @@ def test_window_features_variant_by_width(width, want):
         plan[0::4], plan[1::4], plan[2::4]))
     assert f"kW60Plan[kW60Passes][3] = {{{compiled}}};" in _KERNELS_H
     assert window_features.choose_variant(width) == want
+
+
+def test_window_features_variant_codes_and_limits():
+    """The launcher's variants are csrc/kernels.h's WfVariant, in order;
+    the generic variant's local arrays (kMaxWindow) and the wide variant's
+    widest window (kMaxWideWindow, the plain version's MAX_TERMS) are the
+    launcher's limits, and a forced variant that does not take the width
+    is refused."""
+    assert ("enum WfVariant { kWfW60 = 0, kWfGeneric = 1, kWfWide = 2 };"
+            in _KERNELS_H)
+    assert window_features.VARIANTS == ("w60", "generic", "wide")
+    assert f"kMaxWindow = {window_features.GENERIC_MAX_W};" in _KERNELS_H
+    assert f"kMaxWideWindow = {window_features.MAX_W};" in _KERNELS_H
+    assert window_features.MAX_W == _numerics.MAX_TERMS
+    assert window_features.check_variant("wide", 3) == 2
+    assert window_features.check_variant("generic", 64) == 1
+    assert window_features.check_variant("w60", 60) == 0
+    for variant, width in (("generic", 65), ("w60", 59), ("bogus", 60)):
+        with pytest.raises(ValueError, match="variant"):
+            window_features.check_variant(variant, width)
+
+
+def test_reclassify_wrapper_rejects_cpu_tensors():
+    """The pre-pass's reclassification launches its kernels or raises: it
+    refuses CPU rates and counts no launch; the pre-pass takes the
+    history lengths from the trend's 30 minutes to the widest
+    window_features kernel."""
+    cls = Classify(_tiny_port_gbdt()[1], BetaCalibration(
+        *(torch.zeros(4) for _ in range(3))))
+    before = policy_signals.reclassify_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        policy_signals.reclassify_cuda(torch.ones(2, 30), cls, 10, 60)
+    assert policy_signals.reclassify_cuda.launches == before
+    assert (policy_signals.MIN_HISTORY, policy_signals.MAX_HISTORY) == (
+        30, window_features.MAX_W)
 
 
 def _tiny_port_gbdt():

@@ -83,7 +83,7 @@ def bands():
                                          device="cpu")
 
 
-def _controllers(policy, kw, classifier, bands, ci=15):
+def _controllers(policy, kw, classifier, bands, ci=15, history_len=60):
     """(reference cfg and controller, port cfg and controller); in `kw`,
     classify=True stands for the GBDT and band=True for the band. The
     reference side of hybrid is AAPA: hybrid's minute hook is AAPA's."""
@@ -94,16 +94,18 @@ def _controllers(policy, kw, classifier, bands, ci=15):
         if out.get("band"):
             out["band"] = bands[side]
         return out
-    rcfg = ref_cluster.SimConfig(control_interval_sec=ci)
-    tcfg = t_cluster.SimConfig(control_interval_sec=ci)
+    rcfg = ref_cluster.SimConfig(control_interval_sec=ci,
+                                 history_len=history_len)
+    tcfg = t_cluster.SimConfig(control_interval_sec=ci,
+                               history_len=history_len)
     rname = "aapa" if policy == "hybrid" else policy
     return ((rcfg, ref_registry.make(rname, rcfg, **hyper(0))),
             (tcfg, t_registry.make(policy, tcfg, **hyper(1))))
 
 
-def _reference_signals(ctrl, rates, kind, inv_cap=None):
+def _reference_signals(ctrl, rates, kind, inv_cap=None, history_len=60):
     """The reference controller's minute hook over each lane's zero-padded
-    60-minute windows: per minute m (0: the initial state, m: after the
+    `history_len`-minute windows: per minute m (0: the initial state, m: after the
     hook at minute m), the signals decide reads and, for AAPA, the
     archetype and Algorithm 1's parameters. Returns numpy arrays [W, M + 1]
     (floats [W, M + 1, K])."""
@@ -128,7 +130,7 @@ def _reference_signals(ctrl, rates, kind, inv_cap=None):
             hist = jnp.concatenate([hist[1:], rate[None]])
             st = ctrl.on_minute(st, hist, m + 1)
             return (st, hist, m + 1), signals(st, hist)
-        st0, hist0 = ctrl.init(), jnp.zeros(60, jnp.float32)
+        st0, hist0 = ctrl.init(), jnp.zeros(history_len, jnp.float32)
         first = signals(st0, hist0)
         rest = jax.lax.scan(body, (st0, hist0, jnp.int32(0)), r)[1]
         return tuple(jnp.concatenate([f[None], g]) for f, g in
@@ -173,6 +175,29 @@ def test_archetype_signals_match_reference(classifier, bands, policy, kw):
     np.testing.assert_array_equal(sig.minute_arch.numpy(), arch[:, 1:])
     if kw.get("classify"):
         assert len(np.unique(arch)) >= 3
+
+
+@pytest.mark.parametrize("policy", ["aapa", "hybrid"])
+def test_archetype_signals_match_reference_at_history_len_90(
+        classifier, bands, policy):
+    """The pre-pass's plain version on a 90-minute rate history (the
+    reclassification windows the wide window_features kernel takes on the
+    card): every signal, slot and per-minute archetype, as above."""
+    kw = dict(classify=True, stride_min=5, forecast_confidence=True)
+    if policy == "hybrid":
+        kw["band"] = True
+    (_, rc), (tcfg, tc) = _controllers(policy, kw, classifier, bands,
+                                       history_len=90)
+    rps, arch, adj = _reference_signals(rc, _rates(), "aapa",
+                                        history_len=90)
+    sig = ref.policy_signals_ref(torch.as_tensor(_rates()), tc, tcfg,
+                                 minute_arch=True)
+    at = np.arange(policy_signals.n_slots(M, 5)) * 5
+    _assert_close(sig.rps.permute(2, 1, 0), rps[:, :M], "rps")
+    np.testing.assert_array_equal(sig.arch.T.numpy(), arch[:, at])
+    _assert_close(sig.adj.permute(2, 1, 0), adj[:, at], "adj")
+    np.testing.assert_array_equal(sig.minute_arch.numpy(), arch[:, 1:])
+    assert len(np.unique(arch)) >= 3
 
 
 @pytest.mark.parametrize("conservative", [False, True],
