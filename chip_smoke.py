@@ -68,7 +68,7 @@ and prints no result line):
    for bit, archetypes included (the reclassification on the generic
    window_features kernel at 45, the wide one above), and the
    reclassification of the 25,000 x 1440 chunk at each of those lengths
-   timed against its bound.
+   timed against its bound, beside the AAPA episode of that chunk there.
 10. The AAPA fleet: the same 100,000 x 1440 ``burst_storm`` rates as the
     HPA row through ``make_simulator(w_chunk=25_000)``, classified by
     phase 22's trained classifier, pooled metrics and REI, timed, then
@@ -114,8 +114,11 @@ and prints no result line):
     unless the three W = 60 ``window_features`` entries (28 and 38
     features, and the pre-pass's windows) and both shared-memory
     ``gbdt_tables`` entries (the paper's depth and any depth) hold no
-    stack and no local memory, and unless the three wide
-    ``window_features`` entries and the calibration kernel are there.
+    stack and no local memory, unless the twelve wide
+    ``window_features`` entries (four lane and register shapes x 28 and 38
+    features and the pre-pass's windows) hold no local memory and at most
+    ``WIDE_SPILL_MAX`` bytes of stack (a few register spills), and unless
+    the calibration kernel is there.
 17. Every registry forecaster in the episode: predictive, predictive
     conservative with the band, AAPA (phase 8's classifier, the forecast
     confidence on) and hybrid with the band, each under linear trend,
@@ -331,6 +334,7 @@ FORECASTER_MINUTES = 120
 # windows of the AAPAset traces at this stride (~20,000 a width)
 WIDE_WIDTHS = (65, 72, 90, 120, 211, 360, 1024)
 WIDE_STRIDE = 140
+WIDE_SPILL_MAX = 64  # bytes of register spills a wide kernel may keep
 # phase 9's AAPA and hybrid episodes on other history lengths
 # (SimConfig.history_len), on archetype_mix of these lanes x minutes
 HISTORY_LENS = (45, 90, 120)
@@ -2808,11 +2812,15 @@ def main() -> int:
         hms = cuda_ms(lambda: rc_launcher(chunk, cls, stride, hl),
                       iters=3)[0]
         hbound, hby = reclassify_bound(cls, w_chunk, M, stride, hl)
-        history_rows[f"reclassify@{hl}"] = dict(ms=hms, bound_ms=hbound,
-                                                bound_by=hby)
+        hctrl = registry.make("aapa", hcfg, classify=cls)
+        hep_ms = cuda_ms(lambda: episode_block.aapa_episode_cuda(
+            chunk, hctrl, hcfg), iters=3)[0]
+        history_rows[f"reclassify@{hl}"] = dict(
+            ms=hms, bound_ms=hbound, bound_by=hby, aapa_episode_ms=hep_ms)
         log(f"[timing] reclassify {w_chunk}x{M} at history_len {hl} "
             f"(kernel {rc_launcher.last_variant}): {hms} ms, bound {hbound} "
-            f"ms ({hby})")
+            f"ms ({hby}); the AAPA episode there {hep_ms} ms (at 60: "
+            f"{aapa_ms} ms)")
 
     # ---- 21-22. AAPAset built and the classifier trained on the card;
     # the AAPA and hybrid fleet rows of phases 10 and 14 classify with it
@@ -3089,11 +3097,21 @@ def main() -> int:
                            f"features, and the pre-pass's windows) are not "
                            f"three entries without stack or local memory: "
                            f"{w60_entries}")
-    new_entries = [e for e in usage if "window_features_wide_kernel" in e
-                   or "calibrate_kernel" in e]
-    if len(new_entries) != 4:
-        raise RuntimeError(f"expected three wide window_features entries and "
-                           f"the calibration kernel: {new_entries}")
+    # the wide kernel: its (lanes a window, sort registers) pairs (8, 16),
+    # (32, 8), (32, 16), (32, 32) x (28 and 38 features, and the
+    # pre-pass's windows). ptxas gives most entries 72 registers (7 blocks
+    # an SM) and spills a few of them: at most WIDE_SPILL_MAX bytes of
+    # stack, and no other local memory.
+    wide_entries = {e: u for e, u in usage.items()
+                    if "window_features_wide_kernel" in e}
+    if len(wide_entries) != 12 or any(u["local"]
+                                      or u["stack"] > WIDE_SPILL_MAX
+                                      for u in wide_entries.values()):
+        raise RuntimeError(f"the wide window_features kernels are not 12 "
+                           f"entries within {WIDE_SPILL_MAX} B of spills "
+                           f"and no local memory: {wide_entries}")
+    if not any("calibrate_kernel" in e for e in usage):
+        raise RuntimeError(f"no calibrate_kernel entry in {sorted(usage)}")
     plant_entries = {p: [u for e, u in usage.items()
                          if "episode_kernel" in e and f"::{p}>" in e]
                      for p in ("HPA", "AAPA", "Hybrid")}

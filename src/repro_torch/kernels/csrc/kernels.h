@@ -268,8 +268,8 @@ void episode_block_hybrid_launch(const float* rates, float* out,
 // windows [N, W] (3 <= W <= 1,024) -> features [N, 28]; with freq (the
 // FFT plan for W, W >= 4) all 38 features [N, 38]. variant: kWfW60, the
 // kernel compiled for W == 60 (its FFT plan kW60Plan); kWfGeneric, W <=
-// kMaxWindow (64), scratch in local arrays; kWfWide, any W, scratch in
-// shared memory.
+// kMaxWindow (64), scratch in local arrays; kWfWide, any W, one window a
+// group of lanes in shared memory.
 constexpr int kW60 = 60;
 constexpr int kW60Passes = 3;
 constexpr int kW60Plan[kW60Passes][3] = {{5, 12, 1}, {3, 4, 5}, {4, 1, 15}};

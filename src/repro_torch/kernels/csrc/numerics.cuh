@@ -29,6 +29,20 @@ __device__ __forceinline__ float xla_sum(int n, Term term) {
   return total;
 }
 
+// The chunks of an n-term sum in xla_sum's order: how many (0 for n <=
+// 0), and chunk c's terms [*lo, *hi), false past the last one
+__device__ __forceinline__ int xla_chunks(int n) {
+  return n > 0 ? (n + kXlaWindow - 1) / kXlaWindow : 0;
+}
+__device__ __forceinline__ bool xla_chunk(int n, int c, int* lo, int* hi) {
+  const int n_win = xla_chunks(n);
+  if (c >= n_win) return false;
+  const int low = (n_win * kXlaWindow - n) / 2;
+  *lo = max(c * kXlaWindow - low, 0);
+  *hi = min((c + 1) * kXlaWindow - low, n);
+  return true;
+}
+
 // term(lo) + ... + term(hi - 1), left to right (_numerics.py::seq_sum)
 template <class Term>
 __device__ __forceinline__ float seq_sum(int lo, int hi, Term term) {

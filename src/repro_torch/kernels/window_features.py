@@ -14,9 +14,12 @@ The kernel has three variants, all hand-written and bit for bit with the
 plain versions: ``"w60"``, compiled for 60-sample windows (the
 classification path's and AAPAset's width) with the window in registers;
 ``"generic"``, the routines for any width in [3, 64], scratch in local
-arrays; and ``"wide"``, the same routines with each window's scratch in
-shared memory, for any width up to 1,024 (``_numerics.MAX_TERMS``, where
-the plain version's XLA-order sums stop too). ``choose_variant`` picks
+arrays; and ``"wide"``, one window a group of 8 lanes (up to 128
+samples) or a warp, in shared memory (the sums split across the lanes in
+XLA's chunks, a bitonic sort in registers, the FFT's butterflies across
+the lanes), for any width up to 1,024
+(``_numerics.MAX_TERMS``, where the plain version's XLA-order sums stop
+too). ``choose_variant`` picks
 one from the width alone. The AAPA pre-pass runs the same kernels on its
 windows, read in place from the rates (``policy_signals.reclassify_cuda``).
 """

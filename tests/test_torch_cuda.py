@@ -256,6 +256,55 @@ def test_window_features_w60_keeps_nan_windows_as_generic(cuda, freq):
                                equal_nan=True)
 
 
+def _insertion_sorted(row: np.ndarray) -> np.ndarray:
+    """What an insertion sort with `>` leaves: each NaN where it is, each
+    NaN-free run between them sorted on its own, stably."""
+    out, start = row.copy(), 0
+    for end in [*np.flatnonzero(np.isnan(row)), row.size]:
+        out[start:end] = np.sort(row[start:end], kind="stable")
+        start = end + 1
+    return out
+
+
+@pytest.mark.parametrize("width", [45, 64, 65, 120, 1024])
+def test_window_features_wide_keeps_insertion_sort_order(cuda, width):
+    """Windows holding NaN, mixed +-0 and +-inf: the wide kernel's median,
+    q25 and q75 are the order statistics an insertion sort leaves (NaN in
+    place, each NaN-free run sorted on its own), NaN for NaN and -0 equal
+    to +0; up to 64 samples all 38 features equal the generic kernel's."""
+    rng = np.random.default_rng(width)
+    x = rng.integers(0, 4, (130, width)).astype(np.float32)
+    for i in range(100):
+        x[i, rng.integers(0, width, 1 + i % 7)] = np.nan
+    x[0] = np.nan
+    x[100:110] = rng.choice(np.float32([0.0, -0.0, 1.0]), (10, width))
+    x[110:120] = rng.choice(np.float32([0.0, -0.0, np.inf, -np.inf]),
+                            (10, width))
+    x[120:125, :2] = np.nan
+    x[125:, -1] = np.nan
+    want = np.empty((x.shape[0], 3), np.float32)
+    for row, w in zip(x, want):
+        xs = _insertion_sorted(row)
+        for k, q in enumerate((0.5, 0.25, 0.75)):
+            pos = q * (width - 1)
+            lo = int(np.floor(pos))
+            hi = min(lo + 1, width - 1)
+            wt = np.float32(pos) - np.float32(lo)
+            with np.errstate(invalid="ignore"):  # inf * 0 is NaN here too
+                w[k] = xs[lo] * (np.float32(1.0) - wt) + xs[hi] * wt
+    x = torch.as_tensor(x, device=cuda)
+    launcher = window_features.window_features_cuda
+    for freq in (False, True):
+        got = launcher(x, freq=freq, variant="wide")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[:, 5:8].cpu(), torch.as_tensor(want),
+                                   rtol=0.0, atol=0.0, equal_nan=True)
+        if width <= window_features.GENERIC_MAX_W:
+            torch.testing.assert_close(
+                got, launcher(x, freq=freq, variant="generic"), rtol=0.0,
+                atol=0.0, equal_nan=True)
+
+
 GBDT_CASES = {
     # name: (features, edges, rounds, classes, depth, rows)
     "paper": (38, 63, 60, 4, 4, 2002),
@@ -473,12 +522,13 @@ def test_aapa_kernel_rejects_other_history_len(cuda):
             assert ops.launch_counts() == before
 
 
-@pytest.mark.parametrize("history_len", [45, 90, 120])
+@pytest.mark.parametrize("history_len", [45, 90, 120, 211, 1024])
 @pytest.mark.parametrize("policy", ["aapa", "hybrid"])
 def test_aapa_kernel_at_other_history_len(cuda, policy, history_len):
-    """AAPA and hybrid on a rate history of 45, 90 and 120 minutes: the
-    pre-pass reclassifies on the generic (45) or the wide (90, 120)
-    window_features kernel, bit for bit with `policy_signals_ref`, and the
+    """AAPA and hybrid on a rate history of 45, 90, 120, 211 (an FFT of
+    one odd pass) and 1,024 minutes: the pre-pass reclassifies on the
+    generic (45) or the wide (the others) window_features kernel, bit for
+    bit with `policy_signals_ref`, and the
     fused episode equals its plain episode bit for bit, archetypes
     included; 293 lanes x 150 minutes, reclassifying every 10."""
     cfg = cluster.SimConfig(history_len=history_len)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the ``holt_winters``, ``window_features``, ``gbdt_tables`` and
-``plant_block`` kernels of several source trees in turns on one card.
+``plant_block`` kernels and the reclassification of several source trees
+in turns on one card.
 
     python3 tools/time_kernel_trees.py TREE [TREE ...] [--rounds 2]
 
@@ -28,7 +29,15 @@ own ``build/`` and, with CUDA events (one warm-up call, then the mean of
   host-clock runs, each ending in a synchronize, after a warm-up run;
 - ``kernels.ops.plant_tick_block`` (the default ci's 14 ticks, S=30) on
   ``chip_smoke.plant_inputs`` at 1024 and 100,003 lanes, 20 launches
-  replayed from one CUDA graph (chip_smoke.py phase 6's timing).
+  replayed from one CUDA graph (chip_smoke.py phase 6's timing);
+- the wide ``window_features`` kernel (38 features) at 65, 90, 120, 211,
+  360 and 1,024 samples on those traces' windows at stride 140
+  (chip_smoke.py phase 8's ~21,000 windows a width), and forced at 45
+  (the AAPAset windows' first 45 samples) and 64 (the traces' 64-minute
+  windows at stride 10) beside the generic kernel on the same windows;
+- ``kernels.policy_signals.reclassify_cuda`` with that classifier on a
+  ``scenarios.burst_storm`` 25,000 x 1440 chunk at stride 10 with
+  ``history_len`` 90 and 120 (chip_smoke.py phase 9's launch).
 
 Every run prints a fingerprint of each output (sums of its bit
 patterns), and the script fails if two trees' fingerprints differ: the
@@ -46,10 +55,17 @@ import subprocess
 import sys
 from pathlib import Path
 
+WIDE_WIDTHS = (65, 90, 120, 211, 360, 1024)
+FORCED_WIDTHS = (45, 64)
+HISTORY_LENS = (90, 120)
 MEASURES = ("window_features_38_ms", "window_features_28_ms",
             "holt_winters_ms", "calibrate_s", "gbdt_tables_ms",
             "gbdt_tables_enqueue_us", "classify_path_ms",
-            "plant_block_1024_ms", "plant_block_100003_ms")
+            "plant_block_1024_ms", "plant_block_100003_ms",
+            *(f"wide_{w}_ms" for w in WIDE_WIDTHS),
+            *(f"{v}_{w}_ms" for w in FORCED_WIDTHS
+              for v in ("generic", "wide")),
+            *(f"reclassify_{h}_ms" for h in HISTORY_LENS))
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
@@ -86,13 +102,15 @@ def child(tree: Path) -> None:
     from repro_torch.data import azure_synth, windows
     from repro_torch.forecast import conformal
     from repro_torch.forecast import registry as forecast_registry
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, ops, policy_signals
+    from repro_torch.kernels import window_features as wf
+    from repro_torch.scaling import scenarios
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     _build.extension()
     row = dict(build_s=time.perf_counter() - t0)
-    wins = torch.as_tensor(windows.make_windows(azure_synth.generate_traces(
-        n_functions=150, n_days=14, seed=0)).windows, device=dev)
+    traces = azure_synth.generate_traces(n_functions=150, n_days=14, seed=0)
+    wins = torch.as_tensor(windows.make_windows(traces).windows, device=dev)
     row["window_features_38_ms"] = cuda_ms(
         lambda: ops.extract_features_fused(wins))
     row["window_features_28_ms"] = cuda_ms(lambda: ops.window_features(wins))
@@ -131,7 +149,33 @@ def child(tree: Path) -> None:
             lambda: ops.plant_tick_block(*args, n_ticks=14), iters=20)
         state, ticks = ops.plant_tick_block(*args, n_ticks=14)
         plants[lanes] = sum(fingerprint(t) for t in (*state, *ticks))
-    row["fingerprint"] = [fingerprint(feats),
+    wide = []
+    for width in WIDE_WIDTHS:
+        x = torch.as_tensor(windows.make_windows(
+            traces, window=width, stride=140).windows, device=dev)
+        row[f"wide_{width}_ms"] = cuda_ms(
+            lambda: wf.window_features_cuda(x, freq=True))
+        wide.append(fingerprint(wf.window_features_cuda(x, freq=True)))
+    for width in FORCED_WIDTHS:
+        x = (wins[:, :width].contiguous() if width <= wins.shape[1] else
+             torch.as_tensor(windows.make_windows(traces, window=width)
+                             .windows, device=dev))
+        for variant in ("generic", "wide"):
+            row[f"{variant}_{width}_ms"] = cuda_ms(
+                lambda: wf.window_features_cuda(x, freq=True,
+                                                variant=variant))
+            wide.append(fingerprint(wf.window_features_cuda(
+                x, freq=True, variant=variant)))
+    del x
+    storm = torch.as_tensor(scenarios.burst_storm(
+        n_workloads=25_000, minutes=1440, seed=0).rates, device=dev)
+    for hl in HISTORY_LENS:
+        row[f"reclassify_{hl}_ms"] = cuda_ms(
+            lambda: policy_signals.reclassify_cuda(storm, cls, 10, hl),
+            iters=3)
+        arch, conf = policy_signals.reclassify_cuda(storm, cls, 10, hl)
+        wide += [fingerprint(arch), fingerprint(conf)]
+    row["fingerprint"] = [*wide, fingerprint(feats),
                           fingerprint(ops.window_features(wins)),
                           fingerprint(ops.holt_winters(split)),
                           float(band.q), float(band.scale),
