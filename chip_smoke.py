@@ -122,11 +122,12 @@ and prints no result line):
 17. Every registry forecaster in the episode: predictive, predictive
     conservative with the band, AAPA (phase 8's classifier, the forecast
     confidence on) and hybrid with the band, each under linear trend,
-    seasonal naive and EWMA, on ``archetype_mix`` 4,096 x 120 (two of
-    the seasonal forecaster's 60-minute periods, AAPA reclassifying every
-    10 minutes; 240 minutes until the training phases needed the time),
-    equal to
-    their plain episodes bit for bit, archetypes included.
+    seasonal naive and EWMA, on ``archetype_mix`` 4,096 x 75 (one and a
+    quarter of the seasonal forecaster's 60-minute periods, so its last
+    15 minutes read the period before; AAPA reclassifying every 10 minutes;
+    240 minutes until the training phases needed the time, 120 until
+    phase 34 did), equal to their plain episodes bit for bit, archetypes
+    included.
 18. The pre-pass's new minute walks (predictive conservative with the
     band and AAPA, under each of those forecasters) against
     ``ref.policy_signals_ref`` bit for bit on the 25,000 x 1440 chunk,
@@ -168,7 +169,8 @@ and prints no result line):
     13, 15, 17 and 19 keep the seeded classifier for their kernel gates.
 23. Fleet runs through ``evals.fleet.run_fleet`` (after 20):
     ``burst_storm`` 100,000 x 1440 in chunks of 25,000 under HPA and
-    AAPA (the trained classifier), one dispatch (after a warm-up run) and
+    AAPA (the trained classifier), one dispatch (over rates generated once
+    before it and passed as its chunks, after a warm-up run) and
     streamed; gate: equal at the reference's rtol 2e-6 (quantiles at the
     histogram's half-bin bound). The same streamed at 200,000 x 1440 (8
     chunks; HPA alone at 10^5 and 10^6 lanes until phases 24-26 needed the
@@ -273,8 +275,24 @@ and prints no result line):
     microbatches) and must not run out of memory, its peak printed beside
     the estimate; ``launch.train --arch internlm2_1_8b --dry-run`` must
     exit 0. Each of phases 30-33 prints its wall.
+34. The fleet plane over a device mesh (run after 23): phase 23's
+    100,000 x 1440 HPA + AAPA fleet (the rates phase 23 generated for its
+    one-dispatch run, passed to ``run_fleet`` as its chunks), one
+    dispatch (after a warm-up run) and streamed, over ``launch.mesh.make_production_mesh()`` (every
+    visible card: one when the script runs as it should, with no
+    arguments) and over a logical mesh of MESH_SHARDS entries, every one
+    the first card (chunk c on entry c mod n); gate: pooled metrics and
+    REI bit for bit with phase 23's unsharded runs. Each mesh's
+    one-dispatch row once more under ``torch.profiler`` for each card's
+    busy time; ``bench_autoscaling``'s SPEC matrix under each mesh
+    against phase 19's (per workload bit for bit; pooled rtol 2e-6,
+    counts exact); AAPAset ``aapaset_300k`` built under the logical mesh
+    (chunks round-robin) bit for bit with phase 21's build. Prints the
+    distinct cards, mesh shape, walls, lane-minutes/s, peak memory of the
+    largest card and busy time by card; there is no fallback: a mismatch
+    fails the run.
 
-Phases 4, 5, 8, 10, 12, 14, 19, 21, 22, each run of 23 and 24, 25, 26
+Phases 4, 5, 8, 10, 12, 14, 19, 21, 22, each run of 23, 24 and 34, 25, 26
 and 28 reset the kernels' launch counts just before they run and read them just
 after; a path whose kernel was never launched fails (the predictive,
 AAPA and hybrid rows: the pre-pass and the plant pass; the matrices:
@@ -286,7 +304,9 @@ history lengths: ``episode_block``, ``policy_signals`` and
 ``reclassify``; the traced runs and
 the obs card: ``plant_block``, and with AAPA or hybrid ``gbdt_tables``;
 tuning: ``episode_block``; serving: ``window_features`` and
-``gbdt_tables``). Kernel-vs-plain
+``gbdt_tables``; each mesh's fleet runs: ``episode_block``,
+``policy_signals`` and ``reclassify``, its matrix every minute walk, its
+AAPAset build ``window_features``). Kernel-vs-plain
 comparisons and timing launches are not counted. The plain runs of
 phases 8, 9, 11, 13, 17, 18, 20 and 21 are checked to launch no kernel
 (the plain AAPA and hybrid episodes classify through the plain GBDT).
@@ -328,7 +348,7 @@ EPISODE_OPS_PER_HEAD = 52
 AAPA_PLAIN_MINUTES = 480
 # minutes of phase 17's episodes (the plain episodes are host-bound: their
 # time grows with the minutes)
-FORECASTER_MINUTES = 120
+FORECASTER_MINUTES = 75
 # phase 8's widths past the generic window_features kernel's 64 samples
 # (the wide kernel; 211: ducc0 takes Bluestein's algorithm there), on
 # windows of the AAPAset traces at this stride (~20,000 a width)
@@ -1182,9 +1202,14 @@ def fleet_phase(cls, data_loader) -> dict:
     sp = fleet.spec("fleet_1e5", policies=("hpa", "aapa"),
                     scenario="burst_storm", n_workloads=FLEET_LANES,
                     w_chunk=FLEET_CHUNK, minutes=FLEET_MINUTES, seed=0)
-    one = run("one-dispatch 1e5", sp, warmup=True)
-    runs["one-dispatch 1e5"]["result"] = one
+    t0 = time.perf_counter()
+    rates = fleet.build_rates(sp)     # made once: phase 34 runs them too
+    log(f"[fleet] {sp.n_workloads} x {sp.minutes} rates generated on the "
+        f"host in {time.perf_counter() - t0:.1f} s")
+    one = run("one-dispatch 1e5", sp, warmup=True, chunks=rates)
+    runs["one-dispatch 1e5"].update(result=one, rates=rates)
     streamed = run("stream 1e5", sp, stream=True)
+    runs["stream 1e5"]["result"] = streamed
     fleet_close(streamed.pooled, one.pooled, 2e-6, "stream vs one-dispatch")
     np.testing.assert_allclose(streamed.rei.rei, one.rei.rei, rtol=2e-6)
     log("[fleet] the stream equals the one-dispatch run (rtol 2e-6, "
@@ -1219,6 +1244,154 @@ def fleet_phase(cls, data_loader) -> dict:
     log(f"[fleet] per {FLEET_CHUNK} x {FLEET_MINUTES} HPA chunk: episode "
         f"{ep_ms} ms, its fold into the pooled accumulators {fold_ms} ms")
     runs["fold"] = dict(episode_ms=ep_ms, fold_ms=fold_ms)
+    return runs
+
+
+# ---- phase 34: the fleet plane over a device mesh
+# the logical mesh: this many entries, every one the first card
+MESH_SHARDS = 4
+# what a matrix's pooled sums in another order keep exactly (phase 20's)
+COUNTS_EXACT = ("scaling_actions", "oscillations",
+                "mean_action_interval_min", "overprovision_rate")
+
+
+def busy_by_card(run) -> dict[str, float]:
+    """`run()` under torch.profiler: the device ms of the kernels and
+    copies each card ran, by card."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+    busy: dict[int, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy[e.device_index] = busy.get(e.device_index, 0.0) \
+                + e.self_device_time_total / 1e3
+    return {f"cuda:{k}": v for k, v in sorted(busy.items())}
+
+
+def same_tree(got, want, what: str) -> None:
+    """Every field of two NamedTuples of arrays or tensors bit for bit."""
+    for field, a, b in zip(got._fields, got, want):
+        a, b = (np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+                for x in (a, b))
+        if not same_bits(a, b):
+            raise RuntimeError(f"{what}: {field} differs from the unsharded "
+                               f"run's bits")
+
+
+def mesh_phase(tcls, one, streamed, rates, spec_run, mcls, built) -> dict:
+    """34. The fleet plane over a device mesh (``dist.sharding``): phase
+    23's 100,000 x 1440 fleet row (HPA and AAPA with phase 22's
+    classifier; its `rates`, passed as `chunks`), one dispatch and
+    streamed, over
+    ``launch.mesh.make_production_mesh()`` (every visible card) and over a
+    logical mesh of MESH_SHARDS entries on the first card, each bit for
+    bit with phase 23's unsharded run of the same mode (`one`,
+    `streamed`); each card's busy time under ``torch.profiler``;
+    ``bench_autoscaling``'s SPEC matrix under both meshes against phase
+    19's unsharded run (`spec_run`: spec, pooled, per-workload, with
+    `mcls`): per-workload bit for bit, pooled at rtol 2e-6, counts exact;
+    the AAPAset build under the logical mesh, bit for bit with phase 21's
+    (`built`). Returns each run's meta and launch counts."""
+    from repro_torch.aapaset import build as aapaset_build
+    from repro_torch.aapaset import registry as aapaset_registry
+    from repro_torch.dist import sharding as shd
+    from repro_torch.evals import fleet, matrix
+    from repro_torch.kernels import ops, policy_signals
+    from repro_torch.launch import mesh as launch_mesh
+    sp = one.spec
+    meshes = {"production": launch_mesh.make_production_mesh(),
+              f"logical {MESH_SHARDS}": shd.Mesh(
+                  [torch.device("cuda", 0)] * MESH_SHARDS)}
+    runs: dict = {}
+    try:
+        for name, mesh in meshes.items():
+            shd.set_mesh(mesh)
+            for mode, want in (("one-dispatch", one), ("stream", streamed)):
+                label = f"{name} {mode}"
+                for d in range(torch.cuda.device_count()):
+                    torch.cuda.synchronize(d)
+                ops.reset_launch_counts()
+                res = fleet.run_fleet(sp, classify=tcls, chunks=rates,
+                                      stream=mode == "stream",
+                                      warmup=mode == "one-dispatch")
+                counts = dict(ops.launch_counts(),
+                              reclassify=policy_signals.reclassify_cuda
+                              .launches)
+                if min(counts["episode_block"], counts["policy_signals"],
+                       counts["reclassify"]) == 0:
+                    raise RuntimeError(f"mesh {label}: launches {counts}")
+                same_tree(res.pooled, want.pooled, f"mesh {label} pooled")
+                same_tree(res.rei, want.rei, f"mesh {label} REI")
+                m = res.meta
+                log(f"[mesh {label}] mesh {m['mesh']} on {m['n_devices']} "
+                    f"distinct card(s): wall {m['wall_s']:.4f} s "
+                    f"({m['lane_minutes_per_sec']:.6g} lane-minutes/s; "
+                    f"unsharded {want.meta['wall_s']:.4f} s, "
+                    f"{want.meta['lane_minutes_per_sec']:.6g}), peak device "
+                    f"memory {m['peak_device_bytes']} bytes (largest card), "
+                    f"launches {counts};"
+                    f" pooled metrics and REI equal the unsharded run's bit "
+                    f"for bit")
+                runs[label] = dict(meta=m, launches=counts)
+            busy = busy_by_card(lambda: fleet.run_fleet(sp, classify=tcls,
+                                                        chunks=rates))
+            log(f"[mesh {name}] one-dispatch row's device busy ms by card "
+                f"under torch.profiler: {busy}")
+            runs[f"{name} busy_ms"] = busy
+            spec_, pool1, per1 = spec_run
+            pool, per_w, counts, _ = run_matrix(matrix, spec_, mcls,
+                                                f"SPEC mesh {name}")
+            same_tree(per_w, per1, f"matrix mesh {name} per workload")
+            for field, a, e in zip(pool._fields, pool, pool1):
+                if field in COUNTS_EXACT:
+                    if not torch.equal(a, e):
+                        raise RuntimeError(f"matrix mesh {name} {field}: "
+                                           "counts differ")
+                else:
+                    torch.testing.assert_close(
+                        a, e, rtol=2e-6, atol=0.0,
+                        msg=lambda msg: f"matrix mesh {name} {field}: {msg}")
+            log(f"[matrix SPEC mesh {name}] per workload bit for bit, "
+                f"pooled at rtol 2e-6 (counts exact) of the unsharded run")
+            runs[f"{name} matrix"] = dict(launches=counts)
+        name = f"logical {MESH_SHARDS}"
+        mesh = meshes[name]
+        shd.set_mesh(mesh)
+        cfg = aapaset_registry.get("aapaset_300k", feature_path="kernel")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        again = aapaset_build.build(cfg)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if counts["window_features"] == 0:
+            raise RuntimeError(f"mesh AAPAset: launches {counts}")
+        for field in ("windows", "features", "labels", "confidence",
+                      "votes", "split"):
+            if not same_bits(getattr(again, field), getattr(built, field)):
+                raise RuntimeError(f"mesh AAPAset: {field} differs from the "
+                                   "unsharded build's bits")
+        log(f"[mesh {name}] AAPAset {cfg.name} built in {build_s:.4f} s "
+            f"({len(again) / build_s:.6g} windows/s), chunks round-robin "
+            f"over {mesh.size} entries; launches {counts}; features, labels,"
+            f" confidence and votes equal the unsharded build's bit for bit")
+        runs["aapaset"] = dict(build_s=build_s, launches=counts)
+    finally:
+        shd.set_mesh(None)
+    # phases 24-25's worker processes share the cards with this process:
+    # hand its cached blocks back first
+    reserved = [torch.cuda.memory_reserved(d)
+                for d in range(torch.cuda.device_count())]
+    torch.cuda.empty_cache()
+    log(f"[mesh] device memory reserved by this process, by card: "
+        f"{reserved} bytes before emptying the cache, "
+        f"{[torch.cuda.memory_reserved(d) for d in range(len(reserved))]} "
+        f"after")
     return runs
 
 
@@ -3199,7 +3372,8 @@ def main() -> int:
                 f"{bnd} ms ({by})")
 
     # ---- 19. the Table IV matrix on the card at three sizes
-    run_matrix(matrix, bench_spec(matrix), cls, "SPEC")
+    spec_pool, spec_per_w, _, _ = run_matrix(matrix, bench_spec(matrix), cls,
+                                             "SPEC")
     run_matrix(matrix, sweep_spec(matrix), cls, "SWEEP_SPEC")
     fleet_pool, _, fleet_counts, fleet_walks = run_matrix(
         matrix, fleet_spec(matrix), cls, "fleet", profile=True,
@@ -3236,8 +3410,15 @@ def main() -> int:
         f"(rtol 2e-6, counts exact), max_abs_err={small_err}")
 
     # ---- 23. fleet runs through evals.fleet
-    del built
     fleet_runs = fleet_phase(tcls, data_loader)
+
+    # ---- 34. the fleet plane over a device mesh
+    mesh_runs = mesh_phase(
+        tcls, fleet_runs["one-dispatch 1e5"]["result"],
+        fleet_runs["stream 1e5"].pop("result"),
+        fleet_runs["one-dispatch 1e5"].pop("rates"),
+        (bench_spec(matrix), spec_pool, spec_per_w), cls, built)
+    del built
 
     # ---- 24-26. telemetry, an obs card and tuning on the card
     telemetry = telemetry_phases(
@@ -3357,22 +3538,27 @@ def main() -> int:
                     for label, row in telemetry["rows"].items()}
     traced_paths.update({"telemetry fleet": telemetry["fleet"]["launches"],
                          "obs card": obs_card["launches"]})
+    mesh_paths = {f"mesh {label}": run["launches"]
+                  for label, run in mesh_runs.items()
+                  if "launches" in run and label != "aapaset"}
     slice_paths = {
         "window_features": {"aapaset build": aapaset_counts,
+                            "mesh aapaset build":
+                                mesh_runs["aapaset"]["launches"],
                             "serving": serving["launches"]},
         "gbdt_tables": {"training": train_counts, **traced_paths,
                         "serving": serving["launches"]},
         "plant_block": traced_paths,
-        "episode_block": {**fleet_paths,
+        "episode_block": {**fleet_paths, **mesh_paths,
                           "tuning grid": tuning_runs["grid"]["launches"],
                           "tuning searches":
                               tuning_runs["search_launches"]},
-        "policy_signals": fleet_paths}
+        "policy_signals": {**fleet_paths, **mesh_paths}}
     for row in kernels:
         if row["name"] in slice_paths:
             row["paths"] = {path: counts[row["name"]] for path, counts in
                             slice_paths[row["name"]].items()}
-    log(f"[chip_smoke] phases 1-33 in {time.perf_counter() - t_start:.1f} "
+    log(f"[chip_smoke] phases 1-34 in {time.perf_counter() - t_start:.1f} "
         f"s, the build included")
     print(json.dumps({"kernels": kernels}))
     print(smi)

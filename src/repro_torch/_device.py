@@ -17,6 +17,14 @@ def resolve(device: str | torch.device) -> torch.device:
     return dev
 
 
+def canonical(device: str | torch.device) -> torch.device:
+    """`device` with its index: a bare ``"cuda"`` is the current card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 @functools.lru_cache(maxsize=None)
 def const(value: float, device: torch.device) -> torch.Tensor:
     """A 0-dim f32 tensor on `device`, cached per (value, device).

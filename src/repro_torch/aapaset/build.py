@@ -7,11 +7,14 @@ functions on the windows' device: on the card the ``window_features``
 kernel (``kernels.ops.extract_features_fused``, all 38 features in one
 launch), on the CPU the plain features (``core.features``). The
 reference pads the tail chunk so that every chunk reuses one XLA
-compilation, puts an ``optimization_barrier`` between the feature and
-the LF stages so that XLA cannot fuse them, and shards the chunk over a
-device mesh. Eager PyTorch compiles nothing per shape, fuses nothing and
-runs on one card, so none of the three is needed here. All math is per
-window, so the chunking changes no row.
+compilation and puts an ``optimization_barrier`` between the feature and
+the LF stages so that XLA cannot fuse them; eager PyTorch compiles
+nothing per shape and fuses nothing, so neither is needed here. The
+reference shards each chunk's windows over a device mesh; under an
+active mesh (``dist.sharding.set_mesh``) the port gives each device
+whole chunks instead, chunk k to device k mod n of the mesh's data axes,
+a round of n chunks queued before their results are read back. All math
+is per window, so neither the chunking nor the placement changes a row.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from repro_torch.core import features as F
 from repro_torch.core import labeling
 from repro_torch.data import windows as W
 from repro_torch.data.azure_synth import generate_traces
+from repro_torch.dist import sharding as shd
 
 DEFAULT_CHUNK = 8192
 SPLIT_NAMES = ("train", "val", "test")
@@ -79,7 +83,9 @@ def featurize_windows(windows: np.ndarray, *, chunk: int = DEFAULT_CHUNK,
     Returns (features [N, 38], labels [N], confidence [N],
     votes [N, N_LFS]) as host arrays. `use_kernel=None` takes the
     ``window_features`` kernel iff `device` is CUDA; ``True`` asks for
-    the kernel and raises on the CPU, which has none."""
+    the kernel and raises on the CPU, which has none. Under an active
+    mesh the chunks run round-robin on its data-axis devices (see the
+    module docstring)."""
     dev = _device.resolve(device)
     if use_kernel is None:
         use_kernel = dev.type == "cuda"
@@ -93,12 +99,17 @@ def featurize_windows(windows: np.ndarray, *, chunk: int = DEFAULT_CHUNK,
     labels = np.empty((N,), np.int32)
     conf = np.empty((N,), np.float32)
     votes = np.empty((N, labeling.N_LFS), np.int8)
-    for lo in range(0, N, chunk):
-        hi = min(lo + chunk, N)
-        wb = torch.as_tensor(windows[lo:hi]).to(dev)
-        out = _build_chunk(wb, use_kernel=use_kernel)
-        for dst, src in zip((feats, labels, conf, votes), out):
-            dst[lo:hi] = src.cpu().numpy()
+    devs = shd.lane_devices() or (dev,)
+    for first in range(0, N, chunk * len(devs)):
+        queued = []
+        for d, lo in zip(devs, range(first, min(first + chunk * len(devs),
+                                                N), chunk)):
+            hi = min(lo + chunk, N)
+            wb = torch.as_tensor(windows[lo:hi]).to(d)
+            queued.append((lo, hi, _build_chunk(wb, use_kernel=use_kernel)))
+        for lo, hi, out in queued:
+            for dst, src in zip((feats, labels, conf, votes), out):
+                dst[lo:hi] = src.cpu().numpy()
     return feats, labels, conf, votes
 
 

@@ -32,6 +32,20 @@ from repro_torch.data import windows as W
 from repro_torch.data.azure_synth import TraceSet
 
 
+def _params_to(p: gbdt.GBDTParams, dev: torch.device) -> gbdt.GBDTParams:
+    """`p` with every tensor, its node tables too, copied to `dev`."""
+    return gbdt.GBDTParams(
+        *(t.to(dev) for t in (p.feat, p.thresh, p.leaf, p.bin_edges,
+                              p.base)),
+        tables=gbdt.NodeTables(*(t.to(dev) for t in p.tables)))
+
+
+def _cal_to(c: calibration.BetaCalibration,
+            dev: torch.device) -> calibration.BetaCalibration:
+    return calibration.BetaCalibration(*(t.to(dev) for t in (
+        c.a_raw, c.b_raw, c.c)))
+
+
 @dataclasses.dataclass(frozen=True)
 class Classify:
     """classify(features [..., F]) -> (class id int32 [...], confidence
@@ -53,6 +67,20 @@ class Classify:
     logits: Callable[[gbdt.GBDTParams, torch.Tensor], torch.Tensor] | None \
         = None
     features: Callable[[torch.Tensor], torch.Tensor] | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.params.device
+
+    def to(self, device) -> "Classify":
+        """This classifier with its ensemble and calibration copied to
+        `device` (itself when they are there): what AAPA and hybrid lanes
+        on that device classify with."""
+        dev = _device.canonical(device)
+        if self.params.device == dev:
+            return self
+        return dataclasses.replace(self, params=_params_to(self.params, dev),
+                                   cal=_cal_to(self.cal, dev))
 
     def classify_windows(self, windows: torch.Tensor):
         from repro_torch.kernels import ops
@@ -85,6 +113,11 @@ class TrainedAAPA:
 
     def make_classify(self) -> Classify:
         return Classify(self.params, self.cal)
+
+    def to(self, device) -> "TrainedAAPA":
+        """This classifier with its tensors copied to `device`."""
+        cls = self.make_classify().to(device)
+        return dataclasses.replace(self, params=cls.params, cal=cls.cal)
 
     def save(self, path: str | pathlib.Path) -> None:
         """Single-file npz round-trip (classifier + calibration + card),

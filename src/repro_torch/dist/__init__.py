@@ -1,1 +1,1 @@
-# Distribution substrate: logical-axis sharding, single device only.
+# Distribution substrate: a device mesh that shards the fleet plane's lanes.

@@ -13,15 +13,26 @@ so peak device memory does not grow with the fleet.
 
 Two execution modes, one chunk body:
 
-* ``make_fleet_runner`` — one dispatch: rates [C, Wc, M] on the device,
-  a loop over the chunks summing their accumulators.
+* ``make_fleet_runner`` — one dispatch: rates [C, Wc, M] materialized
+  on the host, a loop over the chunks (each copied to the device as it
+  runs) summing their accumulators.
 * ``make_chunk_folder`` — streaming: an (accum, chunk) -> accum fold,
   driven by a host generator (``rate_chunks`` here or
   ``aapaset.AAPAsetLoader.rate_chunks``). Rates never exist beyond one
   chunk — the 10^6-lane mode.
 
-Both fold the same chunk accumulators in the same order. There is no
-device mesh: one card runs every lane (``meta["n_devices"]`` is 1).
+Both fold the same chunk accumulators in the same order.
+
+Under an active device mesh (``dist.sharding.set_mesh``) chunk c runs on
+device c mod n of the mesh's data axes (``dist.sharding.lane_devices``),
+whole: every launch keeps its unsharded shape, and AAPA and hybrid lanes
+classify with a copy of the classifier on their device. In both modes
+the host feeds the chunks in order, each copied to its device from
+pinned memory on a side stream so that the copy overlaps the chunks
+running there and on the other devices; a device holds only its own
+chunks' rates, one or two at a time. Each chunk's [P] accumulator is
+copied to the mesh's first device and they sum there in chunk order, so
+the pooled metrics and REI are the unsharded run's bit for bit.
 ``FleetSpec.trace_lanes > 0`` captures the decision trace of that many
 sampled lanes per chunk in the one-dispatch mode: the chunks then run the
 traced blocked episode (``matrix._lane_runner(telemetry=True)``: eager
@@ -32,7 +43,8 @@ per control period whatever the lane count, so it advances all C chunks
 as the cells of one episode per policy (C times fewer launches) and keeps
 the whole fleet's per-minute outputs on the device, C times a chunk's;
 each chunk's accumulators still fold from its own lanes and sum in chunk
-order, so the pooled metrics are those of a chunk-by-chunk run. The
+order, so the pooled metrics are those of a chunk-by-chunk run (under
+a mesh each device advances its chunks as the cells of its episode). The
 stream refuses the trace, as in the reference. ``run_fleet`` wraps
 either mode with throughput, host-generation time, peak host and device
 memory and the pooled REI.
@@ -40,6 +52,7 @@ memory and the pooled REI.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import resource
 import time
 from typing import Any, Iterator, NamedTuple, Sequence
@@ -48,11 +61,12 @@ import numpy as np
 import torch
 
 from repro_torch import _device
+from repro_torch.dist import sharding as shd
 from repro_torch.evals import metrics as EM
 from repro_torch.evals import rei as ER
 from repro_torch.evals.matrix import _lane_runner
 from repro_torch.obs import trace as obs_trace
-from repro_torch.scaling import registry, scenarios
+from repro_torch.scaling import policies, registry, scenarios
 from repro_torch.sim.cluster import SimConfig
 
 
@@ -138,30 +152,54 @@ def build_rates(spec_: FleetSpec) -> np.ndarray:
     return np.stack([chunk_rates(spec_, c) for c in range(spec_.n_chunks)])
 
 
+def _controllers_on(spec_: FleetSpec, classify, dev) -> list:
+    """`controllers`, each as lanes on `dev` run it (an AAPA or hybrid
+    classifier copied there once, ``policies.on_device``)."""
+    cfg = spec_.sim_config()
+    return [policies.on_device(c, cfg, dev)
+            for c in controllers(spec_, classify)]
+
+
 def _chunk_body(spec_: FleetSpec, classify, dev):
     """rates [Wc, M] on `dev` -> the chunk's pooled MetricAccum [P]."""
     cfg = spec_.sim_config()
     edges = EM.response_edges(spec_.bins, cfg.resp_cap_sec, device=dev)
-    lanes = _lane_runner(controllers(spec_, classify), cfg, edges,
+    lanes = _lane_runner(_controllers_on(spec_, classify, dev), cfg, edges,
                          per_workload=False)
     return lambda chunk: EM.MetricAccum(*(a[:, 0]
                                           for a in lanes(chunk[None])))
 
 
 def _add(acc: EM.MetricAccum, part: EM.MetricAccum) -> EM.MetricAccum:
-    return EM.MetricAccum(*(a + b for a, b in zip(acc, part)))
+    return EM.MetricAccum(*(a + b.to(a.device) for a, b in zip(acc, part)))
 
 
 def _acc0(spec_: FleetSpec, dev) -> EM.MetricAccum:
     return EM.accum_init(spec_.bins, (len(spec_.policies),), device=dev)
 
 
+def _chunk_devices(dev) -> tuple[torch.device, ...]:
+    """Where the chunks run, round-robin: the active mesh's data-axis
+    devices, or `dev` alone."""
+    return shd.lane_devices() or (_device.canonical(dev),)
+
+
+def _per_device(make, devices):
+    """`make(device)` once per distinct device, in a list by position."""
+    made = {}
+    for d in devices:
+        if d not in made:
+            made[d] = make(d)
+    return [made[d] for d in devices]
+
+
 def make_fleet_runner(spec_: FleetSpec, classify=None, *,
                       donate: bool = True, device="cuda"):
-    """rates [C, Wc, M] -> pooled MetricAccum of [P] leaves on `device`,
-    one call: the chunks run in order and their accumulators sum.
-    `donate` is the reference's (it donates the rates buffer to XLA) and
-    does nothing here.
+    """rates [C, Wc, M] -> pooled MetricAccum of [P] leaves on `device`
+    (under a mesh: its first device), one call: the chunks run in order,
+    round-robin over the mesh's devices, and their accumulators sum in
+    chunk order. `donate` is the reference's (it donates the rates buffer
+    to XLA) and does nothing here.
 
     With ``spec_.trace_lanes > 0`` the runner returns ``(accum,
     ControlTrace)``: K sampled lanes per chunk, decisions leaves
@@ -170,13 +208,15 @@ def make_fleet_runner(spec_: FleetSpec, classify=None, *,
     dev = _device.resolve(device)
     if spec_.trace_lanes > 0:
         return _traced_runner(spec_, classify, dev)
-    body = _chunk_body(spec_, classify, dev)
 
     def run(rates) -> EM.MetricAccum:
-        rates = torch.as_tensor(rates).to(device=dev, dtype=torch.float32)
-        acc = _acc0(spec_, dev)
-        for chunk in rates:
-            acc = _add(acc, body(chunk))
+        devs = _chunk_devices(dev)
+        bodies = _per_device(lambda d: _chunk_body(spec_, classify, d), devs)
+        rates = torch.as_tensor(rates, dtype=torch.float32)
+        acc = _acc0(spec_, devs[0])
+        for c in range(rates.shape[0]):
+            k = c % len(devs)
+            acc = _add(acc, bodies[k](_upload(rates[c], devs[k])))
         return acc
 
     return run
@@ -185,35 +225,82 @@ def make_fleet_runner(spec_: FleetSpec, classify=None, *,
 def _traced_runner(spec_: FleetSpec, classify, dev):
     """rates [C, Wc, M] -> (pooled MetricAccum [P], ControlTrace with
     decisions [C, M, H, P, K]): the chunks as the cells of one traced
-    episode per policy (see the module docstring), their pooled
-    accumulators summed in chunk order."""
+    episode per policy (see the module docstring), on each device of a
+    mesh those of its chunks; their pooled accumulators summed in chunk
+    order on the first device, the trace in chunk order there."""
     cfg = spec_.sim_config()
-    edges = EM.response_edges(spec_.bins, cfg.resp_cap_sec, device=dev)
-    lanes = _lane_runner(controllers(spec_, classify), cfg, edges,
-                         per_workload=False, telemetry=True,
-                         trace_lanes=spec_.trace_lanes)
+
+    def make(d):
+        edges = EM.response_edges(spec_.bins, cfg.resp_cap_sec, device=d)
+        return _lane_runner(_controllers_on(spec_, classify, d), cfg,
+                            edges, per_workload=False, telemetry=True,
+                            trace_lanes=spec_.trace_lanes)
 
     def run(rates):
-        rates = torch.as_tensor(rates).to(device=dev, dtype=torch.float32)
-        per_chunk, ct = lanes(rates)                  # accums [P, C]
-        acc = _acc0(spec_, dev)
-        for c in range(rates.shape[0]):
-            acc = _add(acc, EM.MetricAccum(*(a[:, c] for a in per_chunk)))
-        return acc, ct
+        devs = _chunk_devices(dev)
+        n = len(devs)
+        rates = torch.as_tensor(rates, dtype=torch.float32)
+        outs = [lanes(rates[s::n].to(d)) for s, (d, lanes) in enumerate(
+            zip(devs, _per_device(make, devs))) if s < rates.shape[0]]
+        acc = _acc0(spec_, devs[0])
+        for c in range(rates.shape[0]):              # accums [P, C_s]
+            acc = _add(acc, EM.MetricAccum(*(
+                a[:, c // n] for a in outs[c % n][0])))
+
+        def chunk_order(leaves):
+            return type(leaves[0])(*(
+                torch.stack([parts[c % n][c // n].to(devs[0])
+                             for c in range(rates.shape[0])])
+                for parts in zip(*leaves)))
+        cts = [out[1] for out in outs]
+        return acc, obs_trace.ControlTrace(
+            decisions=chunk_order([ct.decisions for ct in cts]),
+            minutes=chunk_order([ct.minutes for ct in cts]))
 
     return run
 
 
+@functools.cache
+def _copy_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The side stream that chunks are copied to `dev` on, one a card for
+    the process: the caching allocator keeps a freed block for the stream
+    it was allocated on, so one stream reuses the chunks' blocks from call
+    to call where a new stream a call would hold on to them."""
+    return torch.cuda.Stream(dev)
+
+
+def _upload(chunk, dev: torch.device) -> torch.Tensor:
+    """A host chunk on `dev`. On a card the copy runs from pinned memory
+    on a side stream, so that it overlaps the kernels already queued there;
+    the card's stream waits for it before using it."""
+    x = torch.as_tensor(chunk, dtype=torch.float32)
+    if dev.type != "cuda" or x.device.type != "cpu":
+        return x.to(dev)
+    side = _copy_stream(dev)
+    host = x.pin_memory()
+    with torch.cuda.stream(side):
+        y = host.to(dev, non_blocking=True)
+    main = torch.cuda.current_stream(dev)
+    main.wait_stream(side)
+    y.record_stream(main)
+    return y
+
+
 def make_chunk_folder(spec_: FleetSpec, classify=None, *, device="cuda"):
     """(MetricAccum [P], rates [Wc, M]) -> MetricAccum [P]: the streaming
-    fold for generator-fed fleets. Memory is one chunk of rates plus one
-    O(P * bins) accumulator, so W is bounded by wall clock."""
-    dev = _device.resolve(device)
-    body = _chunk_body(spec_, classify, dev)
+    fold for generator-fed fleets. Memory is one chunk of rates (two
+    while the next is copied) plus one O(P * bins) accumulator, so W is
+    bounded by wall clock. Under a mesh the k-th call's chunk runs on
+    device k mod n of its data axes and the accumulator stays on the
+    first."""
+    devs = _chunk_devices(_device.resolve(device))
+    bodies = _per_device(lambda d: _chunk_body(spec_, classify, d), devs)
+    calls = [0]
 
     def fold(acc: EM.MetricAccum, chunk) -> EM.MetricAccum:
-        return _add(acc, body(torch.as_tensor(chunk).to(
-            device=dev, dtype=torch.float32)))
+        k = calls[0] % len(devs)
+        calls[0] += 1
+        return _add(acc, bodies[k](_upload(chunk, devs[k])))
 
     return fold
 
@@ -254,7 +341,9 @@ def run_fleet(spec_: FleetSpec, *, classify=None, stream: bool = False,
     """Evaluate the fleet on `device`; returns pooled metrics + REI +
     throughput.
 
-    `stream=False`: one call over the materialized [C, Wc, M] rates.
+    `stream=False`: one call over the materialized [C, Wc, M] rates
+    (`build_rates(spec_)`, or `chunks` stacked: an array of that shape,
+    or the spec's C chunks of [Wc, M]).
     `stream=True`: a loop over `chunks` (default `rate_chunks(spec_)`)
     through the fold — pass a loader-backed generator
     (`AAPAsetLoader.rate_chunks`) to run real traces instead of synthetic
@@ -263,24 +352,32 @@ def run_fleet(spec_: FleetSpec, *, classify=None, stream: bool = False,
     seconds spent generating rates: `build_rates` before a one-dispatch
     call, the generator inside a stream), `gen_share` (that over the
     run's elapsed time) and `peak_device_bytes` (the run's
-    ``torch.cuda.max_memory_allocated``; None on the CPU). With
-    ``spec_.trace_lanes > 0`` the result's `trace` is the sampled lanes'
-    ControlTrace (numpy; decisions [C, M, H, P, K]); the stream refuses
-    it."""
+    ``torch.cuda.max_memory_allocated``, the largest of the cards' under
+    a mesh; None on the CPU). `mesh` is the active mesh's shape (None
+    without one) and `n_devices` the number of distinct devices the chunks
+    ran on. With ``spec_.trace_lanes > 0`` the result's `trace` is the
+    sampled lanes' ControlTrace (numpy; decisions [C, M, H, P, K]); the
+    stream refuses it."""
     telemetry = spec_.trace_lanes > 0
     if telemetry and stream:
         raise ValueError("trace_lanes requires the one-dispatch mode; "
                          "the streaming fold keeps only the accumulator "
                          "(set stream=False)")
     dev = _device.resolve(device)
+    devs = _chunk_devices(dev)
+    cards = sorted({d for d in devs if d.type == "cuda"}, key=str)
     cfg = spec_.sim_config()
-    edges = EM.response_edges(spec_.bins, cfg.resp_cap_sec, device=dev)
+    edges = EM.response_edges(spec_.bins, cfg.resp_cap_sec, device=devs[0])
     P = len(spec_.policies)
-    cuda = dev.type == "cuda"
+    rules = shd.active()
 
     def sync():
-        if cuda:
-            torch.cuda.synchronize(dev)
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    def reset_peaks():
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
 
     t_build = time.perf_counter()
     ct = None
@@ -288,9 +385,8 @@ def run_fleet(spec_: FleetSpec, *, classify=None, stream: bool = False,
         fold = make_chunk_folder(spec_, classify, device=dev)
         feed, spent = _timed(rate_chunks(spec_) if chunks is None
                              else chunks)
-        acc = _acc0(spec_, dev)
-        if cuda:
-            torch.cuda.reset_peak_memory_stats(dev)
+        acc = _acc0(spec_, devs[0])
+        reset_peaks()
         sync()
         t0 = time.perf_counter()
         n_chunks = 0
@@ -302,19 +398,27 @@ def run_fleet(spec_: FleetSpec, *, classify=None, stream: bool = False,
         dispatches = n_chunks
         gen_s = spent[0]
     else:
-        rates = build_rates(spec_)
+        if chunks is None:
+            rates = build_rates(spec_)
+        else:
+            rates = np.asarray(chunks if isinstance(chunks, np.ndarray)
+                               else np.stack(list(chunks)), np.float32)
+            want = (spec_.n_chunks, spec_.w_chunk, spec_.minutes)
+            if rates.shape != want:
+                raise ValueError(f"chunks stack to {rates.shape}; the "
+                                 f"one-dispatch run takes {want}")
         gen_s = time.perf_counter() - t_build
         run = make_fleet_runner(spec_, classify, device=dev)
         if warmup:
             run(rates)
-        if cuda:
-            torch.cuda.reset_peak_memory_stats(dev)
+        reset_peaks()
         sync()
         t0 = time.perf_counter()
         out = run(rates)
         sync()
         acc, ct = out if telemetry else (out, None)
         W, dispatches = spec_.n_workloads, 1
+        n_chunks = spec_.n_chunks
     wall = time.perf_counter() - t0
     pooled = EM.finalize(acc, edges)
     rei_b = ER.rei(pooled.slo_violation_rate, pooled.replica_minutes,
@@ -330,9 +434,10 @@ def run_fleet(spec_: FleetSpec, *, classify=None, stream: bool = False,
         "minutes_per_sec": W * spec_.minutes / max(wall, 1e-9),
         "gen_s": gen_s, "gen_share": gen_s / max(elapsed, 1e-9),
         "peak_rss_mb": _peak_rss_mb(),
-        "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
-                              if cuda else None),
-        "n_devices": 1, "mesh": None}
+        "peak_device_bytes": (max(torch.cuda.max_memory_allocated(d)
+                                  for d in cards) if cards else None),
+        "n_devices": len(set(devs[:max(n_chunks, 1)])),
+        "mesh": None if rules is None else dict(rules.mesh.shape)}
 
     def host(tree):
         return type(tree)(*(a.cpu().numpy() for a in tree))

@@ -30,13 +30,26 @@ Policies that take no forecaster ignore the forecaster axis: lane (f, p)
 repeats the same controller for every f, which keeps the result dense;
 the runner runs such a controller once and repeats its cells.
 
+Under an active device mesh (``dist.sharding.set_mesh``) and with
+`shard` (the default) the workload axis of the rates [S, Z, W, M] splits
+into contiguous slices over the mesh's data axes
+(``dist.sharding.lane_sharding``, `w_axis` 2): each device runs its slice
+of every cell with the controllers placed there
+(``scaling.policies.on_device``). Per-workload accumulators come back to
+the mesh's first device in lane order, bit for bit those of the
+unsharded run; pooled ones are each device's fold of its lanes, summed
+on the first device in shard order (another order of the same sums: the
+reference's pooling tolerance). A W the data axes do not divide runs
+whole on the first device (the reference replicates it).
+
 With ``telemetry=True`` each controller lane runs its episodes through
 the blocked loop with the decision trace instead
 (``sim.cluster.run_traced``: eager `decide` at every control-period head,
 ``plant_block`` for the decision-free ticks on the card), all [S, Z, W]
 lanes in one episode, `trace_lanes` of each cell's W lanes traced. Its
 `MinuteOut` is the plain episode's bit for bit on the CPU, and the fused
-kernel's at the episode tolerance on the card.
+kernel's at the episode tolerance on the card. The traced path runs on
+one device: under a mesh it needs ``shard=False``.
 """
 from __future__ import annotations
 
@@ -47,10 +60,11 @@ import numpy as np
 import torch
 
 from repro_torch import _device
+from repro_torch.dist import sharding as shd
 from repro_torch.evals import metrics as EM
 from repro_torch.evals import rei as ER
 from repro_torch.obs import trace as obs_trace
-from repro_torch.scaling import batch, registry, scenarios
+from repro_torch.scaling import batch, policies, registry, scenarios
 from repro_torch.sim import cluster
 from repro_torch.sim.cluster import MinuteOut, SimConfig
 
@@ -175,7 +189,7 @@ def _stack(accs: list[EM.MetricAccum]) -> EM.MetricAccum:
 
 def _lane_runner(ctrls, cfg, edges, *, per_workload: bool = True,
                  w_chunk: int | None = None, telemetry: bool = False,
-                 trace_lanes: int | None = None):
+                 trace_lanes: int | None = None, shard: bool = False):
     """rates [G, W, M] (G independent cells of W workloads) ->
     MetricAccum of [L, G, W] leaves (hist [L, G, W, bins]), or with
     ``per_workload=False`` of [L, G] leaves pooled over W. Each of the L
@@ -183,6 +197,10 @@ def _lane_runner(ctrls, cfg, edges, *, per_workload: bool = True,
     (``kernels.ops.episode_block``); each chunk's outputs fold into the
     accumulators before the next chunk runs. The shared core of the
     matrix runner and the controller evaluator.
+
+    With `shard` under an active mesh the W axis splits over the mesh
+    (see the module docstring; `w_chunk` then applies within each
+    device's slice) and the accumulators land on its first device.
 
     ``telemetry=True`` runs each controller's G * W lanes in one traced
     blocked episode (`w_chunk` must be None) and returns ``(accums,
@@ -193,38 +211,55 @@ def _lane_runner(ctrls, cfg, edges, *, per_workload: bool = True,
     from repro_torch.kernels import ops
     bins = edges.shape[0]
 
-    def fold_pooled(acc, m):
-        return EM.accum_update_pooled(
-            acc, MinuteOut(*(f.reshape(-1) for f in m)), edges)
-
-    def lanes(rates: torch.Tensor) -> EM.MetricAccum:
+    def lanes_on(rates: torch.Tensor) -> EM.MetricAccum:
+        """[G, W, M] on one device -> the accumulators there."""
         G, W, M = rates.shape
+        dev = rates.device
+        on = [policies.on_device(ctrl, cfg, dev) for ctrl in ctrls]
+        e = edges.to(dev)
         if per_workload:
             flat = rates.reshape(G * W, M)
             out = []
-            for ctrl in ctrls:
+            for ctrl in on:
                 parts = [EM._accum(ops.episode_block(
-                    flat[sl].contiguous(), ctrl, cfg), bins, edges)
+                    flat[sl].contiguous(), ctrl, cfg), bins, e)
                     for sl in batch.chunks(G * W, w_chunk)]
                 out.append(EM.MetricAccum(*(
                     torch.cat(f).reshape((G, W) + f[0].shape[1:])
                     for f in zip(*parts))))
             return _stack(out)
         out = []
-        for ctrl in ctrls:
+        for ctrl in on:
             cells = []
             for g in range(G):
-                acc = EM.accum_init(bins, device=rates.device)
+                acc = EM.accum_init(bins, device=dev)
                 for sl in batch.chunks(W, w_chunk):
                     m = ops.episode_block(rates[g, sl].contiguous(), ctrl,
                                           cfg)
-                    acc = fold_pooled(acc, m)
+                    acc = EM.accum_update_pooled(
+                        acc, MinuteOut(*(f.reshape(-1) for f in m)), e)
                     del m
                 cells.append(acc)
             out.append(_stack(cells))
         return _stack(out)
 
+    def lanes(rates: torch.Tensor) -> EM.MetricAccum:
+        sh = batch.lanes_sharding(rates.shape, 1, shard, False)
+        if sh is None:
+            return lanes_on(rates)
+        parts = [lanes_on(x) for x in shd.scatter(rates, sh)]
+        first = sh.devices[0]
+        if per_workload:                       # leaves [L, G, W, ...]
+            return EM.MetricAccum(*(shd.gather(f, 2, first)
+                                    for f in zip(*parts)))
+        acc = EM.MetricAccum(*(a.to(first) for a in parts[0]))
+        for part in parts[1:]:
+            acc = EM.MetricAccum(*(a + b.to(first)
+                                   for a, b in zip(acc, part)))
+        return acc
+
     def traced(rates: torch.Tensor):
+        batch.lanes_sharding(rates.shape, 1, shard, True)
         G, W, M = rates.shape
         dev = rates.device
         idx = batch.trace_index(W, trace_lanes, dev)
@@ -285,15 +320,18 @@ def make_runner(spec_: MatrixSpec, classify=None, *,
     (accumulators O(bins) per cell, independent of W) and returns
     ``(pooled, None)``: the fleet-scale mode. `w_chunk` workloads run per
     episode call (per-workload mode: of the flattened S * Z * W lanes;
-    pooled mode: of each cell's W, which it must divide). `shard` and
-    `donate` are the reference's and do nothing on one card.
+    pooled mode: of each cell's W, which it must divide; under a mesh,
+    of each device's slice). With `shard` under an active mesh the
+    workload axis shards over it (see the module docstring) and the
+    results land on the mesh's first device. `donate` is the
+    reference's and does nothing.
 
     ``telemetry=True`` runs the traced blocked episodes (see the module
     docstring; `w_chunk` must be None) and returns a 3-tuple ``(pooled,
     per_workload, ControlTrace)`` with decisions leaves [S, Z, M, H, F,
     P, K] and minutes leaves [S, Z, M, F, P, K] (K = `trace_lanes`
     sampled workloads, all when None)."""
-    del shard, donate
+    del donate
     dev = _device.resolve(device)
     cfg = spec_.sim_config()
     S, Z, F, P = spec_.shape
@@ -306,8 +344,9 @@ def make_runner(spec_: MatrixSpec, classify=None, *,
     edges = EM.response_edges(spec_.bins, cfg.resp_cap_sec, device=dev)
     lanes = _lane_runner([ctrls[lane] for lane in runs], cfg, edges,
                          per_workload=per_workload, w_chunk=w_chunk,
-                         telemetry=telemetry, trace_lanes=trace_lanes)
-    pick = torch.tensor([runs.index(lane) for lane in source], device=dev)
+                         telemetry=telemetry, trace_lanes=trace_lanes,
+                         shard=shard)
+    pick = [runs.index(lane) for lane in source]
 
     def cells(a: torch.Tensor) -> torch.Tensor:
         """[runs, S * Z, ...] -> [S, Z, F, P, ...]"""
@@ -316,18 +355,21 @@ def make_runner(spec_: MatrixSpec, classify=None, *,
 
     def trace_cells(a: torch.Tensor, axis: int) -> torch.Tensor:
         """[S * Z, ..., runs (at `axis`), K] -> [S, Z, ..., F, P, K]"""
-        a = a.index_select(axis, pick)
+        a = a.index_select(axis, torch.tensor(pick, device=a.device))
         return a.reshape((S, Z) + a.shape[1:axis] + (F, P)
                          + a.shape[axis + 1:])
 
     def run_fn(rates):
-        rates = torch.as_tensor(rates).to(device=dev, dtype=torch.float32)
-        if tuple(rates.shape[:2]) != (S, Z):
+        rates = torch.as_tensor(rates, dtype=torch.float32)
+        if rates.dim() != 4 or tuple(rates.shape[:2]) != (S, Z):
             raise ValueError(f"rates {tuple(rates.shape)}: expected "
                              f"[{S}, {Z}, W, M]")
+        if batch.lanes_sharding(rates.shape, 2, shard, telemetry) is None:
+            rates = rates.to(dev)
         out = lanes(rates.reshape((S * Z,) + rates.shape[2:]))
         accs, ct = out if telemetry else (out, None)
         accs = EM.MetricAccum(*(cells(a) for a in accs))
+        edges_out = edges.to(accs.served.device)
         if telemetry:
             ct = obs_trace.ControlTrace(
                 decisions=type(ct.decisions)(*(
@@ -335,11 +377,11 @@ def make_runner(spec_: MatrixSpec, classify=None, *,
                 minutes=type(ct.minutes)(*(
                     trace_cells(a, 2) for a in ct.minutes)))
         if not per_workload:
-            pool, per_w = EM.finalize(accs, edges), None
+            pool, per_w = EM.finalize(accs, edges_out), None
         else:
-            per_w = EM.finalize(accs, edges)
+            per_w = EM.finalize(accs, edges_out)
             pool = EM.finalize(EM.MetricAccum(*(
-                a.sum(4) for a in accs)), edges)
+                a.sum(4) for a in accs)), edges_out)
         return (pool, per_w, ct) if telemetry else (pool, per_w)
 
     return run_fn
@@ -357,26 +399,29 @@ def make_controller_evaluator(ctrls: Sequence,
     per-workload [P, W]); with ``per_workload=False`` the workload axis
     pools chunk by chunk and the result is ``(pooled [P], None)``.
     ``telemetry=True`` appends the ControlTrace (decisions leaves
-    [M, H, P, K], minutes [M, P, K]) as a third element."""
-    del shard
+    [M, H, P, K], minutes [M, P, K]) as a third element. `shard`: as
+    `make_runner`'s, the workload axis of rates [W, M]."""
     dev = _device.resolve(device)
     edges = EM.response_edges(bins, cfg.resp_cap_sec, device=dev)
     lanes = _lane_runner(list(ctrls), cfg, edges,
                          per_workload=per_workload, w_chunk=w_chunk,
-                         telemetry=telemetry, trace_lanes=trace_lanes)
+                         telemetry=telemetry, trace_lanes=trace_lanes,
+                         shard=shard)
 
     def run_fn(rates_w):
-        rates_w = torch.as_tensor(rates_w).to(device=dev,
-                                              dtype=torch.float32)
+        rates_w = torch.as_tensor(rates_w, dtype=torch.float32)
+        if batch.lanes_sharding(rates_w.shape, 0, shard, telemetry) is None:
+            rates_w = rates_w.to(dev)
         out = lanes(rates_w[None])
         accs, ct = out if telemetry else (out, None)
         accs = EM.MetricAccum(*(a[:, 0] for a in accs))
+        edges_out = edges.to(accs.served.device)
         if not per_workload:
-            pool, per_w = EM.finalize(accs, edges), None
+            pool, per_w = EM.finalize(accs, edges_out), None
         else:
             pool = EM.finalize(EM.MetricAccum(*(a.sum(1) for a in accs)),
-                               edges)
-            per_w = EM.finalize(accs, edges)
+                               edges_out)
+            per_w = EM.finalize(accs, edges_out)
         if not telemetry:
             return pool, per_w
         return pool, per_w, obs_trace.ControlTrace(

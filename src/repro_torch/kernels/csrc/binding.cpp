@@ -71,9 +71,19 @@ Message compose(const Args&... args) {
 
 namespace {
 
-void check(const torch::Tensor& t, const char* name,
-           const std::vector<int64_t>& shape) {
+// Every tensor an entry hands to its kernels lies on the device the entry
+// guards (dev, that of its first tensor): a tensor on another card would
+// be read through a pointer the kernel cannot follow.
+void on_device(const torch::Tensor& t, const char* name,
+               const c10::Device& dev) {
   REQUIRE(t.is_cuda(), name, " must be a CUDA tensor");
+  REQUIRE(t.device() == dev, name, " is on cuda:", t.get_device(),
+          ", the launch's device is cuda:", dev.index());
+}
+
+void check(const torch::Tensor& t, const char* name,
+           const std::vector<int64_t>& shape, const c10::Device& dev) {
+  on_device(t, name, dev);
   REQUIRE(t.scalar_type() == torch::kFloat32, name, " must be float32");
   REQUIRE(t.is_contiguous(), name, " must be contiguous");
   REQUIRE(t.sizes() == c10::IntArrayRef(shape), name, " has shape ",
@@ -81,8 +91,8 @@ void check(const torch::Tensor& t, const char* name,
 }
 
 void check_i32(const torch::Tensor& t, const char* name,
-               const std::vector<int64_t>& shape) {
-  REQUIRE(t.is_cuda(), name, " must be a CUDA tensor");
+               const std::vector<int64_t>& shape, const c10::Device& dev) {
+  on_device(t, name, dev);
   REQUIRE(t.scalar_type() == torch::kInt32, name, " must be int32");
   REQUIRE(t.is_contiguous(), name, " must be contiguous");
   REQUIRE(t.sizes() == c10::IntArrayRef(shape), name, " has shape ",
@@ -117,11 +127,12 @@ void plant_block(std::vector<torch::Tensor> state, torch::Tensor pipeline,
   const int64_t B = pipeline.size(0), S = pipeline.size(1);
   const int64_t T = ticks.size(1);
   REQUIRE(B > 0 && S > 0 && T > 0, "empty plant block");
-  for (auto& t : state) check(t, "plant state", {B});
-  for (auto& t : state_out) check(t, "plant state output", {B});
-  check(pipeline, "pipeline", {B, S});
-  check(pipeline_out, "pipeline_out", {B, S});
-  check(ticks, "ticks", {7, T, B});
+  const c10::Device dev = pipeline.device();
+  for (auto& t : state) check(t, "plant state", {B}, dev);
+  for (auto& t : state_out) check(t, "plant state output", {B}, dev);
+  check(pipeline, "pipeline", {B, S}, dev);
+  check(pipeline_out, "pipeline_out", {B, S}, dev);
+  check(ticks, "ticks", {7, T, B}, dev);
   REQUIRE(variant >= repro_torch::kPlantStaged &&
               variant <= repro_torch::kPlantEmpty,
           "plant_block has no variant ", variant);
@@ -134,7 +145,7 @@ void plant_block(std::vector<torch::Tensor> state, torch::Tensor pipeline,
           "plant_block stages 1 to min(S, T) ticks a chunk, at most ",
           repro_torch::kPlantPopFloats, " floats a block; got ", chunk,
           " ticks of ", lanes, " lanes");
-  const c10::cuda::CUDAGuard guard(pipeline.device());
+  const c10::cuda::CUDAGuard guard(dev);
   repro_torch::plant_block_launch(
       in(state[0]), in(pipeline), in(state[1]), in(state[2]), in(state[3]),
       in(state[4]), in(state[5]), in(state[6]), out(state_out[0]),
@@ -154,7 +165,8 @@ repro_torch::GBDTTables gbdt_tables(const torch::Tensor& edges,
                                     const torch::Tensor& feat,
                                     const torch::Tensor& thresh,
                                     const torch::Tensor& leaf,
-                                    const torch::Tensor& base) {
+                                    const torch::Tensor& base,
+                                    const c10::Device& dev) {
   REQUIRE(edges.dim() == 2 && feat.dim() == 2 && leaf.dim() == 2 &&
               base.dim() == 1,
           "GBDT tables: edges, feat, thresh, leaf 2-d, base 1-d");
@@ -167,11 +179,11 @@ repro_torch::GBDTTables gbdt_tables(const torch::Tensor& edges,
               T % K == 0 && T / K <= 1024 && L <= 4096,
           "GBDT tables: 1-64 features, 1-16 classes, at most 1024 "
           "rounds and depth 12");
-  check(edges, "edges", {F, E});
-  check_i32(feat, "feat", {T, I});
-  check_i32(thresh, "thresh", {T, I});
-  check(leaf, "leaf", {T, L});
-  check(base, "base", {K});
+  check(edges, "edges", {F, E}, dev);
+  check_i32(feat, "feat", {T, I}, dev);
+  check_i32(thresh, "thresh", {T, I}, dev);
+  check(leaf, "leaf", {T, L}, dev);
+  check(base, "base", {K}, dev);
   int depth = 0;
   while ((int64_t{1} << depth) < L) ++depth;
   return {in(edges), feat.data_ptr<int>(), thresh.data_ptr<int>(), in(leaf),
@@ -184,14 +196,14 @@ repro_torch::GBDTTables gbdt_tables(const torch::Tensor& edges,
 repro_torch::FreqTables freq_tables(const torch::Tensor& tw,
                                     const std::vector<int64_t>& plan,
                                     int64_t W, double inv_log_nb,
-                                    double inv_nb) {
+                                    double inv_nb, const c10::Device& dev) {
   const int64_t n_pass = static_cast<int64_t>(plan.size()) / 4;
   REQUIRE(plan.size() % 4 == 0 && n_pass >= 1 &&
               n_pass <= repro_torch::kMaxFftPasses,
           "FFT plan: 1 to ", repro_torch::kMaxFftPasses,
           " passes of (ip, l1, ido, offset)");
   REQUIRE(tw.dim() == 1, "FFT twiddles must be 1-d");
-  check(tw, "twiddles", {tw.size(0)});
+  check(tw, "twiddles", {tw.size(0)}, dev);
   repro_torch::FreqTables f{};
   f.tw = in(tw);
   f.n_pass = static_cast<int>(n_pass);
@@ -256,13 +268,14 @@ void window_features(torch::Tensor windows, torch::Tensor out_,
           "window_features takes 1 to 2^31 - 1 windows of 3 (4 with the "
           "frequency features) to ", repro_torch::kMaxWideWindow,
           " samples");
-  check(windows, "windows", {N, W});
-  check(out_, "out", {N, freq ? 38 : 28});
+  const c10::Device dev = windows.device();
+  check(windows, "windows", {N, W}, dev);
+  check(out_, "out", {N, freq ? 38 : 28}, dev);
   repro_torch::FreqTables tab{};
-  if (freq) tab = freq_tables(tw, plan, W, inv_log_nb, inv_nb);
+  if (freq) tab = freq_tables(tw, plan, W, inv_log_nb, inv_nb, dev);
   const repro_torch::WfVariant v = wf_variant(variant, W, freq ? &tab
                                                                : nullptr);
-  const c10::cuda::CUDAGuard guard(windows.device());
+  const c10::cuda::CUDAGuard guard(dev);
   repro_torch::window_features_launch(in(windows), out(out_),
                                       static_cast<int>(N),
                                       static_cast<int>(W),
@@ -276,18 +289,20 @@ void window_features(torch::Tensor windows, torch::Tensor out_,
 void gbdt_logits(torch::Tensor X, torch::Tensor out_, torch::Tensor edges,
                  torch::Tensor feat, torch::Tensor thresh, torch::Tensor leaf,
                  torch::Tensor base, bool shared) {
+  REQUIRE(X.is_cuda(), "X must be a CUDA tensor");
+  const c10::Device dev = X.device();
   const repro_torch::GBDTTables g = gbdt_tables(edges, feat, thresh, leaf,
-                                                base);
+                                                base, dev);
   REQUIRE(X.dim() == 2 && X.size(0) > 0, "X must be [N, F], N >= 1");
   const int64_t N = X.size(0);
-  check(X, "X", {N, g.n_features});
-  check(out_, "out", {N, g.n_classes});
+  check(X, "X", {N, g.n_features}, dev);
+  check(out_, "out", {N, g.n_classes}, dev);
   const size_t table_bytes =
       repro_torch::gbdt_shared_table_bytes(g.n_trees, g.depth);
   REQUIRE(!shared || table_bytes <= repro_torch::kGBDTSharedTableMax,
           "gbdt_tables keeps node tables in shared memory only up to ",
           repro_torch::kGBDTSharedTableMax, " bytes, got ", table_bytes);
-  const c10::cuda::CUDAGuard guard(X.device());
+  const c10::cuda::CUDAGuard guard(dev);
   repro_torch::gbdt_tables_launch(in(X), out(out_), static_cast<int>(N), g,
                                   shared, at::cuda::getCurrentCUDAStream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
@@ -320,8 +335,9 @@ repro_torch::EpisodeCfg episode_cfg(const torch::Tensor& rates,
   const int64_t B = rates.size(0), M = rates.size(1);
   REQUIRE(B > 0 && M > 0 && S > 0, "empty episode block");
   REQUIRE(ci >= 1 && ci <= 60, "control interval must be in [1, 60]");
-  check(rates, "rates", {B, M});
-  check(out_, "out", {12, B, M});
+  const c10::Device dev = rates.device();
+  check(rates, "rates", {B, M}, dev);
+  check(out_, "out", {12, B, M}, dev);
   const std::vector<int64_t> smem =
       episode_smem(S, ring_len, rates.get_device());
   REQUIRE(smem[0] <= smem[1], "episode_block: ", S,
@@ -452,16 +468,17 @@ void reclassify(torch::Tensor rates, torch::Tensor feats,
   const int64_t R = M / stride + 1, N = B * (R - 1);
   REQUIRE(B > 0 && R > 1 && N <= INT32_MAX, "reclassify: B >= 1 lanes, at "
           "least one slot (M >= stride), B * (M / stride) < 2^31");
-  check(rates, "rates", {B, M});
-  check(feats, "feats", {N, 38});
-  check(logits, "logits", {N, 4});
-  check_i32(cls_arch, "cls_arch", {B, R - 1});
-  check(cls_conf, "cls_conf", {B, R - 1});
+  const c10::Device dev = rates.device();
+  check(rates, "rates", {B, M}, dev);
+  check(feats, "feats", {N, 38}, dev);
+  check(logits, "logits", {N, 4}, dev);
+  check_i32(cls_arch, "cls_arch", {B, R - 1}, dev);
+  check(cls_conf, "cls_conf", {B, R - 1}, dev);
   const repro_torch::FreqTables tab =
-      freq_tables(tw, plan, W, inv_log_nb, inv_nb);
+      freq_tables(tw, plan, W, inv_log_nb, inv_nb, dev);
   const repro_torch::WfVariant v = wf_variant(variant, W, &tab);
   const repro_torch::GBDTTables g = gbdt_tables(edges, feat, thresh, leaf,
-                                                base);
+                                                base, dev);
   REQUIRE(g.n_features == 38 && g.n_classes == 4,
           "the AAPA classifier takes 38 features and 4 classes");
   REQUIRE(!gbdt_shared || repro_torch::gbdt_shared_table_bytes(
@@ -469,9 +486,9 @@ void reclassify(torch::Tensor rates, torch::Tensor feats,
                               repro_torch::kGBDTSharedTableMax,
           "gbdt_tables keeps node tables in shared memory only up to ",
           repro_torch::kGBDTSharedTableMax, " bytes");
-  check(cal_a, "cal_a", {4});
-  check(cal_b, "cal_b", {4});
-  check(cal_c, "cal_c", {4});
+  check(cal_a, "cal_a", {4}, dev);
+  check(cal_b, "cal_b", {4}, dev);
+  check(cal_c, "cal_c", {4}, dev);
   const c10::cuda::CUDAGuard guard(rates.device());
   repro_torch::reclassify_launch(
       in(rates), out(feats), out(logits), cls_arch.data_ptr<int>(),
@@ -501,16 +518,17 @@ void policy_signals_aapa(torch::Tensor rates, torch::Tensor rps,
   const int64_t B = rates.size(0), M = rates.size(1);
   const int64_t R = M / h.stride_min + 1;
   REQUIRE(B > 0 && M > 0, "empty episode block");
-  check(rates, "rates", {B, M});
-  check(rps, "rps", {3, M, B});
-  check_i32(arch, "arch", {R, B});
-  check(adj, "adj", {3, R, B});
-  check_i32(cls_arch, "cls_arch", {B, R - 1});
-  check(cls_conf, "cls_conf", {B, R - 1});
-  check(scratch, "forecaster scratch", {h.fc.slots, B});
+  const c10::Device dev = rates.device();
+  check(rates, "rates", {B, M}, dev);
+  check(rps, "rps", {3, M, B}, dev);
+  check_i32(arch, "arch", {R, B}, dev);
+  check(adj, "adj", {3, R, B}, dev);
+  check_i32(cls_arch, "cls_arch", {B, R - 1}, dev);
+  check(cls_conf, "cls_conf", {B, R - 1}, dev);
+  check(scratch, "forecaster scratch", {h.fc.slots, B}, dev);
   int* per_minute = nullptr;
   if (minute_arch.numel() > 0) {
-    check_i32(minute_arch, "minute_arch", {B, M});
+    check_i32(minute_arch, "minute_arch", {B, M}, dev);
     per_minute = minute_arch.data_ptr<int>();
   }
   const c10::cuda::CUDAGuard guard(rates.device());
@@ -540,9 +558,10 @@ void policy_signals_predictive(torch::Tensor rates, torch::Tensor need,
   REQUIRE(B > 0 && M > 0, "empty episode block");
   repro_torch::PredictiveHyper h{};
   h.fc = fc_hyper(fc_f, fc_i);
-  check(rates, "rates", {B, M});
-  check(need, "need", {M, B});
-  check(scratch, "forecaster scratch", {h.fc.slots, B});
+  const c10::Device dev = rates.device();
+  check(rates, "rates", {B, M}, dev);
+  check(need, "need", {M, B}, dev);
+  check(scratch, "forecaster scratch", {h.fc.slots, B}, dev);
   h.z = static_cast<float>(fhyper[0]);
   h.sqrt_h = static_cast<float>(fhyper[1]);
   h.band_q = static_cast<float>(fhyper[2]);
@@ -565,12 +584,13 @@ repro_torch::PolicySignals policy_signals(const torch::Tensor& rates,
                                           const torch::Tensor* adj,
                                           int64_t stride) {
   const int64_t B = rates.size(0), M = rates.size(1);
-  check(rps, "rps", {K, M, B});
+  const c10::Device dev = rates.device();
+  check(rps, "rps", {K, M, B}, dev);
   repro_torch::PolicySignals g{in(rps), nullptr, nullptr, 0};
   if (arch != nullptr) {
     const int64_t R = M / stride + 1;
-    check_i32(*arch, "arch", {R, B});
-    check(*adj, "adj", {3, R, B});
+    check_i32(*arch, "arch", {R, B}, dev);
+    check(*adj, "adj", {3, R, B}, dev);
     g.arch = arch->data_ptr<int>();
     g.adj = in(*adj);
     g.R = static_cast<int>(R);
@@ -680,22 +700,23 @@ void holt_winters(torch::Tensor y, torch::Tensor out_,
   REQUIRE(B > 0 && T > 0 && period >= 1,
           "holt_winters takes B, T >= 1 and period >= 1");
   REQUIRE(coeffs.size() == 6, "holt_winters takes 6 coefficients");
-  check(y, "y", {B, T});
-  check(out_, "out", {B, T});
+  const c10::Device dev = y.device();
+  check(y, "y", {B, T}, dev);
+  check(out_, "out", {B, T}, dev);
   REQUIRE(season_scratch.dim() == 2, "season scratch must be 2-d");
   if (shared_season) {
     REQUIRE(period <= repro_torch::kHWSharedPeriodMax,
             "holt_winters keeps the season in shared memory only up to "
             "period ", repro_torch::kHWSharedPeriodMax, ", got ", period);
-    check(season_scratch, "season scratch", {0, B});
+    check(season_scratch, "season scratch", {0, B}, dev);
   } else {
-    check(season_scratch, "season scratch", {period, B});
+    check(season_scratch, "season scratch", {period, B}, dev);
   }
   REQUIRE(!vec16 || repro_torch::holt_winters_vec16_ok(
                         in(y), in(out_), static_cast<int>(T)),
           "holt_winters' 16-B copies need T % 4 == 0 and 16-B aligned "
           "y and out");
-  const c10::cuda::CUDAGuard guard(y.device());
+  const c10::cuda::CUDAGuard guard(dev);
   repro_torch::holt_winters_launch(
       in(y), out(out_), out(season_scratch), static_cast<int>(B),
       static_cast<int>(T), static_cast<int>(period), shared_season, vec16,

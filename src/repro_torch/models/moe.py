@@ -107,8 +107,8 @@ def moe_block_scatter(p, x, cfg: ModelConfig):
 
 def moe_block_ep(p, x, cfg: ModelConfig):
     """The reference's expert-parallel MoE (``shard_map`` + all-to-all
-    over a mesh's model axis): no counterpart on one device."""
-    raise NotImplementedError(
-        "moe_block_ep needs a mesh with a model axis (expert parallelism "
-        "by all-to-all); the PyTorch/CUDA port runs on a single device, "
-        "use moe_block_scatter")
+    over a mesh's model axis): model sharding, which the port does not
+    have (``dist.sharding.unsupported``); `moe_block_scatter` runs the
+    block on one device."""
+    raise shd.unsupported("moe_block_ep (experts split over a mesh's "
+                          "model axis, all-to-all)")

@@ -19,11 +19,17 @@ the plain version. Lane (p, w) is ``simulate(rates[w], controllers[p])``.
   split into stackable and static keys as the reference does
   (`grid_split`).
 
-`shard=` and `donate=` are accepted and ignored: on one card the
-reference's sharding helpers are the identity without a mesh
-(``repro.dist.sharding.constrain``). `telemetry=True` runs each
+Under an active device mesh (``dist.sharding.set_mesh``) and with
+`shard` (the default), the workload axis splits into contiguous slices
+over the mesh's data axes (``dist.sharding.lane_sharding``): each device
+runs its slice's episodes, an AAPA or hybrid controller with a copy of
+its classifier there (``policies.on_device``), and the per-lane outputs
+come back to the mesh's first device in lane order. Lanes are
+independent, so the result is the unsharded one bit for bit. `donate=`
+is the reference's and does nothing. `telemetry=True` runs each
 controller lane's episodes through the blocked loop with its decision
-trace (``sim.cluster.run_traced``), `trace_lanes` of the W lanes traced.
+trace (``sim.cluster.run_traced``), `trace_lanes` of the W lanes traced;
+under an active mesh it raises unless ``shard=False`` (one device).
 """
 from __future__ import annotations
 
@@ -33,8 +39,9 @@ import numpy as np
 import torch
 
 from repro_torch import _device
+from repro_torch.dist import sharding as shd
 from repro_torch.obs import trace as obs_trace
-from repro_torch.scaling import registry
+from repro_torch.scaling import policies, registry
 from repro_torch.scaling.api import Controller
 from repro_torch.sim import cluster
 from repro_torch.sim.cluster import MinuteOut, SimConfig, simulate
@@ -68,6 +75,20 @@ def trace_index(W: int, trace_lanes: int | None, dev):
     return None if idx is None else torch.as_tensor(idx, device=dev)
 
 
+def lanes_sharding(shape, w_axis: int, shard: bool, telemetry: bool
+                   ) -> shd.LaneSharding | None:
+    """The lane sharding of arrays of `shape` (workload axis `w_axis`)
+    under the active mesh, or None (no mesh, or `shard` off). The traced
+    path has no sharded form yet: with `telemetry` it raises instead."""
+    sh = shd.lane_sharding(shape, w_axis=w_axis) if shard else None
+    if sh is not None and telemetry:
+        raise NotImplementedError(
+            "telemetry under a device mesh: the traced path runs on one "
+            "device; pass shard=False (repro_torch.evals.fleet traces "
+            "under a mesh chunk by chunk)")
+    return sh
+
+
 def make_batch_simulator(controllers: Sequence[Controller],
                          cfg: SimConfig = SimConfig(), *, device="cuda",
                          plant_kernel: bool | None = None,
@@ -86,8 +107,12 @@ def make_batch_simulator(controllers: Sequence[Controller],
     when None). It runs the blocked loop, so on the card it needs
     ``decide_kernel=False`` (else ValueError, as in the reference), and
     it refuses `w_chunk`: chunked capture is ``evals.fleet``'s
-    (``FleetSpec.trace_lanes``)."""
-    del shard, donate
+    (``FleetSpec.trace_lanes``).
+
+    Under an active mesh with `shard`, each device runs its slice of the
+    W lanes (`w_chunk` lanes per call within it) and the result lands on
+    the mesh's first device."""
+    del donate
     ctrls = list(controllers)
     dev = _device.resolve(device)
     if telemetry and w_chunk is not None:
@@ -106,19 +131,27 @@ def make_batch_simulator(controllers: Sequence[Controller],
         return (MinuteOut(*(torch.stack(f) for f in zip(*outs))),
                 stack_traces(list(cts), 2))
 
-    def run(rates) -> MinuteOut:
-        rates = torch.as_tensor(rates).to(device=dev, dtype=torch.float32)
-        if telemetry:
-            return traced(rates)
-        W, M = rates.shape
+    def lanes(rates) -> MinuteOut:
+        """rates [W, M] on one device -> MinuteOut [P, W, M] there."""
         per_ctrl = []
         for ctrl in ctrls:
-            parts = [simulate(rates[sl].contiguous(), ctrl, cfg, device=dev,
-                              plant_kernel=plant_kernel,
+            ctrl = policies.on_device(ctrl, cfg, rates.device)
+            parts = [simulate(rates[sl].contiguous(), ctrl, cfg,
+                              device=rates.device, plant_kernel=plant_kernel,
                               decide_kernel=decide_kernel)
-                     for sl in chunks(W, w_chunk)]
+                     for sl in chunks(rates.shape[0], w_chunk)]
             per_ctrl.append([torch.cat(f, 0) for f in zip(*parts)])
         return MinuteOut(*(torch.stack(f) for f in zip(*per_ctrl)))
+
+    def run(rates) -> MinuteOut:
+        rates = torch.as_tensor(rates, dtype=torch.float32)
+        sh = lanes_sharding(rates.shape, 0, shard, telemetry)
+        if sh is None:
+            rates = rates.to(dev)
+            return traced(rates) if telemetry else lanes(rates)
+        parts = [lanes(x) for x in shd.scatter(rates, sh)]
+        return MinuteOut(*(shd.gather(f, 1, sh.devices[0])
+                           for f in zip(*parts)))
 
     return run
 
@@ -218,23 +251,24 @@ def _grid_controllers(name: str, grid: Sequence[dict], cfg, classify,
 
 def make_grid_simulator(name: str, grid: Sequence[dict],
                         cfg: SimConfig = SimConfig(), *, classify=None,
-                        device="cuda", **fixed):
+                        device="cuda", shard: bool = True, **fixed):
     """One policy family over a grid of hyperparameter points: rates
-    [W, M] -> MinuteOut [len(grid), W, M] in grid order."""
+    [W, M] -> MinuteOut [len(grid), W, M] in grid order (`shard`:
+    `make_batch_simulator`'s)."""
     return make_batch_simulator(
         _grid_controllers(name, [dict(g) for g in grid], cfg, classify,
-                          fixed)[0], cfg, device=device)
+                          fixed)[0], cfg, device=device, shard=shard)
 
 
 def make_grid_evaluator(name: str, cfg: SimConfig = SimConfig(), *,
                         classify=None, bins: int | None = None,
                         rei_kw: dict | None = None, device="cuda",
-                        **fixed):
+                        shard: bool = True, **fixed):
     """Candidate scoring: ``evaluate(grid, rates [W, M]) ->
     (EpisodeMetrics [G], REIBreakdown [G])``, each candidate's metrics
     pooled over the workloads chunk by chunk (no [G, W, M] output is
     kept). REI baselines default from the episode shape; `rei_kw`
-    overrides them."""
+    overrides them. `shard`: ``matrix.make_controller_evaluator``'s."""
     from repro_torch.evals import matrix
     from repro_torch.evals import metrics as EM
     from repro_torch.evals import rei as ER
@@ -250,7 +284,8 @@ def make_grid_evaluator(name: str, cfg: SimConfig = SimConfig(), *,
         W, M = rates.shape
         structures.update((skey, len(idx), (W, M)) for skey, idx in groups)
         met, _ = matrix.make_controller_evaluator(
-            ctrls, cfg, bins=bins, per_workload=False, device=device)(rates)
+            ctrls, cfg, bins=bins, per_workload=False, device=device,
+            shard=shard)(rates)
         rb = ER.rei(met.slo_violation_rate, met.replica_minutes,
                     met.scaling_actions,
                     **{"minutes": M, "n_workloads": W, **rei_kw})

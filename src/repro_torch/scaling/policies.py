@@ -457,3 +457,17 @@ def rebuild(controller: Controller, cfg, **changes) -> Controller:
     kernel takes them (the plain episode swaps in the plain classifier)."""
     make = {"aapa": _aapa, "hybrid": _hybrid}[controller.name]
     return make(cfg, dict(controller.hyper, **changes))
+
+
+def on_device(controller: Controller, cfg, device) -> Controller:
+    """`controller` as lanes on `device` run it: an AAPA or hybrid
+    controller whose classifier (a ``core.pipeline.Classify``) lies on
+    another device rebuilt with a copy of it there (`rebuild`), any other
+    controller itself. The episode kernel reads the classifier's tables
+    on the lanes' device."""
+    cls = controller.hyper.get("classify")
+    if controller.name not in ("aapa", "hybrid") or not hasattr(cls, "to"):
+        return controller
+    placed = cls.to(_device.canonical(device))
+    return controller if placed is cls else rebuild(controller, cfg,
+                                                    classify=placed)

@@ -619,6 +619,27 @@ def test_binding_errors_raise_runtime_error(cuda, case):
     assert "(a RuntimeError)" in proc.stdout, proc.stdout
 
 
+@pytest.mark.parametrize("case", ["other_card_output", "other_card_tables",
+                                  "other_card_signals", "other_card_first"])
+def test_binding_rejects_tensors_on_another_card(cuda, case):
+    """An entry handed a tensor on another card than its first tensor's
+    (an output, the GBDT tables, the pre-pass's signals, or the first
+    tensor itself beside an output on the first card) raises RuntimeError
+    naming both cards before it launches, not an illegal address. Needs
+    two cards; each call in a subprocess, as above."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (a tensor on another card); "
+                    f"this machine has {torch.cuda.device_count()}")
+    from pathlib import Path
+    tool = _probe_tool()
+    proc = tool.probe(Path(__file__).resolve().parents[1],
+                      tool.MISMATCH_CASES[case])
+    assert proc.returncode == 0, (proc.returncode, proc.stdout,
+                                  proc.stderr[-3000:])
+    assert "(a RuntimeError)" in proc.stdout, proc.stdout
+    assert "the launch's device is cuda:" in proc.stdout, proc.stdout
+
+
 @pytest.mark.parametrize("b,t,period,alpha,variant,offset", [
     (1003, 300, 60, 0.1, None, 0), (257, 61, 60, 0.37, None, 0),
     (130, 500, 1440, 0.1, None, 0), (65, 100, 96, 0.33, None, 0),
@@ -1305,3 +1326,104 @@ def test_dry_run_fitting_cell_runs_on_the_card(cuda):
     assert torch.isfinite(logits.float()).all()
     peak = torch.cuda.max_memory_allocated()
     assert abs(peak - rec["memory"]["total_bytes"]) <= 0.05 * peak
+
+
+# ------------------------------------------------------------ device mesh ----
+def _mesh_fleet_case(dev, classify):
+    """A small fleet (HPA and AAPA, 8 chunks) and its unsharded runs, one
+    dispatch and streamed, on `dev`."""
+    from repro_torch.evals import fleet
+    sp = fleet.spec("t_mesh", policies=("hpa", "aapa"),
+                    scenario="burst_storm", n_workloads=2048, w_chunk=256,
+                    minutes=120, seed=3)
+    return sp, [fleet.run_fleet(sp, classify=classify, stream=stream,
+                                device=dev) for stream in (False, True)]
+
+
+def _assert_same(got, want, what):
+    def host(x):
+        return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+    for field in got._fields:
+        a, e = host(getattr(got, field)), host(getattr(want, field))
+        assert a.shape == e.shape and a.tobytes() == e.tobytes(), \
+            f"{what}: {field}"
+
+
+def _sharded_fleet(sp, want, classify, mesh, n_cards):
+    """The fleet under `mesh`, both modes, bit for bit with `want`, the
+    episode kernel and AAPA's pre-pass launched."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.evals import fleet
+    shd.set_mesh(mesh)
+    try:
+        for stream, ref_run in zip((False, True), want):
+            ops.reset_launch_counts()
+            got = fleet.run_fleet(sp, classify=classify, stream=stream)
+            counts = ops.launch_counts()
+            assert counts["episode_block"] > 0, counts
+            assert counts["policy_signals"] > 0, counts
+            _assert_same(got.pooled, ref_run.pooled, "pooled")
+            _assert_same(got.rei, ref_run.rei, "rei")
+            assert got.meta["mesh"] == mesh.shape
+            assert got.meta["n_devices"] == n_cards
+            assert got.meta["peak_device_bytes"] > 0
+    finally:
+        shd.set_mesh(None)
+
+
+def test_fleet_on_a_logical_mesh_of_one_card(cuda):
+    """A 4-entry mesh of the first card: chunk c on entry c mod 4, HPA and
+    AAPA (a seeded classifier), one dispatch and streamed, bit for bit
+    with the unsharded runs."""
+    from repro_torch.dist import sharding as shd
+    cls = _classifier(cuda)
+    sp, want = _mesh_fleet_case(cuda, cls)
+    _sharded_fleet(sp, want, cls, shd.Mesh([torch.device("cuda", 0)] * 4),
+                   1)
+
+
+def test_matrix_on_a_logical_mesh_of_one_card(cuda):
+    """The matrix under a 4-entry mesh of the first card: per-workload
+    results bit for bit with the unsharded run, pooled at rtol 2e-6 with
+    counts and quantile bins equal; the batch simulator bit for bit."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.evals import matrix
+    from repro_torch.scaling import batch
+    sp = matrix.spec("t_mesh", policies=("hpa", "predictive", "aapa"),
+                     scenarios=(("burst_storm", {}), ("idle_wake", {})),
+                     seeds=(0, 1), n_workloads=64, minutes=240)
+    cls = _classifier(cuda)
+    rates = matrix.build_rates(sp)
+    pool1, per1 = matrix.make_runner(sp, cls)(rates)
+    ctrls = matrix.controllers(sp, cls)
+    out1 = batch.make_batch_simulator(ctrls, sp.sim_config())(rates[0, 0])
+    shd.set_mesh(shd.Mesh([torch.device("cuda", 0)] * 4))
+    try:
+        pool, per = matrix.make_runner(sp, cls)(rates)
+        out = batch.make_batch_simulator(ctrls, sp.sim_config())(rates[0, 0])
+    finally:
+        shd.set_mesh(None)
+    _assert_same(per, per1, "per workload")
+    _assert_same(out, out1, "batch")
+    for field in pool._fields:
+        a, e = getattr(pool, field), getattr(pool1, field)
+        if field in ("scaling_actions", "oscillations", "p95_response_ms",
+                     "p99_response_ms", "overprovision_rate"):
+            assert torch.equal(a, e), field
+        else:
+            torch.testing.assert_close(a, e, rtol=2e-6, atol=0.0)
+
+
+def test_fleet_over_every_card(cuda):
+    """The production mesh over every visible card: chunk c on card
+    c mod n, the classifier copied to each, bit for bit with the
+    unsharded runs on the first card. Needs two cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more CUDA devices to split the fleet "
+                    f"over cards; this machine has {n}")
+    from repro_torch.launch import mesh as launch_mesh
+    cls = _classifier(torch.device("cuda", 0))
+    sp, want = _mesh_fleet_case(torch.device("cuda", 0), cls)
+    _sharded_fleet(sp, want, cls, launch_mesh.make_production_mesh(),
+                   min(n, sp.n_chunks))

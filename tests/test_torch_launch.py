@@ -17,7 +17,8 @@ mesh}``) against the JAX reference's on the CPU, on the meta device.
   ``torch.utils.checkpoint`` stops recomputing there). The counter equals
   ``FlopCounterMode``'s count, and the probes' extrapolation equals a
   trace at the full depth.
-* The mesh has no single-device counterpart and raises.
+* The multi-pod mesh raises; the production mesh needs a card,
+  the debug mesh builds on the CPU.
 """
 import dataclasses
 import os
@@ -152,15 +153,21 @@ def test_run_cell_all_cells():
     assert not recs[("deepseek_67b", "train_4k")]["fits_one_card"]
 
 
-def test_multi_pod_and_mesh_raise():
-    with pytest.raises(NotImplementedError, match="single device"):
+def test_multi_pod_and_mesh_raise(monkeypatch):
+    """The multi-pod mesh spans hosts and raises, naming model sharding;
+    the production mesh needs a card (here there is none); the debug mesh
+    builds on the CPU."""
+    with pytest.raises(NotImplementedError, match="model sharding"):
         dryrun.run_cell("stablelm_1_6b", "train_4k", multi_pod=True)
-    with pytest.raises(NotImplementedError, match="single device"):
-        mesh.make_production_mesh()
-    with pytest.raises(NotImplementedError, match="single device"):
+    with pytest.raises(NotImplementedError, match="model sharding"):
         mesh.make_production_mesh(multi_pod=True)
-    with pytest.raises(NotImplementedError, match="single device"):
-        mesh.make_debug_mesh()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        mesh.make_production_mesh()
+    m = mesh.make_debug_mesh()
+    assert m.shape == {"data": 2, "model": 2} and m.size == 4
+    assert set(m.devices) == {torch.device("cpu")}
+    assert mesh.make_debug_mesh(8, 1).shape == {"data": 8, "model": 1}
 
 
 def _step_args(cfg, shape):

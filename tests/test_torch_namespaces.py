@@ -79,8 +79,6 @@ def test_serving_slice_modules_mirror_the_reference(pkg, modules):
                   and not n.name.startswith("_")]
         if pkg == "launch":                   # the launcher's entry point
             public = ["main"]
-        if pkg == "dist":                     # a mesh's resolved rules
-            public.remove("MeshRules")
         missing = [n for n in public if not hasattr(mod, n)]
         assert not missing, f"repro_torch.{pkg}.{name} lacks {missing}"
 

@@ -173,22 +173,37 @@ def test_moe_capacity_formula():
 
 def test_single_device_sharding():
     """No mesh: `constrain` is the identity and `active` None, as the
-    reference's without a mesh; a mesh, the tree shardings and expert
-    parallelism raise."""
+    reference's without a mesh. What the port's mesh does not do raises,
+    naming model sharding: the tree shardings (with or without a mesh),
+    expert parallelism, and `constrain` under an active mesh; `set_mesh`
+    takes only the port's own Mesh."""
     x = torch.arange(6.0).reshape(2, 3)
     assert shd.constrain(x, ("dp", None)) is x
     assert shd.set_mesh(None) is None and shd.active() is None
-    with pytest.raises(NotImplementedError, match="single device"):
+    with pytest.raises(TypeError, match="Mesh"):
         shd.set_mesh(object())
-    for fn, args in ((shd.param_shardings, ({},)),
-                     (shd.batch_shardings, ({},)),
-                     (shd.cache_shardings, ({}, None)),
-                     (shd.lane_sharding, ((4, 4),))):
-        with pytest.raises(NotImplementedError, match="single device"):
-            fn(*args)
     _, cfg = _moe_cfgs()
-    with pytest.raises(NotImplementedError, match="single device"):
-        moe_block_ep({}, torch.zeros((1, 2, 16)), cfg)
+    for mesh in (None, shd.Mesh(["cpu"] * 2)):
+        shd.set_mesh(mesh)
+        try:
+            for fn, args in ((shd.param_shardings, ({},)),
+                             (shd.batch_shardings, ({},)),
+                             (shd.cache_shardings, ({}, None))):
+                with pytest.raises(NotImplementedError,
+                                   match="model sharding"):
+                    fn(*args)
+            with pytest.raises(NotImplementedError, match="model sharding"):
+                moe_block_ep({}, torch.zeros((1, 2, 16)), cfg)
+        finally:
+            shd.set_mesh(None)
+    shd.set_mesh(shd.Mesh(["cpu"] * 2))
+    try:
+        assert shd.active().mesh.shape == {"data": 2}
+        with pytest.raises(NotImplementedError, match="model sharding"):
+            shd.constrain(x, ("dp", None))
+    finally:
+        shd.set_mesh(None)
+    assert shd.constrain(x, ("dp", None)) is x
 
 
 def test_init_shapes_match_reference():
