@@ -282,9 +282,13 @@ and prints no result line):
     visible card: one when the script runs as it should, with no
     arguments) and over a logical mesh of MESH_SHARDS entries, every one
     the first card (chunk c on entry c mod n); gate: pooled metrics and
-    REI bit for bit with phase 23's unsharded runs. Each mesh's
-    one-dispatch row once more under ``torch.profiler`` for each card's
-    busy time; ``bench_autoscaling``'s SPEC matrix under each mesh
+    REI bit for bit with phase 23's unsharded runs; walls against
+    unsharded runs over the same host rates (phase 23's one dispatch and
+    a stream over them, itself bit for bit with phase 23's generated
+    stream). Each mesh's one-dispatch row once more under
+    ``torch.profiler``: by card, the union of its kernel and copy spans
+    (busy), of its kernels' and of its copies', and the idle share of
+    the profiled wall; ``bench_autoscaling``'s SPEC matrix under each mesh
     against phase 19's (per workload bit for bit; pooled rtol 2e-6,
     counts exact); AAPAset ``aapaset_300k`` built under the logical mesh
     (chunks round-robin) bit for bit with phase 21's build. Prints the
@@ -1255,21 +1259,50 @@ COUNTS_EXACT = ("scaling_actions", "oscillations",
                 "mean_action_interval_min", "overprovision_rate")
 
 
-def busy_by_card(run) -> dict[str, float]:
-    """`run()` under torch.profiler: the device ms of the kernels and
-    copies each card ran, by card."""
+def _union_ms(spans) -> float:
+    """The length of the union of (start, end) spans in us, in ms."""
+    total, reach = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > reach:
+            total += hi - max(lo, reach)
+            reach = hi
+    return total / 1e3
+
+
+def busy_by_card(run) -> dict[str, dict[str, float]]:
+    """`run()` under torch.profiler, by card: `busy_ms`, the union of the
+    spans in which a kernel or a copy ran (work on two streams at once
+    counts once), `kernel_ms` and `copy_ms` the unions of the kernels'
+    and of the copies' and memsets' spans, `wall_ms` the run's wall under
+    the profiler (to a synchronize of every card) and `idle_share`, one
+    less busy over wall."""
     from torch.profiler import ProfilerActivity, profile
+    cards = range(torch.cuda.device_count())
+    for d in cards:
+        torch.cuda.synchronize(d)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         run()
-        for d in range(torch.cuda.device_count()):
+        for d in cards:
             torch.cuda.synchronize(d)
-    busy: dict[int, float] = {}
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans: dict[int, dict[str, list]] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            busy[e.device_index] = busy.get(e.device_index, 0.0) \
-                + e.self_device_time_total / 1e3
-    return {f"cuda:{k}": v for k, v in sorted(busy.items())}
+            kind = "copy" if e.name.startswith(("Memcpy", "Memset")) \
+                else "kernel"
+            spans.setdefault(e.device_index, {"kernel": [], "copy": []})[
+                kind].append((e.time_range.start, e.time_range.end))
+    out = {}
+    for k, by in sorted(spans.items()):
+        busy = _union_ms(by["kernel"] + by["copy"])
+        out[f"cuda:{k}"] = dict(busy_ms=busy,
+                                kernel_ms=_union_ms(by["kernel"]),
+                                copy_ms=_union_ms(by["copy"]),
+                                wall_ms=wall_ms,
+                                idle_share=1.0 - busy / wall_ms)
+    return out
 
 
 def same_tree(got, want, what: str) -> None:
@@ -1290,7 +1323,9 @@ def mesh_phase(tcls, one, streamed, rates, spec_run, mcls, built) -> dict:
     ``launch.mesh.make_production_mesh()`` (every visible card) and over a
     logical mesh of MESH_SHARDS entries on the first card, each bit for
     bit with phase 23's unsharded run of the same mode (`one`,
-    `streamed`); each card's busy time under ``torch.profiler``;
+    `streamed`) and timed against an unsharded run over the same host
+    rates; each card's busy time under ``torch.profiler``
+    (`busy_by_card`);
     ``bench_autoscaling``'s SPEC matrix under both meshes against phase
     19's unsharded run (`spec_run`: spec, pooled, per-workload, with
     `mcls`): per-workload bit for bit, pooled at rtol 2e-6, counts exact;
@@ -1307,10 +1342,19 @@ def mesh_phase(tcls, one, streamed, rates, spec_run, mcls, built) -> dict:
               f"logical {MESH_SHARDS}": shd.Mesh(
                   [torch.device("cuda", 0)] * MESH_SHARDS)}
     runs: dict = {}
+    # the unsharded stream over the same host rates: phase 23's stream
+    # generates its chunks on the host, another workload for the wall
+    base = {"one-dispatch": one, "stream": fleet.run_fleet(
+        sp, classify=tcls, chunks=rates, stream=True)}
+    same_tree(base["stream"].pooled, streamed.pooled,
+              "unsharded stream over the rates, pooled")
+    log(f"[mesh] unsharded stream over phase 23's rates: wall "
+        f"{base['stream'].meta['wall_s']:.4f} s, pooled bit for bit with "
+        f"phase 23's generated stream")
     try:
         for name, mesh in meshes.items():
             shd.set_mesh(mesh)
-            for mode, want in (("one-dispatch", one), ("stream", streamed)):
+            for mode, want in base.items():
                 label = f"{name} {mode}"
                 for d in range(torch.cuda.device_count()):
                     torch.cuda.synchronize(d)
@@ -1330,7 +1374,8 @@ def mesh_phase(tcls, one, streamed, rates, spec_run, mcls, built) -> dict:
                 log(f"[mesh {label}] mesh {m['mesh']} on {m['n_devices']} "
                     f"distinct card(s): wall {m['wall_s']:.4f} s "
                     f"({m['lane_minutes_per_sec']:.6g} lane-minutes/s; "
-                    f"unsharded {want.meta['wall_s']:.4f} s, "
+                    f"unsharded over the same rates "
+                    f"{want.meta['wall_s']:.4f} s, "
                     f"{want.meta['lane_minutes_per_sec']:.6g}), peak device "
                     f"memory {m['peak_device_bytes']} bytes (largest card), "
                     f"launches {counts};"
@@ -1339,8 +1384,8 @@ def mesh_phase(tcls, one, streamed, rates, spec_run, mcls, built) -> dict:
                 runs[label] = dict(meta=m, launches=counts)
             busy = busy_by_card(lambda: fleet.run_fleet(sp, classify=tcls,
                                                         chunks=rates))
-            log(f"[mesh {name}] one-dispatch row's device busy ms by card "
-                f"under torch.profiler: {busy}")
+            log(f"[mesh {name}] one-dispatch row under torch.profiler, by "
+                f"card (busy: the union of kernel and copy spans): {busy}")
             runs[f"{name} busy_ms"] = busy
             spec_, pool1, per1 = spec_run
             pool, per_w, counts, _ = run_matrix(matrix, spec_, mcls,

@@ -85,8 +85,10 @@ def featurize_windows(windows: np.ndarray, *, chunk: int = DEFAULT_CHUNK,
     ``window_features`` kernel iff `device` is CUDA; ``True`` asks for
     the kernel and raises on the CPU, which has none. Under an active
     mesh the chunks run round-robin on its data-axis devices (see the
-    module docstring)."""
+    module docstring), and `device` must be of their type
+    (``dist.sharding.check_device``)."""
     dev = _device.resolve(device)
+    devs = shd.placement(dev)
     if use_kernel is None:
         use_kernel = dev.type == "cuda"
     if use_kernel and dev.type != "cuda":
@@ -99,7 +101,6 @@ def featurize_windows(windows: np.ndarray, *, chunk: int = DEFAULT_CHUNK,
     labels = np.empty((N,), np.int32)
     conf = np.empty((N,), np.float32)
     votes = np.empty((N, labeling.N_LFS), np.int8)
-    devs = shd.lane_devices() or (dev,)
     for first in range(0, N, chunk * len(devs)):
         queued = []
         for d, lo in zip(devs, range(first, min(first + chunk * len(devs),

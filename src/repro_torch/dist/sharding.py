@@ -20,7 +20,8 @@ device of the data axes, and `scatter` / `gather` place a tensor by it and
 bring it back in shard order (``scaling.batch``, ``evals.matrix``; the
 fleet runner and the AAPAset build place whole chunks on `lane_devices()`
 round-robin). Lanes are independent, so a sharded run is the unsharded
-one.
+one. The mesh alone places the lanes: a caller's `device` of another
+type than the mesh's raises (`check_device`).
 
 **Model sharding** is not ported: the tree shardings (`param_shardings`,
 `batch_shardings`, `cache_shardings`) and `constrain` under an active mesh
@@ -258,6 +259,30 @@ def lane_devices() -> tuple[torch.device, ...] | None:
     chunks round-robin."""
     rules = _ACTIVE
     return None if rules is None else rules.mesh.axis_devices(_DATA_AXES)
+
+
+def check_device(device) -> None:
+    """Under an active mesh, raise ValueError unless every device of its
+    data axes is of `device`'s type: the mesh places the lanes, and a
+    caller's `device` of another type (a CPU mesh with ``"cuda"``, a mesh
+    of cards with ``"cpu"``) would pick the kernel or the plain path for
+    tensors that sit elsewhere."""
+    devs = lane_devices()
+    kind = torch.device(device).type
+    if devs is not None and any(d.type != kind for d in devs):
+        raise ValueError(
+            f"device {str(device)!r} disagrees with the active mesh's "
+            f"devices {sorted({str(d) for d in devs})}: under a mesh the "
+            f"mesh places the lanes; pass a device of its type or "
+            f"deactivate it (set_mesh(None))")
+
+
+def placement(device) -> tuple[torch.device, ...]:
+    """Where a caller asked for `device` runs its chunks round-robin: the
+    active mesh's data-axis devices (`check_device` first), or `device`
+    alone."""
+    check_device(device)
+    return lane_devices() or (torch.device(device),)
 
 
 def scatter(x, sharding: LaneSharding) -> list[torch.Tensor]:

@@ -180,8 +180,8 @@ def _acc0(spec_: FleetSpec, dev) -> EM.MetricAccum:
 
 def _chunk_devices(dev) -> tuple[torch.device, ...]:
     """Where the chunks run, round-robin: the active mesh's data-axis
-    devices, or `dev` alone."""
-    return shd.lane_devices() or (_device.canonical(dev),)
+    devices, or `dev` alone (``dist.sharding.placement``)."""
+    return tuple(_device.canonical(d) for d in shd.placement(dev))
 
 
 def _per_device(make, devices):
@@ -191,6 +191,13 @@ def _per_device(make, devices):
         if d not in made:
             made[d] = make(d)
     return [made[d] for d in devices]
+
+
+def _bodies_by_mesh(make):
+    """devices -> ``_per_device(make, devices)``, made once per tuple of
+    devices: a runner built before a mesh is set (or changed) makes the
+    chunk bodies for it at its first call under it, not at every call."""
+    return functools.cache(lambda devices: _per_device(make, devices))
 
 
 def make_fleet_runner(spec_: FleetSpec, classify=None, *,
@@ -209,9 +216,12 @@ def make_fleet_runner(spec_: FleetSpec, classify=None, *,
     if spec_.trace_lanes > 0:
         return _traced_runner(spec_, classify, dev)
 
+    bodies_on = _bodies_by_mesh(lambda d: _chunk_body(spec_, classify, d))
+    bodies_on(_chunk_devices(dev))           # now, for the active mesh
+
     def run(rates) -> EM.MetricAccum:
         devs = _chunk_devices(dev)
-        bodies = _per_device(lambda d: _chunk_body(spec_, classify, d), devs)
+        bodies = bodies_on(devs)
         rates = torch.as_tensor(rates, dtype=torch.float32)
         acc = _acc0(spec_, devs[0])
         for c in range(rates.shape[0]):
@@ -236,12 +246,15 @@ def _traced_runner(spec_: FleetSpec, classify, dev):
                             edges, per_workload=False, telemetry=True,
                             trace_lanes=spec_.trace_lanes)
 
+    lanes_on = _bodies_by_mesh(make)
+    lanes_on(_chunk_devices(dev))
+
     def run(rates):
         devs = _chunk_devices(dev)
         n = len(devs)
         rates = torch.as_tensor(rates, dtype=torch.float32)
         outs = [lanes(rates[s::n].to(d)) for s, (d, lanes) in enumerate(
-            zip(devs, _per_device(make, devs))) if s < rates.shape[0]]
+            zip(devs, lanes_on(devs))) if s < rates.shape[0]]
         acc = _acc0(spec_, devs[0])
         for c in range(rates.shape[0]):              # accums [P, C_s]
             acc = _add(acc, EM.MetricAccum(*(

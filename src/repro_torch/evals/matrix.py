@@ -364,7 +364,8 @@ def make_runner(spec_: MatrixSpec, classify=None, *,
         if rates.dim() != 4 or tuple(rates.shape[:2]) != (S, Z):
             raise ValueError(f"rates {tuple(rates.shape)}: expected "
                              f"[{S}, {Z}, W, M]")
-        if batch.lanes_sharding(rates.shape, 2, shard, telemetry) is None:
+        if batch.lanes_sharding(rates.shape, 2, shard, telemetry,
+                                dev) is None:
             rates = rates.to(dev)
         out = lanes(rates.reshape((S * Z,) + rates.shape[2:]))
         accs, ct = out if telemetry else (out, None)
@@ -410,7 +411,8 @@ def make_controller_evaluator(ctrls: Sequence,
 
     def run_fn(rates_w):
         rates_w = torch.as_tensor(rates_w, dtype=torch.float32)
-        if batch.lanes_sharding(rates_w.shape, 0, shard, telemetry) is None:
+        if batch.lanes_sharding(rates_w.shape, 0, shard, telemetry,
+                                dev) is None:
             rates_w = rates_w.to(dev)
         out = lanes(rates_w[None])
         accs, ct = out if telemetry else (out, None)

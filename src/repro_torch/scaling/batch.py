@@ -75,12 +75,16 @@ def trace_index(W: int, trace_lanes: int | None, dev):
     return None if idx is None else torch.as_tensor(idx, device=dev)
 
 
-def lanes_sharding(shape, w_axis: int, shard: bool, telemetry: bool
-                   ) -> shd.LaneSharding | None:
+def lanes_sharding(shape, w_axis: int, shard: bool, telemetry: bool,
+                   device=None) -> shd.LaneSharding | None:
     """The lane sharding of arrays of `shape` (workload axis `w_axis`)
-    under the active mesh, or None (no mesh, or `shard` off). The traced
-    path has no sharded form yet: with `telemetry` it raises instead."""
+    under the active mesh, or None (no mesh, or `shard` off). The
+    caller's `device`, when given, must be of the mesh's type
+    (``dist.sharding.check_device``). The traced path has no sharded form
+    yet: with `telemetry` it raises instead."""
     sh = shd.lane_sharding(shape, w_axis=w_axis) if shard else None
+    if sh is not None and device is not None:
+        shd.check_device(device)
     if sh is not None and telemetry:
         raise NotImplementedError(
             "telemetry under a device mesh: the traced path runs on one "
@@ -145,7 +149,7 @@ def make_batch_simulator(controllers: Sequence[Controller],
 
     def run(rates) -> MinuteOut:
         rates = torch.as_tensor(rates, dtype=torch.float32)
-        sh = lanes_sharding(rates.shape, 0, shard, telemetry)
+        sh = lanes_sharding(rates.shape, 0, shard, telemetry, dev)
         if sh is None:
             rates = rates.to(dev)
             return traced(rates) if telemetry else lanes(rates)
@@ -251,24 +255,23 @@ def _grid_controllers(name: str, grid: Sequence[dict], cfg, classify,
 
 def make_grid_simulator(name: str, grid: Sequence[dict],
                         cfg: SimConfig = SimConfig(), *, classify=None,
-                        device="cuda", shard: bool = True, **fixed):
+                        device="cuda", **fixed):
     """One policy family over a grid of hyperparameter points: rates
-    [W, M] -> MinuteOut [len(grid), W, M] in grid order (`shard`:
-    `make_batch_simulator`'s)."""
+    [W, M] -> MinuteOut [len(grid), W, M] in grid order."""
     return make_batch_simulator(
         _grid_controllers(name, [dict(g) for g in grid], cfg, classify,
-                          fixed)[0], cfg, device=device, shard=shard)
+                          fixed)[0], cfg, device=device)
 
 
 def make_grid_evaluator(name: str, cfg: SimConfig = SimConfig(), *,
                         classify=None, bins: int | None = None,
                         rei_kw: dict | None = None, device="cuda",
-                        shard: bool = True, **fixed):
+                        **fixed):
     """Candidate scoring: ``evaluate(grid, rates [W, M]) ->
     (EpisodeMetrics [G], REIBreakdown [G])``, each candidate's metrics
     pooled over the workloads chunk by chunk (no [G, W, M] output is
     kept). REI baselines default from the episode shape; `rei_kw`
-    overrides them. `shard`: ``matrix.make_controller_evaluator``'s."""
+    overrides them."""
     from repro_torch.evals import matrix
     from repro_torch.evals import metrics as EM
     from repro_torch.evals import rei as ER
@@ -284,8 +287,7 @@ def make_grid_evaluator(name: str, cfg: SimConfig = SimConfig(), *,
         W, M = rates.shape
         structures.update((skey, len(idx), (W, M)) for skey, idx in groups)
         met, _ = matrix.make_controller_evaluator(
-            ctrls, cfg, bins=bins, per_workload=False, device=device,
-            shard=shard)(rates)
+            ctrls, cfg, bins=bins, per_workload=False, device=device)(rates)
         rb = ER.rei(met.slo_violation_rate, met.replica_minutes,
                     met.scaling_actions,
                     **{"minutes": M, "n_workloads": W, **rei_kw})

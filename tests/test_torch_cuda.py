@@ -1414,6 +1414,26 @@ def test_matrix_on_a_logical_mesh_of_one_card(cuda):
             torch.testing.assert_close(a, e, rtol=2e-6, atol=0.0)
 
 
+def test_cpu_device_under_a_mesh_of_cards_raises(cuda):
+    """Under a mesh of cards, an entry point asked for the CPU raises
+    ValueError instead of running the plain path on the cards' tensors."""
+    from repro_torch.aapaset import build
+    from repro_torch.dist import sharding as shd
+    from repro_torch.evals import fleet
+    sp = fleet.spec("t_mesh_cpu", policies=("hpa",), scenario="burst_storm",
+                    n_workloads=64, w_chunk=16, minutes=30, seed=0)
+    shd.set_mesh(shd.Mesh([torch.device("cuda", 0)] * 2))
+    try:
+        for run in (lambda: fleet.run_fleet(sp, device="cpu"),
+                    lambda: fleet.make_chunk_folder(sp, device="cpu"),
+                    lambda: build.featurize_windows(
+                        np.zeros((4, 60), np.float32), device="cpu")):
+            with pytest.raises(ValueError, match="disagrees with the active"):
+                run()
+    finally:
+        shd.set_mesh(None)
+
+
 def test_fleet_over_every_card(cuda):
     """The production mesh over every visible card: chunk c on card
     c mod n, the classifier copied to each, bit for bit with the

@@ -428,3 +428,38 @@ def test_classifier_placement(classifier):
     assert isinstance(placed.hyper["classify"], Elsewhere)
     assert placed.hyper["classify"] is not far.hyper["classify"]
     assert placed.hyper["guard_target"] == far.hyper["guard_target"]
+
+
+def _entry_points(matrix_sp, rates):
+    """Each lane-sharded entry point asked for `device`, run once."""
+    sp = fleet.spec("t_fleet_place", policies=("hpa",), **FLEET_KW)
+    hpa = [registry.make("hpa", SimConfig())]
+    wins = np.zeros((4, 60), np.float32)
+    return {
+        "fleet runner": lambda d: fleet.make_fleet_runner(sp, device=d),
+        "chunk folder": lambda d: fleet.make_chunk_folder(sp, device=d),
+        "run_fleet": lambda d: fleet.run_fleet(sp, device=d),
+        "batch": lambda d: batch.make_batch_simulator(hpa, device=d)(
+            rates[0, 0]),
+        "matrix": lambda d: matrix.make_runner(matrix_sp, device=d)(rates),
+        "evaluator": lambda d: matrix.make_controller_evaluator(
+            hpa, SimConfig(), device=d)(rates[0, 0]),
+        "featurize": lambda d: build.featurize_windows(wins, device=d),
+    }
+
+
+@pytest.mark.parametrize("entry", ["fleet runner", "chunk folder",
+                                   "run_fleet", "batch", "matrix",
+                                   "evaluator", "featurize"])
+def test_device_of_another_type_than_the_mesh_raises(matrix_runs, entry):
+    """Under a CPU mesh an entry point asked for a device of another type
+    raises ValueError instead of choosing a path for tensors that sit
+    elsewhere; the mesh's own type passes the check."""
+    sp, rates, _, _ = matrix_runs
+    run = _entry_points(sp, rates)[entry]
+    _mesh(2)
+    with pytest.raises(ValueError, match="disagrees with the active mesh"):
+        run("meta")
+    with pytest.raises(ValueError, match="disagrees with the active mesh"):
+        shd.check_device("cuda")
+    shd.check_device("cpu")

@@ -12,8 +12,10 @@ a mesh on the first card, then phase 34 against them (the production
 mesh over every visible card and a logical mesh of four entries on the
 first; each gate raises as inside ``chip_smoke.py``). Then, at 100,000
 and 400,000 lanes, the one-dispatch row on the first card alone and over
-the production mesh: wall, lane-minutes/s and each card's busy time
-under ``torch.profiler``. The last line is a JSON object of those
+the production mesh: wall, lane-minutes/s and, by card under
+``torch.profiler`` (``chip_smoke.busy_by_card``), the union of its
+kernel and copy spans (busy), of its kernels' and of its copies', and
+the idle share of the profiled wall. The last line is a JSON object of those
 numbers. Run from the repository root; on one card the production mesh
 is that card.
 """
@@ -101,8 +103,8 @@ def main() -> int:
             cs.log(f"[scaling {key}] {m['n_devices']} card(s), mesh "
                    f"{m['mesh']}: wall {m['wall_s']:.4f} s "
                    f"({m['lane_minutes_per_sec']:.6g} lane-minutes/s), "
-                   f"peak {m['peak_device_bytes']} bytes, busy ms by card "
-                   f"{busy}")
+                   f"peak {m['peak_device_bytes']} bytes, under the "
+                   f"profiler by card {busy}")
         a, b = rows[f"{lanes} one card"], rows[f"{lanes} production mesh"]
         if a["slo_violation_rate"] != b["slo_violation_rate"] or \
                 a["rei"] != b["rei"]:
