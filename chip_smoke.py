@@ -60,7 +60,7 @@ and prints no result line):
    and each kernel's time (``gbdt_tables``' generic kernel too).
 9. The ``episode_block`` kernel's AAPA policy (that classifier inside)
    against its plain version: ``archetype_mix`` 1024 x 120 at ci 7
-   (remainder block) with stride 10 and 2, and the first 480 minutes of
+   (remainder block) with stride 10 and 2, and the first 120 minutes of
    one 25,000-lane chunk of the AAPA fleet; all 12 MinuteOut fields at
    the episode tolerance and the archetype of every lane after every
    minute exactly. Then AAPA and hybrid at ``history_len`` 45, 90 and 120
@@ -183,7 +183,8 @@ and prints no result line):
 24. Decision telemetry on the card (after 23): each of the five policies
     (AAPA and hybrid with phase 22's classifier) traced by
     ``simulate(..., decide_kernel=False, telemetry=True)`` on
-    ``archetype_mix`` 1024 x 240 at ci 15 and 7. Gates: its MinuteOut
+    ``archetype_mix`` 1024 x 120 at ci 15 and 7 (240 minutes before PR
+    26; cut for phase 35's time). Gates: its MinuteOut
     equals the untraced unfused run's bit for bit and the fused kernel's
     at the episode tolerance; its trace equals the same run's on the CPU:
     discrete fields exact,
@@ -294,7 +295,19 @@ and prints no result line):
     (chunks round-robin) bit for bit with phase 21's build. Prints the
     distinct cards, mesh shape, walls, lane-minutes/s, peak memory of the
     largest card and busy time by card; there is no fallback: a mismatch
-    fails the run.
+    fails the run. Then SPEC's cells over their first
+    TRACED_SPEC_MINUTES minutes traced (TRACE_LANES lanes a cell),
+    unsharded and under the logical mesh: the traces and per-workload
+    accumulators bit for bit.
+35. Model sharding: a ``torch.distributed`` world of one process per
+    visible card (NCCL; one card: a (1, 1) mesh, the expert-parallel
+    path with one model column), ``deepseek_v2_lite_16b`` at full width
+    cut to SHARD_LAYERS layers (the dense first layer and two MoE
+    layers, so one card also holds the unsharded step): one sharded train
+    step of the launcher's 8 x 64 batch against the unsharded step on
+    the first card (loss within 0.05; new params within a bf16 rounding
+    plus 2.5 x the step's learning rate). Prints each rank's step wall,
+    peak memory and NCCL set-up time.
 
 Phases 4, 5, 8, 10, 12, 14, 19, 21, 22, each run of 23, 24 and 34, 25, 26
 and 28 reset the kernels' launch counts just before they run and read them just
@@ -348,8 +361,8 @@ EPISODE_OPS_PER_TICK = 42
 EPISODE_OPS_PER_HEAD = 52
 
 # minutes of the AAPA fleet chunk that phase 9 holds against the plain
-# episode
-AAPA_PLAIN_MINUTES = 480
+# episode (480 before PR 26: the plain episode is host-bound, ~30 s)
+AAPA_PLAIN_MINUTES = 120
 # minutes of phase 17's episodes (the plain episodes are host-bound: their
 # time grows with the minutes)
 FORECASTER_MINUTES = 75
@@ -1405,6 +1418,8 @@ def mesh_phase(tcls, one, streamed, rates, spec_run, mcls, built) -> dict:
             runs[f"{name} matrix"] = dict(launches=counts)
         name = f"logical {MESH_SHARDS}"
         mesh = meshes[name]
+        runs["traced SPEC"] = traced_spec_under_mesh(matrix, spec_run[0],
+                                                     mcls, mesh)
         shd.set_mesh(mesh)
         cfg = aapaset_registry.get("aapaset_300k", feature_path="kernel")
         torch.cuda.synchronize()
@@ -1440,6 +1455,46 @@ def mesh_phase(tcls, one, streamed, rates, spec_run, mcls, built) -> dict:
     return runs
 
 
+def traced_spec_under_mesh(matrix, spec_, cls, mesh) -> dict:
+    """Phase 34's traced matrix: ``bench_autoscaling``'s SPEC cells over
+    their first TRACED_SPEC_MINUTES minutes, TRACE_LANES lanes of each
+    cell traced, unsharded and then under `mesh` (each entry traces the
+    sampled lanes of its slice): the traces and per-workload accumulators
+    bit for bit, the launch counts read after each run."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import ops
+    rates = matrix.build_rates(spec_)[..., :TRACED_SPEC_MINUTES]
+    out = {}
+    for label, m in (("unsharded", None), ("mesh", mesh)):
+        shd.set_mesh(m)
+        runner = matrix.make_runner(spec_, cls, telemetry=True,
+                                    trace_lanes=TRACE_LANES)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        pool, per_w, ct = runner(rates)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if counts["plant_block"] == 0:
+            raise RuntimeError(f"traced SPEC {label}: launches {counts}")
+        out[label] = dict(wall_s=wall, launches=counts, run=(per_w, ct))
+    shd.set_mesh(None)
+    (per1, ct1), (per2, ct2) = out["unsharded"].pop("run"), \
+        out["mesh"].pop("run")
+    same_tree(per2, per1, "traced SPEC per workload")
+    same_tree(ct2.decisions, ct1.decisions, "traced SPEC decisions")
+    same_tree(ct2.minutes, ct1.minutes, "traced SPEC minutes")
+    log(f"[mesh traced SPEC] {spec_.shape} cells x {spec_.n_workloads} "
+        f"workloads x {TRACED_SPEC_MINUTES} min, {TRACE_LANES} lanes a "
+        f"cell traced: unsharded {out['unsharded']['wall_s']:.2f} s, over "
+        f"{mesh.size} logical entries {out['mesh']['wall_s']:.2f} s "
+        f"(launches {out['mesh']['launches']}); the trace "
+        f"{tuple(ct2.decisions.minute.shape)} and the per-workload "
+        f"accumulators equal the unsharded run's bit for bit")
+    return out
+
+
 # ---- phases 24-26: decision telemetry, obs cards and tuning on the card
 POLICIES5 = ("hpa", "kpa", "predictive", "aapa", "hybrid")
 ARCH_POLICIES = ("aapa", "hybrid")
@@ -1451,6 +1506,10 @@ TRACE_DISCRETE = ("minute", "sec", "scale_up", "scale_down",
 TRACE_FORECAST = ("fc_point", "fc_lo", "fc_hi", "confidence", "guard_floor")
 FORECAST_TOL = dict(rtol=1e-4, atol=1e-3)
 TRACE_LANES = 16
+# phase 34 traces SPEC's cells over their first minutes only (the traced
+# path is host-bound eager control periods: 3.9 s unsharded and 17.1 s
+# over a logical mesh of 4 at 60 minutes)
+TRACED_SPEC_MINUTES = 30
 # the fleet capture's peak device memory: its gate, and the 10^5 x 1440
 # HPA + AAPA capture's peak when the traced runner kept the whole
 # episode's MinuteOut (H100 80GB HBM3 at 700 W)
@@ -1459,7 +1518,7 @@ TRACED_PEAK_BEFORE = 15_471_030_272
 # phase 24's traced episodes: archetype_mix lanes x minutes; phases 24-25
 # run their 12 jobs in this many worker processes, each job bounded by
 # JOB_TIMEOUT_S (a lost worker must not hang the script)
-TELEMETRY_LANES, TELEMETRY_MINUTES = 1024, 240
+TELEMETRY_LANES, TELEMETRY_MINUTES = 1024, 120
 CARD_WORKERS = 7
 JOB_TIMEOUT_S = 600
 # benchmarks/bench_tuning.py's FULL sizes
@@ -2561,6 +2620,225 @@ def launch_tools_phase(dev, smi: str) -> dict:
                           for (a, s), r in roof.items() if s == "train_4k"})
 
 
+# ---- phase 35: model sharding over a world of one process per card
+SHARD_ARCH = "deepseek_v2_lite_16b"
+# the first dense layer and two MoE layers: one card also holds the
+# unsharded step (~57 GB at its peak)
+SHARD_LAYERS = 3
+SHARD_DEADLINE_S = 600
+# the sharded step against the unsharded one: the loss within the
+# reference's 0.05 (tests/test_distributed.py); new bf16 params within
+# one bf16 rounding (2^-7 of the value) plus 2.5 x the step's learning
+# rate (AdamW's first update is +-lr for every entry, and a gradient
+# within rounding of 0 may take the other sign)
+SHARD_LOSS_ATOL = 0.05
+
+
+def shard_cfg(n_layers: int, smoke: bool = False):
+    """SHARD_ARCH at full width cut to `n_layers` (with `smoke`, its smoke
+    config: a CPU rehearsal of the sharded phases)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    cfg = get_config(SHARD_ARCH)
+    cfg = smoke_config(cfg) if smoke else cfg
+    return dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def rank_device(smoke: bool) -> torch.device:
+    return torch.device("cpu") if smoke else torch.device(
+        "cuda", torch.cuda.current_device())
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_bytes(dev):
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+
+
+def launcher_batch(cfg, dev) -> dict:
+    """The launcher's token batch (8 x 64 from ``default_rng(0)``)."""
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, TRAIN_BATCH), dtype=torch.int32, device=dev)
+    return {"tokens": toks, "labels": toks}
+
+
+def same_init(params, group=None) -> None:
+    """Every rank drew the same parameters (each draws them from the same
+    seed on its own card): the f64 sums of the leaves agree."""
+    import torch.distributed as dist
+
+    from repro_torch.train import optimizer as opt_lib
+    s = torch.stack([t.double().sum() for t in opt_lib.leaves(params)])
+    all_s = [torch.empty_like(s) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(all_s, s, group=group)
+    if not all(torch.equal(a, s) for a in all_s):
+        raise RuntimeError("the ranks drew different parameters")
+
+
+def warm_groups(mesh, dev) -> None:
+    """A first all-reduce on each axis's group and the world's: NCCL
+    makes a group's communicator at its first collective."""
+    import torch.distributed as dist
+    for entry in list(mesh.axis_names) + [mesh.axis_names]:
+        dist.all_reduce(torch.ones(1, device=dev), group=mesh.group(entry))
+
+
+def sharded_step_rank(rank: int, shapes, n_layers: int, steps: int,
+                      smoke: bool = False) -> dict:
+    """One rank of phase 35 (and of tools/run_sharded_training.py's first
+    part): rank 0 runs the unsharded step of SHARD_ARCH cut to `n_layers`
+    at full width on its card; then for each mesh shape every rank places
+    the same seeded params by ``param_shardings`` and runs `steps`
+    sharded steps of the launcher's batch. The first step's loss and new
+    params are held against the unsharded step's on rank 0; every rank
+    reports its walls, peak memory and the mesh's NCCL set-up time (its
+    groups made and a first all-reduce on each, `warm_groups`). With
+    `smoke`, the smoke config on the CPU (a gloo world)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+    dev = rank_device(smoke)
+    cfg = shard_cfg(n_layers, smoke)
+    batch = launcher_batch(cfg, dev)
+    ts = make_train_step(cfg)
+    out = {"rank": rank, "meshes": {}, "card": None if smoke else
+           torch.cuda.get_device_name(dev)}
+    want = None
+    if rank == 0:
+        params = M.init(0, cfg, device=dev)
+        opt = opt_lib.init(params)
+        sync(dev)
+        reset_peak(dev)
+        t0 = time.perf_counter()
+        p1, o1, m1 = ts(params, opt, batch)
+        sync(dev)
+        out["unsharded"] = dict(
+            wall_s=time.perf_counter() - t0, peak_bytes=peak_bytes(dev),
+            n_params=sum(t.numel() for t in opt_lib.leaves(params)),
+            **{k: float(v) for k, v in m1.items()})
+        lr = 3e-4 * int(o1.step) / 100       # AdamWConfig's warmup
+        want = [t.to("cpu", copy=True) for t in opt_lib.leaves(p1)]
+        del params, opt, p1, o1
+        empty_cache(dev)
+    for shape in shapes:
+        dist.barrier()
+        sync(dev)
+        t0 = time.perf_counter()
+        mesh = launch_mesh.make_debug_mesh(*shape, device=dev.type)
+        warm_groups(mesh, dev)
+        sync(dev)
+        nccl_s = time.perf_counter() - t0
+        shd.set_mesh(mesh)
+        sh = M.param_shardings(cfg)
+        full = M.init(0, cfg, device=dev)
+        same_init(full)
+        local = shd.device_put(full, sh)
+        del full
+        opt = opt_lib.init(local)
+        lb = shd.device_put(batch, shd.batch_shardings(batch))
+        walls, peaks, losses = [], [], []
+        for step in range(steps):
+            sync(dev)
+            reset_peak(dev)
+            t0 = time.perf_counter()
+            local, opt, m = ts(local, opt, lb)
+            sync(dev)
+            walls.append(time.perf_counter() - t0)
+            peaks.append(peak_bytes(dev))
+            losses.append(float(m["loss"]))
+            if step == 0:
+                first = {k: float(v) for k, v in m.items()}
+                err = 0.0
+                for i, (x, s) in enumerate(zip(opt_lib.leaves(local),
+                                               opt_lib.leaves(sh))):
+                    g = shd.gather_leaf(x, s)
+                    if rank == 0:
+                        e = want[i].to(dev)
+                        bad = (g.float() - e.float()).abs() > (
+                            e.float().abs() * 2.0 ** -7 + 2.5 * lr)
+                        if bad.any():
+                            raise RuntimeError(
+                                f"mesh {shape}: new param leaf {i} differs "
+                                f"from the unsharded step's at "
+                                f"{int(bad.sum())} entries")
+                        err = max(err, float((g.float() - e.float())
+                                             .abs().max()))
+                    del g
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"mesh {shape}: losses {losses}")
+        if rank == 0 and abs(first["loss"] - out["unsharded"]["loss"]) \
+                > SHARD_LOSS_ATOL:
+            raise RuntimeError(f"mesh {shape}: loss {first['loss']} against "
+                               f"the unsharded {out['unsharded']['loss']}")
+        out["meshes"][str(shape)] = dict(
+            nccl_s=nccl_s, walls_s=walls, peak_bytes=peaks, losses=losses,
+            first=first, params_max_abs_err=err if rank == 0 else None,
+            local_params=sum(t.numel() for t in opt_lib.leaves(local)))
+        del local, opt, lb
+        shd.set_mesh(None)
+        empty_cache(dev)
+    return out
+
+
+def empty_cache(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def sharded_training_phase(smi: str) -> dict:
+    """35. Model sharding over a world of one process per visible card
+    (``dist.world.spawn``, NCCL, a ``file://`` store under ``build/``):
+    SHARD_ARCH at full width cut to SHARD_LAYERS layers, one sharded step
+    on the mesh (cards, 1), the launcher's 8 x 64 batch, against the
+    unsharded step on the first card (`sharded_step_rank`). Prints each
+    rank's step wall, peak memory and NCCL set-up time."""
+    from repro_torch.dist import world
+    n = torch.cuda.device_count()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ranks = world.spawn(sharded_step_rank, n, backend="nccl",
+                        root=scratch_dir() / "world",
+                        deadline_s=SHARD_DEADLINE_S,
+                        args=([(n, 1)], SHARD_LAYERS, 1))
+    wall = time.perf_counter() - t0
+    un = ranks[0]["unsharded"]
+    for r in ranks:
+        for shape, m in r["meshes"].items():
+            log(f"[sharded train] rank {r['rank']} ({r['card']}) mesh "
+                f"{shape}: {shard_cfg(SHARD_LAYERS).name} at full width cut "
+                f"to {SHARD_LAYERS} layers ({un['n_params']} parameters, "
+                f"{m['local_params']} on this card), step wall "
+                f"{m['walls_s'][0]:.3f} s, peak device memory "
+                f"{m['peak_bytes'][0]} bytes, NCCL set-up {m['nccl_s']:.3f} "
+                f"s; loss {m['first']['loss']} grad_norm "
+                f"{m['first']['grad_norm']} aux {m['first']['aux']}")
+    m0 = ranks[0]["meshes"][str((n, 1))]
+    log(f"[sharded train] unsharded step on one card: wall "
+        f"{un['wall_s']:.3f} s, peak {un['peak_bytes']} bytes, loss "
+        f"{un['loss']} grad_norm {un['grad_norm']}; the sharded step's loss "
+        f"within {SHARD_LOSS_ATOL} of it and its new params within a bf16 "
+        f"rounding plus 2.5 lr (max |diff| {m0['params_max_abs_err']}); "
+        f"phase 35 took {wall:.1f} s with {n} process(es), the main "
+        f"process holding {held} bytes [{smi}]")
+    return dict(wall_s=wall, ranks=ranks)
+
+
 def training_phases(dev, smi: str) -> dict:
     """30-33, each timed."""
     out = {}
@@ -3479,6 +3757,9 @@ def main() -> int:
     # ---- 30-33. training and the launch tools
     training_phases(dev, smi)
 
+    # ---- 35. model sharding over a world of one process per card
+    sharded_training_phase(smi)
+
     kernels = [
         dict(name="plant_block", route="cuda",
              source="src/repro_torch/kernels/csrc/plant_block.cu",
@@ -3603,7 +3884,7 @@ def main() -> int:
         if row["name"] in slice_paths:
             row["paths"] = {path: counts[row["name"]] for path, counts in
                             slice_paths[row["name"]].items()}
-    log(f"[chip_smoke] phases 1-34 in {time.perf_counter() - t_start:.1f} "
+    log(f"[chip_smoke] phases 1-35 in {time.perf_counter() - t_start:.1f} "
         f"s, the build included")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -48,8 +48,9 @@ the blocked loop with the decision trace instead
 ``plant_block`` for the decision-free ticks on the card), all [S, Z, W]
 lanes in one episode, `trace_lanes` of each cell's W lanes traced. Its
 `MinuteOut` is the plain episode's bit for bit on the CPU, and the fused
-kernel's at the episode tolerance on the card. The traced path runs on
-one device: under a mesh it needs ``shard=False``.
+kernel's at the episode tolerance on the card. Under a mesh each device
+traces the sampled lanes of its slice and the traces join in lane order,
+bit for bit the unsharded trace.
 """
 from __future__ import annotations
 
@@ -243,12 +244,9 @@ def _lane_runner(ctrls, cfg, edges, *, per_workload: bool = True,
             out.append(_stack(cells))
         return _stack(out)
 
-    def lanes(rates: torch.Tensor) -> EM.MetricAccum:
-        sh = batch.lanes_sharding(rates.shape, 1, shard, False)
-        if sh is None:
-            return lanes_on(rates)
-        parts = [lanes_on(x) for x in shd.scatter(rates, sh)]
-        first = sh.devices[0]
+    def join(parts: list[EM.MetricAccum], first) -> EM.MetricAccum:
+        """The shards' accumulators on the first device: per workload in
+        lane order, pooled summed in shard order."""
         if per_workload:                       # leaves [L, G, W, ...]
             return EM.MetricAccum(*(shd.gather(f, 2, first)
                                     for f in zip(*parts)))
@@ -258,16 +256,24 @@ def _lane_runner(ctrls, cfg, edges, *, per_workload: bool = True,
                                    for a, b in zip(acc, part)))
         return acc
 
-    def traced(rates: torch.Tensor):
-        batch.lanes_sharding(rates.shape, 1, shard, True)
+    def lanes(rates: torch.Tensor) -> EM.MetricAccum:
+        sh = batch.lanes_sharding(rates.shape, 1, shard)
+        if sh is None:
+            return lanes_on(rates)
+        return join([lanes_on(x) for x in shd.scatter(rates, sh)],
+                    sh.devices[0])
+
+    def traced_on(rates: torch.Tensor, idx):
+        """[G, W, M] on one device, its traced lanes `idx` (None: all) ->
+        (the accumulators, the ControlTrace) there."""
         G, W, M = rates.shape
         dev = rates.device
-        idx = batch.trace_index(W, trace_lanes, dev)
         K = W if idx is None else len(idx)
         flat_idx = None if idx is None else (
             torch.arange(G, device=dev)[:, None] * W + idx).reshape(-1)
         accs, cts = [], []
         for ctrl in ctrls:
+            ctrl = policies.on_device(ctrl, cfg, dev)
             if per_workload:
                 m, ct = cluster.run_traced(rates.reshape(G * W, M), ctrl,
                                            cfg, dev.type == "cuda", flat_idx)
@@ -298,6 +304,18 @@ def _lane_runner(ctrls, cfg, edges, *, per_workload: bool = True,
                     a.reshape((M, G, K)).movedim(1, 0)
                     for a in ct.minutes))))
         return _stack(accs), batch.stack_traces(cts, 3)
+
+    def traced(rates: torch.Tensor):
+        W = rates.shape[1]
+        idx = batch.trace_index(W, trace_lanes, rates.device)
+        sh = batch.lanes_sharding(rates.shape, 1, shard)
+        if sh is None:
+            return traced_on(rates, idx)
+        parts = [traced_on(x, batch.shard_index(idx, lo, hi, x.device))
+                 for x, (lo, hi) in zip(shd.scatter(rates, sh), sh.bounds())]
+        first = sh.devices[0]
+        return (join([a for a, _ in parts], first),
+                batch.join_traces([c for _, c in parts], first))
 
     if not telemetry:
         return lanes
@@ -364,8 +382,7 @@ def make_runner(spec_: MatrixSpec, classify=None, *,
         if rates.dim() != 4 or tuple(rates.shape[:2]) != (S, Z):
             raise ValueError(f"rates {tuple(rates.shape)}: expected "
                              f"[{S}, {Z}, W, M]")
-        if batch.lanes_sharding(rates.shape, 2, shard, telemetry,
-                                dev) is None:
+        if batch.lanes_sharding(rates.shape, 2, shard, dev) is None:
             rates = rates.to(dev)
         out = lanes(rates.reshape((S * Z,) + rates.shape[2:]))
         accs, ct = out if telemetry else (out, None)
@@ -411,8 +428,7 @@ def make_controller_evaluator(ctrls: Sequence,
 
     def run_fn(rates_w):
         rates_w = torch.as_tensor(rates_w, dtype=torch.float32)
-        if batch.lanes_sharding(rates_w.shape, 0, shard, telemetry,
-                                dev) is None:
+        if batch.lanes_sharding(rates_w.shape, 0, shard, dev) is None:
             rates_w = rates_w.to(dev)
         out = lanes(rates_w[None])
         accs, ct = out if telemetry else (out, None)

@@ -3,6 +3,11 @@
     python -m repro_torch.launch.train --arch internlm2_1_8b --local-smoke \
         --device cpu
 
+On several processes (one a card) each runs, as the reference's hosts do:
+
+    python -m repro_torch.launch.train --arch internlm2_1_8b \
+        --coordinator $HOST:$PORT --num-hosts $N --host-id $ID
+
 ``--local-smoke`` trains the reduced (``configs.smoke_config``) model,
 without it the arch's full config, on the card unless ``--device cpu``
 is given: random weights from seed 0, the launcher's (8, 64) token batch
@@ -10,9 +15,14 @@ drawn from ``default_rng(0)`` each step, two microbatches, AdamW with its
 defaults. The run resumes from the newest checkpoint under ``--ckpt-dir``
 and saves one every ``--ckpt-every`` steps on a writer thread, keeping
 three. ``--dry-run`` runs ``launch.dryrun.run_cell`` for ``--shape``
-instead and exits 0 or 1 on its ``ok``. ``--multi-pod`` and the
-multi-host flags (``--coordinator``) have no single-device counterpart
-and raise.
+instead and exits 0 or 1 on its ``ok``. ``--coordinator`` joins a
+``torch.distributed`` world of ``--num-hosts`` processes as rank
+``--host-id`` (``init_process_group(init_method="tcp://<coordinator>")``
+with the mesh's timeout; NCCL on the card ``host_id`` modulo the visible
+cards, gloo on the CPU), as the reference's ``jax.distributed.initialize``
+does, and then runs what the reference's launcher runs: its step is not
+sharded (``train.train_step`` shards under a world mesh). ``--multi-pod``
+raises.
 """
 from __future__ import annotations
 
@@ -33,7 +43,7 @@ def main(argv=None, *, on_step=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--ckpt-dir", default="experiments/ckpt_torch")
     ap.add_argument("--ckpt-every", type=int, default=25)
-    # multi-host bring-up in the reference (jax.distributed)
+    # multi-host bring-up (the reference's jax.distributed)
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--num-hosts", type=int, default=1)
     ap.add_argument("--host-id", type=int, default=0)
@@ -44,8 +54,29 @@ def main(argv=None, *, on_step=None):
     if args.multi_pod:
         raise shd.unsupported("--multi-pod (the 2x16x16 mesh)")
     if args.coordinator:
-        raise shd.unsupported("--coordinator (multi-host training)")
+        import torch
+        import torch.distributed as dist
 
+        from repro_torch import _device
+        cuda = _device.resolve(args.device).type == "cuda"
+        if cuda:
+            torch.cuda.set_device(args.host_id % torch.cuda.device_count())
+        dist.init_process_group(
+            "nccl" if cuda else "gloo",
+            init_method=f"tcp://{args.coordinator}",
+            world_size=args.num_hosts, rank=args.host_id,
+            timeout=shd.DEFAULT_TIMEOUT)
+        print(f"[train] process {dist.get_rank()} of "
+              f"{dist.get_world_size()} ({dist.get_backend()}, coordinator "
+              f"{args.coordinator})")
+        try:
+            return _run(args, on_step)
+        finally:
+            dist.destroy_process_group()
+    return _run(args, on_step)
+
+
+def _run(args, on_step):
     if args.dry_run:
         from repro_torch.launch.dryrun import run_cell
         rec = run_cell(args.arch, args.shape)
@@ -61,7 +92,7 @@ def main(argv=None, *, on_step=None):
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.train_step import make_train_step
 
-    dev = _device.resolve(args.device)
+    dev = _device.canonical(_device.resolve(args.device))
     cfg = smoke_config(get_config(args.arch)) if args.local_smoke \
         else get_config(args.arch)
     params = M.init(0, cfg, device=dev)

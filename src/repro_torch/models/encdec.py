@@ -83,10 +83,17 @@ def _dec_block(lp, h, enc_out, cfg, *, cache=None, pos=None):
 
 
 def forward(params, batch, cfg: ModelConfig, *, remat=True,
-            return_hidden: bool = False):
+            return_hidden: bool = False, shardings=None):
     """Training forward: batch {"tokens": [B,S], "enc_embeds": [B,T,D]}.
     Returns (logits [B,S,V], aux=0); with `remat` each encoder and decoder
-    layer is recomputed in the backward pass."""
+    layer is recomputed in the backward pass. Under a world mesh `params`
+    is this rank's blocks (of `shardings`, or of ``dist.sharding
+    .param_shardings`` of `init`'s tree), gathered whole up front
+    (``dist.sharding.gather_for_use``)."""
+    if shd.model_rules() is not None:
+        if shardings is None:
+            shardings = shd.param_shardings(init(0, cfg, device="meta"))
+        params = shd.gather_for_use(params, shardings)
     enc_out = encode(params, batch["enc_embeds"], cfg, remat=remat)
     h = params["embed"][batch["tokens"]]
 

@@ -144,38 +144,71 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
     return h
 
 
+def _shardings(cfg: ModelConfig, shardings=None):
+    """`shardings` or, under a world mesh (``dist.sharding.model_rules``)
+    when None, ``dist.sharding.param_shardings`` of `init`'s tree for
+    `cfg` (shapes only); None without one."""
+    if shardings is None and shd.model_rules() is not None:
+        shardings = shd.param_shardings(init(0, cfg, device="meta"))
+    return shardings
+
+
+def _using(shardings):
+    """`use(tree, *keys)`: the subtree `tree` of the parameters, at `keys`
+    of their tree, as the model uses it (``dist.sharding.gather_for_use``
+    under the shardings at those keys; `tree` itself without them)."""
+    def use(tree, *keys):
+        sh = shardings
+        for k in keys:
+            sh = None if sh is None else sh[k]
+        return tree if sh is None else shd.gather_for_use(tree, sh)
+    return use
+
+
 def forward(params, batch, cfg: ModelConfig, *, remat: bool = True,
-            return_hidden: bool = False):
+            return_hidden: bool = False, shardings=None):
     """Training forward. batch {"tokens": [B,S], ...} -> (logits, aux),
     or (hidden, aux) with return_hidden=True. With `remat` each layer of
     the stack (and the shared attention applied after it) is recomputed
-    in the backward pass, as the reference's checkpointed scan body."""
-    h = shd.constrain(_embed_inputs(params, batch, cfg), ("dp", None, None))
+    in the backward pass, as the reference's checkpointed scan body.
+
+    Under a world mesh `params` is this rank's blocks and `batch` its
+    rows, `shardings` the tree's (computed from `cfg` when None): each
+    layer's leaves are gathered where the layer runs, inside its remat,
+    so a recompute gathers them again and no more than a layer's full
+    parameters exist at a time."""
+    use = _using(_shardings(cfg, shardings))
+    embed = use(params["embed"], "embed")
+    h = shd.constrain(_embed_inputs({"embed": embed}, batch, cfg),
+                      ("dp", None, None))
     aux_total = torch.zeros((), dtype=F32, device=h.device)
 
-    for dp in params.get("dense_layers", []):
-        h, aux, _ = block_forward(dp, h, cfg, dense_ff=True)
+    for i, dp in enumerate(params.get("dense_layers", [])):
+        h, aux, _ = block_forward(use(dp, "dense_layers", i), h, cfg,
+                                  dense_ff=True)
         aux_total = aux_total + aux
 
     shared = params.get("shared_attn")
 
     def layer(lp, h, i):
-        h, aux, _ = block_forward(lp, h, cfg)
+        h, aux, _ = block_forward(use(lp, "layers", i), h, cfg)
         if shared is not None and cfg.attn_every \
                 and (i + 1) % cfg.attn_every == 0:
-            h, _ = _shared_attn_block(shared, h, cfg)
+            h, _ = _shared_attn_block(use(shared, "shared_attn"), h, cfg)
         return h, aux
 
     for i, lp in enumerate(params["layers"]):
         h, aux = Lyr.remat(layer, lp, h, i, enabled=remat)
         aux_total = aux_total + aux
 
-    h = Lyr.rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    h = Lyr.rms_norm(h, use(params["final_norm"], "final_norm")["scale"],
+                     cfg.norm_eps)
     if cfg.n_img_tokens and "img_embeds" in batch:
         h = h[:, batch["img_embeds"].shape[1]:]   # loss on text positions
     if return_hidden:
         return h, aux_total
-    logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])
+    logits = torch.einsum("bsd,dv->bsv", h, use(params["lm_head"],
+                                                "lm_head"))
     return logits, aux_total
 
 

@@ -29,7 +29,8 @@ independent, so the result is the unsharded one bit for bit. `donate=`
 is the reference's and does nothing. `telemetry=True` runs each
 controller lane's episodes through the blocked loop with its decision
 trace (``sim.cluster.run_traced``), `trace_lanes` of the W lanes traced;
-under an active mesh it raises unless ``shard=False`` (one device).
+under an active mesh each device traces the sampled lanes of its slice,
+and the traces join in lane order, bit for bit the unsharded trace.
 """
 from __future__ import annotations
 
@@ -75,22 +76,37 @@ def trace_index(W: int, trace_lanes: int | None, dev):
     return None if idx is None else torch.as_tensor(idx, device=dev)
 
 
-def lanes_sharding(shape, w_axis: int, shard: bool, telemetry: bool,
+def lanes_sharding(shape, w_axis: int, shard: bool,
                    device=None) -> shd.LaneSharding | None:
     """The lane sharding of arrays of `shape` (workload axis `w_axis`)
     under the active mesh, or None (no mesh, or `shard` off). The
     caller's `device`, when given, must be of the mesh's type
-    (``dist.sharding.check_device``). The traced path has no sharded form
-    yet: with `telemetry` it raises instead."""
+    (``dist.sharding.check_device``). The traced path shards as the
+    untraced one (`shard_index`, `join_traces`)."""
     sh = shd.lane_sharding(shape, w_axis=w_axis) if shard else None
     if sh is not None and device is not None:
         shd.check_device(device)
-    if sh is not None and telemetry:
-        raise NotImplementedError(
-            "telemetry under a device mesh: the traced path runs on one "
-            "device; pass shard=False (repro_torch.evals.fleet traces "
-            "under a mesh chunk by chunk)")
     return sh
+
+
+def shard_index(idx, lo: int, hi: int, dev):
+    """The traced lanes of the shard [lo, hi) of the workload axis, in its
+    own numbering, on `dev` (None, all lanes, stays None)."""
+    if idx is None:
+        return None
+    return (idx[(idx >= lo) & (idx < hi)] - lo).to(dev)
+
+
+def join_traces(traces: list[obs_trace.ControlTrace],
+                device) -> obs_trace.ControlTrace:
+    """The shards' traces, in shard order, as the unsharded run's: every
+    leaf's traced lanes are its last axis."""
+    def join(parts):
+        return type(parts[0])(*(torch.cat([a.to(device) for a in f], -1)
+                                for f in zip(*parts)))
+    return obs_trace.ControlTrace(
+        decisions=join([t.decisions for t in traces]),
+        minutes=join([t.minutes for t in traces]))
 
 
 def make_batch_simulator(controllers: Sequence[Controller],
@@ -114,8 +130,9 @@ def make_batch_simulator(controllers: Sequence[Controller],
     (``FleetSpec.trace_lanes``).
 
     Under an active mesh with `shard`, each device runs its slice of the
-    W lanes (`w_chunk` lanes per call within it) and the result lands on
-    the mesh's first device."""
+    W lanes (`w_chunk` lanes per call within it; with `telemetry`, the
+    sampled lanes of its slice traced) and the result lands on the
+    mesh's first device."""
     del donate
     ctrls = list(controllers)
     dev = _device.resolve(device)
@@ -128,10 +145,12 @@ def make_batch_simulator(controllers: Sequence[Controller],
         cluster._reject_decide_kernel_telemetry()
     use_kernel = dev.type == "cuda" if plant_kernel is None else plant_kernel
 
-    def traced(rates):
-        idx = trace_index(rates.shape[0], trace_lanes, dev)
-        outs, cts = zip(*(cluster.run_traced(rates, ctrl, cfg, use_kernel,
-                                             idx) for ctrl in ctrls))
+    def traced(rates, idx):
+        """rates [W, M] on one device, its traced lanes `idx` (None: all)
+        -> (MinuteOut [P, W, M], ControlTrace) there."""
+        outs, cts = zip(*(cluster.run_traced(
+            rates, policies.on_device(ctrl, cfg, rates.device), cfg,
+            use_kernel, idx) for ctrl in ctrls))
         return (MinuteOut(*(torch.stack(f) for f in zip(*outs))),
                 stack_traces(list(cts), 2))
 
@@ -149,13 +168,22 @@ def make_batch_simulator(controllers: Sequence[Controller],
 
     def run(rates) -> MinuteOut:
         rates = torch.as_tensor(rates, dtype=torch.float32)
-        sh = lanes_sharding(rates.shape, 0, shard, telemetry, dev)
+        sh = lanes_sharding(rates.shape, 0, shard, dev)
+        idx = trace_index(rates.shape[0], trace_lanes, dev) if telemetry \
+            else None
         if sh is None:
             rates = rates.to(dev)
-            return traced(rates) if telemetry else lanes(rates)
-        parts = [lanes(x) for x in shd.scatter(rates, sh)]
-        return MinuteOut(*(shd.gather(f, 1, sh.devices[0])
-                           for f in zip(*parts)))
+            return traced(rates, idx) if telemetry else lanes(rates)
+        xs, first = shd.scatter(rates, sh), sh.devices[0]
+
+        def join(outs) -> MinuteOut:
+            return MinuteOut(*(shd.gather(f, 1, first) for f in zip(*outs)))
+        if telemetry:
+            parts = [traced(x, shard_index(idx, lo, hi, x.device))
+                     for x, (lo, hi) in zip(xs, sh.bounds())]
+            return (join([o for o, _ in parts]),
+                    join_traces([c for _, c in parts], first))
+        return join([lanes(x) for x in xs])
 
     return run
 

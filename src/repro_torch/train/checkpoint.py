@@ -16,8 +16,13 @@ restores bit for bit in the other. The port's model trees keep one dict
 per layer where the reference stacks the layers, so their leaves differ
 in number and shape between the packages.
 
-The reference's elastic restore (``mesh=``, ``shardings=``: reshard onto
-another mesh) has no single-device counterpart and raises.
+Under a world mesh (``dist.sharding``) a tree of this rank's blocks is
+saved with its ``shardings``: the leaves are gathered one at a time, rank
+0 writes the reference's format and the other ranks wait for it, so the
+checkpoint equals, leaf by leaf, the one written from the unsharded tree.
+``restore(..., shardings=...)`` reads each array and keeps this rank's
+block under the given shardings, which may be those of another mesh than
+the one that saved: the reference's elastic reshard-on-restore.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import _device
 from repro_torch.dist import sharding as shd
@@ -83,10 +89,32 @@ def _treedef(tree) -> str:
     return repr(unflatten(tree, ["*"] * len(leaves(tree))))
 
 
-def save(path: str | os.PathLike, step: int, tree) -> pathlib.Path:
-    """Atomic synchronous checkpoint of a tree of tensors (or arrays)."""
-    arrays, dtypes = _snapshot(tree)
-    return _write(path, step, arrays, dtypes, _treedef(tree))
+def save(path: str | os.PathLike, step: int, tree, *,
+         shardings=None) -> pathlib.Path:
+    """Atomic synchronous checkpoint of a tree of tensors (or arrays).
+    With `shardings` (a ``dist.sharding.NamedSharding`` tree on a world
+    mesh) `tree` holds this rank's blocks; every rank of the mesh calls
+    `save`, and it returns once rank 0 has written the full arrays."""
+    if shardings is None:
+        arrays, dtypes = _snapshot(tree)
+        return _write(path, step, arrays, dtypes, _treedef(tree))
+    xs, shs = leaves(tree), leaves(shardings)
+    if len(xs) != len(shs):
+        raise ValueError(f"{len(xs)} leaves with {len(shs)} shardings")
+    mesh = shs[0].mesh
+    arrays, dtypes = [], []
+    for x, sh in zip(xs, shs):
+        full = shd.gather_leaf(x, sh)
+        if mesh.rank == 0:
+            a, d = _snapshot([full])
+            arrays += a
+            dtypes += d
+        del full
+    final = pathlib.Path(path) / f"step_{step:08d}"
+    if mesh.rank == 0:
+        final = _write(path, step, arrays, dtypes, _treedef(tree))
+    dist.barrier(group=mesh.group(mesh.axis_names))
+    return final
 
 
 def latest_step(path: str | os.PathLike) -> int | None:
@@ -101,11 +129,16 @@ def latest_step(path: str | os.PathLike) -> int | None:
 def restore(path: str | os.PathLike, target_tree, *, step: int | None = None,
             mesh=None, shardings=None, device=None):
     """Restore into the structure of `target_tree` (a tree of tensors,
-    meta tensors included). Each leaf keeps the checkpoint's dtype and goes
-    to `device`, or, when None, to its target leaf's device (a meta
-    target: the card). Returns (tree, step)."""
-    if mesh is not None or shardings is not None:
-        raise shd.unsupported("restore(mesh=..., shardings=...)")
+    meta tensors included, of the checkpoint's full shapes). Each leaf
+    keeps the checkpoint's dtype and goes to `device`, or, when None, to
+    its target leaf's device (a meta target: the card). With `shardings`
+    (a ``dist.sharding.NamedSharding`` tree, of any world mesh) each leaf
+    is this rank's block under its sharding, on this rank's device. `mesh`
+    is accepted as the reference's is (a world mesh; a lane mesh holds no
+    model's shards and raises). Returns (tree, step)."""
+    if mesh is not None and not mesh.is_world:
+        raise shd.unsupported("restore(mesh=<a lane mesh>)", shd.LANE_MESH)
+    sh_leaves = None if shardings is None else leaves(shardings)
     root = pathlib.Path(path)
     if step is None:
         step = latest_step(root)
@@ -119,16 +152,24 @@ def restore(path: str | os.PathLike, target_tree, *, step: int | None = None,
     if meta["n_leaves"] != len(targets):
         raise AssertionError(f"checkpoint has {meta['n_leaves']} leaves, "
                              f"target {len(targets)}")
+    if sh_leaves is not None and len(sh_leaves) != len(targets):
+        raise AssertionError(f"{len(sh_leaves)} shardings for "
+                             f"{len(targets)} leaves")
     out = []
     for i, tgt in enumerate(targets):
         arr = z[f"leaf_{i}"]
         if arr.shape != tuple(tgt.shape):
             raise AssertionError(f"leaf {i}: ckpt {arr.shape} vs target "
                                  f"{tuple(tgt.shape)}")
+        if sh_leaves is not None:
+            sh = sh_leaves[i]
+            arr = np.array(arr[sh.index(arr.shape)])
         t = torch.from_numpy(arr)
         if meta[f"dtype_{i}"] == "bfloat16":
             t = t.view(torch.int16).view(torch.bfloat16)
-        if device is not None:
+        if sh_leaves is not None:
+            dev = sh_leaves[i].mesh.device
+        elif device is not None:
             dev = _device.resolve(device)
         elif isinstance(tgt, torch.Tensor) and tgt.device.type != "meta":
             dev = tgt.device

@@ -28,6 +28,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import _device, _numerics
+from repro_torch.dist import collectives as coll
 
 F32 = torch.float32
 F64 = torch.float64
@@ -120,15 +121,31 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply(grads, params, opt: OptState, cfg: AdamWConfig):
+def apply(grads, params, opt: OptState, cfg: AdamWConfig, *,
+          shardings=None):
     """Full AdamW step. Returns (new_params (model dtype), new_opt,
-    gnorm); every returned tensor is new."""
+    gnorm); every returned tensor is new.
+
+    With `shardings` (the params' ``dist.sharding.NamedSharding`` tree on
+    a world mesh) every tree holds this rank's blocks; the update is
+    elementwise, and the norm that clips is the global one: the squared
+    sums of the blocks this rank owns (a block held alike by several
+    ranks counts once), summed over the world."""
     flat_g = leaves(grads)
     dev = flat_g[0].device
     sums = [torch.sum(torch.square(g.to(F32))) for g in flat_g]
-    total = sums[0]
-    for s in sums[1:]:
-        total = total + s
+    if shardings is not None:
+        shs = leaves(shardings)
+        mesh = shs[0].mesh
+        owned = [s for s, sh in zip(sums, shs) if sh.owned()]
+        total = torch.zeros((), dtype=F32, device=dev)
+        for s in owned:
+            total = total + s
+        total = coll.all_reduce(total, mesh.group(mesh.axis_names))
+    else:
+        total = sums[0]
+        for s in sums[1:]:
+            total = total + s
     gnorm = _numerics.sqrt(total)
     scale = torch.clamp(_device.const(cfg.grad_clip, dev) / (gnorm + 1e-9),
                         max=1.0)

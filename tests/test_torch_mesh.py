@@ -357,13 +357,49 @@ def test_sharded_pooled_matrix_and_evaluator(matrix_runs):
 
 
 def test_telemetry_under_a_mesh_needs_shard_false(matrix_runs):
+    """Traced runs under a 4-entry mesh need no ``shard=False`` any more:
+    each entry traces the sampled lanes of its slice (3 of W = 8 here, so
+    one entry traces none; the first 30 minutes) and the traces join in
+    lane order. The
+    matrix's trace and per-workload accumulators, pooled or not, and the
+    batch simulator's MinuteOut and trace equal the unsharded runs' bit
+    for bit; the matrix's pooled-only metrics at rtol 2e-6 (the devices'
+    parts sum in another order), scaling actions exact. ``shard=False``
+    runs whole on one device, bit for bit too."""
     sp, rates, _, _ = matrix_runs
+    rates = rates[..., :30]                    # the traced path is eager
+    want = {per: matrix.make_runner(sp, device="cpu", telemetry=True,
+                                    trace_lanes=3, per_workload=per)(rates)
+            for per in (True, False)}
+    cfg = SimConfig()
+    ctrls = [registry.make("hpa", cfg), registry.make("predictive", cfg)]
+    sim = batch.make_batch_simulator(ctrls, cfg, device="cpu",
+                                     telemetry=True, trace_lanes=3)
+    want_batch = sim(rates[0, 0])
     _mesh(4)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        matrix.make_runner(sp, device="cpu", telemetry=True)(rates)
-    pool, _, _ = matrix.make_runner(sp, device="cpu", telemetry=True,
-                                    shard=False, trace_lanes=2)(rates)
-    assert pool.slo_violation_rate.shape == sp.shape
+    for per, shard in ((True, True), (True, False), (False, True)):
+        pool1, per1, ct1 = want[per]
+        pool, per_w, ct = matrix.make_runner(
+            sp, device="cpu", telemetry=True, trace_lanes=3,
+            per_workload=per, shard=shard)(rates)
+        what = f"per_workload {per} shard {shard}"
+        _equal(ct.decisions, ct1.decisions, f"{what} decisions")
+        _equal(ct.minutes, ct1.minutes, f"{what} minutes")
+        assert ct.decisions.minute.shape[-1] == 3
+        if per:
+            _equal(per_w, per1, f"{what} per workload")
+            _equal(pool, pool1, f"{what} pooled")
+            continue
+        for field in pool._fields:
+            np.testing.assert_allclose(
+                getattr(pool, field).numpy(),
+                getattr(pool1, field).numpy(), rtol=2e-6, atol=0,
+                err_msg=f"{what} {field}")
+        assert torch.equal(pool.scaling_actions, pool1.scaling_actions)
+    out, ct = sim(rates[0, 0])
+    _equal(out, want_batch[0], "batch MinuteOut")
+    _equal(ct.decisions, want_batch[1].decisions, "batch decisions")
+    _equal(ct.minutes, want_batch[1].minutes, "batch minutes")
 
 
 # ------------------------------------------------ batch simulator, build ----

@@ -104,7 +104,9 @@ def test_training_slice_modules_mirror_the_reference(pkg, modules):
 
 
 def test_the_port_has_every_reference_module():
-    """The two trees' module lists differ only by the port's own helpers."""
+    """The two trees' module lists differ only by the port's own helpers
+    (``dist/collectives`` and ``dist/world``: the per-rank collectives
+    and the spawned world that stand in for the reference's GSPMD)."""
     def modules(root):
         return {str(p.relative_to(root).with_suffix(""))
                 for p in root.rglob("*.py")}
@@ -113,7 +115,7 @@ def test_the_port_has_every_reference_module():
     assert ref - port == set()
     assert {m for m in port - ref if not m.endswith("__init__")} == {
         "_device", "_numerics", "interop", "kernels/_build",
-        "kernels/policy_signals"}
+        "kernels/policy_signals", "dist/collectives", "dist/world"}
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

@@ -277,14 +277,14 @@ def test_launcher_decisions_match_reference_adapter(tmp_path):
 
 
 def test_launcher_flags():
-    """Unknown policies exit with the list; ``--multi-pod`` has no
-    single-device counterpart and exits with an error; ``--dry-run`` runs
-    the dry run of the ``decode_32k`` cell on the meta device and exits
-    0."""
+    """Unknown policies exit with the list; ``--multi-pod`` (the
+    reference's 2x16x16 mesh across hosts) is not in the port and exits
+    with an error; ``--dry-run`` runs the dry run of the ``decode_32k``
+    cell on the meta device and exits 0."""
     with pytest.raises(SystemExit, match="available"):
         launcher.main(["--arch", "stablelm_1_6b", "--policy", "nope",
                        "--device", "cpu"])
-    with pytest.raises(SystemExit, match="single device"):
+    with pytest.raises(SystemExit, match="multi-pod"):
         launcher.main(["--arch", "stablelm_1_6b", "--multi-pod"])
     with pytest.raises(SystemExit) as done:
         launcher.main(["--arch", "stablelm_1_6b", "--dry-run"])

@@ -173,32 +173,37 @@ def test_moe_capacity_formula():
 
 def test_single_device_sharding():
     """No mesh: `constrain` is the identity and `active` None, as the
-    reference's without a mesh. What the port's mesh does not do raises,
-    naming model sharding: the tree shardings (with or without a mesh),
-    expert parallelism, and `constrain` under an active mesh; `set_mesh`
-    takes only the port's own Mesh."""
+    reference's without a mesh; the tree shardings and expert parallelism
+    raise as the reference's do without one (RuntimeError, "set_mesh").
+    Under a one-process lane mesh the tree shardings give the
+    reference's specs by shape (its data axis splits the largest
+    divisible dim), while model code raises, naming model sharding:
+    expert parallelism and `constrain`. `set_mesh` takes only the port's
+    own Mesh. (Model sharding over a world mesh:
+    tests/test_torch_dist_*.py.)"""
     x = torch.arange(6.0).reshape(2, 3)
     assert shd.constrain(x, ("dp", None)) is x
     assert shd.set_mesh(None) is None and shd.active() is None
     with pytest.raises(TypeError, match="Mesh"):
         shd.set_mesh(object())
     _, cfg = _moe_cfgs()
-    for mesh in (None, shd.Mesh(["cpu"] * 2)):
-        shd.set_mesh(mesh)
-        try:
-            for fn, args in ((shd.param_shardings, ({},)),
-                             (shd.batch_shardings, ({},)),
-                             (shd.cache_shardings, ({}, None))):
-                with pytest.raises(NotImplementedError,
-                                   match="model sharding"):
-                    fn(*args)
-            with pytest.raises(NotImplementedError, match="model sharding"):
-                moe_block_ep({}, torch.zeros((1, 2, 16)), cfg)
-        finally:
-            shd.set_mesh(None)
+    for fn, args in ((shd.param_shardings, ({},)),
+                     (shd.batch_shardings, ({},)),
+                     (shd.cache_shardings, ({}, None))):
+        with pytest.raises(RuntimeError, match="set_mesh"):
+            fn(*args)
+    with pytest.raises(RuntimeError, match="set_mesh"):
+        moe_block_ep({}, torch.zeros((1, 2, 16)), cfg)
     shd.set_mesh(shd.Mesh(["cpu"] * 2))
     try:
         assert shd.active().mesh.shape == {"data": 2}
+        specs = shd.param_shardings({"w": torch.empty((3, 8), device="meta"),
+                                     "b": torch.empty((8,), device="meta")})
+        assert specs["w"].spec == shd.P(None, "data")
+        assert specs["b"].spec == shd.P()
+        assert shd.batch_shardings(x).spec == shd.P("data", None)
+        with pytest.raises(NotImplementedError, match="model sharding"):
+            moe_block_ep({}, torch.zeros((1, 2, 16)), cfg)
         with pytest.raises(NotImplementedError, match="model sharding"):
             shd.constrain(x, ("dp", None))
     finally:

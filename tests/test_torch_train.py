@@ -361,10 +361,21 @@ def test_restore_shape_mismatch_raises(tmp_path):
 
 
 def test_restore_onto_a_mesh_raises(tmp_path):
+    """A one-process lane mesh holds no model's shards: restoring onto it,
+    or with shardings on it, raises; so does the multi-pod mesh, which
+    the port cannot build (the elastic restore onto a world mesh:
+    tests/test_torch_dist_sharding.py)."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import mesh as launch_mesh
     ckpt.save(tmp_path, 1, {"a": torch.ones((4,))})
-    for kw in ({"mesh": object()}, {"shardings": {"a": None}}):
-        with pytest.raises(NotImplementedError, match="single device"):
+    lane = launch_mesh.make_debug_mesh(2, 2)
+    for kw in ({"mesh": lane},
+               {"shardings": {"a": shd.NamedSharding(lane, shd.P("data"))}}):
+        with pytest.raises(NotImplementedError, match="lane mesh"):
             ckpt.restore(tmp_path, {"a": torch.ones((4,))}, **kw)
+    with pytest.raises(NotImplementedError, match="multi-pod"):
+        ckpt.restore(tmp_path, {"a": torch.ones((4,))},
+                     mesh=launch_mesh.make_production_mesh(multi_pod=True))
 
 
 def test_train_resume_from_checkpoint(tmp_path):
@@ -428,10 +439,13 @@ def test_launcher_trains_and_resumes(tmp_path, capsys):
 
 
 def test_launcher_refusals():
+    """``--multi-pod`` (the reference's 2x16x16 mesh across hosts) is not
+    in the port and raises (``--coordinator`` joins a world:
+    tests/test_torch_dist_sharding.py); without CUDA the default device
+    raises."""
     from repro_torch.launch import train as launcher
-    for extra in (["--multi-pod"], ["--coordinator", "localhost:1"]):
-        with pytest.raises(NotImplementedError, match="single device"):
-            launcher.main(["--arch", ARCH] + extra)
+    with pytest.raises(NotImplementedError, match="multi-pod"):
+        launcher.main(["--arch", ARCH, "--multi-pod"])
     if not torch.cuda.is_available():       # the card is the default
         with pytest.raises(RuntimeError, match="CUDA"):
             launcher.main(["--arch", ARCH, "--local-smoke", "--steps", "1"])
