@@ -10,7 +10,7 @@ import torch
 from repro_torch.dist import sharding as shd
 from repro_torch.models import layers as Lyr
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.transformer import generator
+from repro_torch.models.transformer import _using, generator
 
 F32 = torch.float32
 
@@ -50,10 +50,13 @@ def init(rng, cfg: ModelConfig, *, device="cuda"):
     }
 
 
-def encode(params, enc_embeds, cfg: ModelConfig, *, remat=True):
+def encode(params, enc_embeds, cfg: ModelConfig, *, remat=True,
+           use=_using(None)):
     """enc_embeds [B, T_enc, D] (stub frontend output) -> [B, T_enc, D];
-    with `remat` each layer is recomputed in the backward pass."""
-    def layer(lp, h):
+    with `remat` each layer is recomputed in the backward pass. `use`
+    gathers a layer's leaves where it runs (``transformer._using``)."""
+    def layer(lp, h, i):
+        lp = use(lp, "enc_layers", i)
         a = Lyr.rms_norm(h, lp["ln1"]["scale"], cfg.norm_eps)
         a, _ = Lyr.attention(lp["attn"], a, cfg, causal=False)
         h = h + a
@@ -61,9 +64,10 @@ def encode(params, enc_embeds, cfg: ModelConfig, *, remat=True):
         return shd.constrain(h + Lyr.mlp(lp["mlp"], m), ("dp", "mp", None))
 
     h = enc_embeds.to(cfg.jdtype)
-    for lp in params["enc_layers"]:
-        h = Lyr.remat(layer, lp, h, enabled=remat)
-    return Lyr.rms_norm(h, params["enc_norm"]["scale"], cfg.norm_eps)
+    for i, lp in enumerate(params["enc_layers"]):
+        h = Lyr.remat(layer, lp, h, i, enabled=remat)
+    return Lyr.rms_norm(h, use(params["enc_norm"], "enc_norm")["scale"],
+                        cfg.norm_eps)
 
 
 def _dec_block(lp, h, enc_out, cfg, *, cache=None, pos=None):
@@ -88,26 +92,27 @@ def forward(params, batch, cfg: ModelConfig, *, remat=True,
     Returns (logits [B,S,V], aux=0); with `remat` each encoder and decoder
     layer is recomputed in the backward pass. Under a world mesh `params`
     is this rank's blocks (of `shardings`, or of ``dist.sharding
-    .param_shardings`` of `init`'s tree), gathered whole up front
-    (``dist.sharding.gather_for_use``)."""
-    if shd.model_rules() is not None:
-        if shardings is None:
-            shardings = shd.param_shardings(init(0, cfg, device="meta"))
-        params = shd.gather_for_use(params, shardings)
-    enc_out = encode(params, batch["enc_embeds"], cfg, remat=remat)
-    h = params["embed"][batch["tokens"]]
+    .param_shardings`` of `init`'s tree): each layer's leaves are gathered
+    where the layer runs, inside its remat, as in ``transformer.forward``."""
+    if shardings is None and shd.model_rules() is not None:
+        shardings = shd.param_shardings(init(0, cfg, device="meta"))
+    use = _using(shardings)
+    enc_out = encode(params, batch["enc_embeds"], cfg, remat=remat, use=use)
+    h = use(params["embed"], "embed")[batch["tokens"]]
 
-    def layer(lp, h):
-        h, _ = _dec_block(lp, h, enc_out, cfg)
+    def layer(lp, h, i):
+        h, _ = _dec_block(use(lp, "dec_layers", i), h, enc_out, cfg)
         return shd.constrain(h, ("dp", "mp", None))
 
-    for lp in params["dec_layers"]:
-        h = Lyr.remat(layer, lp, h, enabled=remat)
-    h = Lyr.rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    for i, lp in enumerate(params["dec_layers"]):
+        h = Lyr.remat(layer, lp, h, i, enabled=remat)
+    h = Lyr.rms_norm(h, use(params["final_norm"], "final_norm")["scale"],
+                     cfg.norm_eps)
     aux = torch.zeros((), dtype=F32, device=h.device)
     if return_hidden:
         return h, aux
-    logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])
+    logits = torch.einsum("bsd,dv->bsv", h, use(params["lm_head"],
+                                                "lm_head"))
     return logits, aux
 
 

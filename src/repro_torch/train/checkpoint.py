@@ -17,9 +17,11 @@ per layer where the reference stacks the layers, so their leaves differ
 in number and shape between the packages.
 
 Under a world mesh (``dist.sharding``) a tree of this rank's blocks is
-saved with its ``shardings``: the leaves are gathered one at a time, rank
-0 writes the reference's format and the other ranks wait for it, so the
-checkpoint equals, leaf by leaf, the one written from the unsharded tree.
+saved with its ``shardings``: the leaves are gathered one at a time and
+rank 0 writes each into the reference's format before it gathers the
+next (host memory holds one full leaf at a time); the other ranks wait
+for it. The checkpoint equals, leaf by leaf, the one written from the
+unsharded tree.
 ``restore(..., shardings=...)`` reads each array and keeps this rank's
 block under the given shardings, which may be those of another mesh than
 the one that saved: the reference's elastic reshard-on-restore.
@@ -32,6 +34,7 @@ import pathlib
 import queue
 import shutil
 import threading
+import zipfile
 
 import numpy as np
 import torch
@@ -52,17 +55,22 @@ def _host(leaf) -> np.ndarray:
     return np.array(leaf)
 
 
+def _entry(leaf):
+    """(host array, dtype name) of one leaf."""
+    a = _host(leaf)
+    bf16 = isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
+    return a, "bfloat16" if bf16 else str(a.dtype)
+
+
 def _snapshot(tree):
-    """(host arrays, dtype names) of `tree`'s leaves, in leaf order."""
-    arrays, dtypes = [], []
-    for leaf in leaves(tree):
-        bf16 = isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
-        arrays.append(_host(leaf))
-        dtypes.append("bfloat16" if bf16 else str(arrays[-1].dtype))
-    return arrays, dtypes
+    """The (host array, dtype name) of each of `tree`'s leaves, in leaf
+    order."""
+    return [_entry(leaf) for leaf in leaves(tree)]
 
 
-def _write(path, step: int, arrays, dtypes, treedef: str) -> pathlib.Path:
+def _write(path, step: int, entries, treedef: str) -> pathlib.Path:
+    """Writes the (host array, dtype name) `entries` (any iterable, each
+    written as it comes, as ``np.savez`` writes) and the meta."""
     root = pathlib.Path(path)
     root.mkdir(parents=True, exist_ok=True)
     final = root / f"step_{step:08d}"
@@ -70,11 +78,17 @@ def _write(path, step: int, arrays, dtypes, treedef: str) -> pathlib.Path:
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
-    meta = {"step": step, "n_leaves": len(arrays), "treedef": treedef}
+    dtypes = []
+    with zipfile.ZipFile(tmp / "shards.npz", "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for i, (a, dt) in enumerate(entries):
+            with zf.open(f"leaf_{i}.npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asanyarray(a),
+                                          allow_pickle=False)
+            dtypes.append(dt)
+    meta = {"step": step, "n_leaves": len(dtypes), "treedef": treedef}
     for i, dt in enumerate(dtypes):
         meta[f"dtype_{i}"] = dt
-    np.savez(tmp / "shards.npz",
-             **{f"leaf_{i}": a for i, a in enumerate(arrays)})
     (tmp / "meta.json").write_text(json.dumps(meta))
     with open(tmp / "meta.json", "rb") as f:
         os.fsync(f.fileno())
@@ -96,23 +110,18 @@ def save(path: str | os.PathLike, step: int, tree, *,
     mesh) `tree` holds this rank's blocks; every rank of the mesh calls
     `save`, and it returns once rank 0 has written the full arrays."""
     if shardings is None:
-        arrays, dtypes = _snapshot(tree)
-        return _write(path, step, arrays, dtypes, _treedef(tree))
+        return _write(path, step, _snapshot(tree), _treedef(tree))
     xs, shs = leaves(tree), leaves(shardings)
     if len(xs) != len(shs):
         raise ValueError(f"{len(xs)} leaves with {len(shs)} shardings")
     mesh = shs[0].mesh
-    arrays, dtypes = [], []
-    for x, sh in zip(xs, shs):
-        full = shd.gather_leaf(x, sh)
-        if mesh.rank == 0:
-            a, d = _snapshot([full])
-            arrays += a
-            dtypes += d
-        del full
+    gathered = (shd.gather_leaf(x, sh) for x, sh in zip(xs, shs))
     final = pathlib.Path(path) / f"step_{step:08d}"
     if mesh.rank == 0:
-        final = _write(path, step, arrays, dtypes, _treedef(tree))
+        final = _write(path, step, map(_entry, gathered), _treedef(tree))
+    else:
+        for _ in gathered:       # every rank takes part in each gather
+            pass
     dist.barrier(group=mesh.group(mesh.axis_names))
     return final
 
@@ -214,8 +223,8 @@ class AsyncCheckpointer:
     def save(self, step: int, tree) -> None:
         if self._err:
             raise self._err
-        arrays, dtypes = _snapshot(tree)                # blocking copy
-        self._q.put((step, arrays, dtypes, _treedef(tree)))  # I/O overlapped
+        entries = _snapshot(tree)                       # blocking copy
+        self._q.put((step, entries, _treedef(tree)))    # I/O overlapped
 
     def wait(self) -> None:
         self._q.join()

@@ -96,7 +96,8 @@ def moe(path):
 def train(path, archs):
     """One train step of each smoke config (f32, remat off), from the
     reference's init at PRNGKey(0), on each mesh: loss, grad_norm, the
-    new params and optimizer state."""
+    new params and optimizer state (an encoder-decoder's batch also holds
+    frame embeddings drawn here)."""
     rng = np.random.default_rng(1)
     toks = rng.integers(0, 256, TRAIN_BATCH).astype(np.int32)
     out = {"tokens": toks}
@@ -106,6 +107,11 @@ def train(path, archs):
         params = M.init(jax.random.PRNGKey(0), cfg)
         opt = opt_lib.init(params)
         batch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)}
+        if cfg.n_enc_layers:        # the stub frontend's frame embeddings
+            emb = np.random.default_rng(2).normal(size=(
+                TRAIN_BATCH[0], cfg.enc_len, cfg.d_model)).astype(np.float32)
+            out[f"{arch}/enc_embeds"] = emb
+            batch["enc_embeds"] = jnp.asarray(emb)
         ts = make_train_step(cfg, remat=False)
         _flat(f"{arch}/params", params, out)
         for name, shape in MESHES.items():

@@ -47,9 +47,11 @@ def runs(arch: str, tmp):
     for name in dref.MESHES:
         for field in ("params", "master", "m", "v"):
             ref[f"{name}/{field}"] = tree(f"{arch}/{name}/{field}")
-    torch.save({"params": ref["params"],
-                "tokens": torch.as_tensor(ref["tokens"])},
-               tmp / "inputs.pt")
+    inputs = {"params": ref["params"], "tokens": torch.as_tensor(
+        ref["tokens"])}
+    if f"{arch}/enc_embeds" in ref:
+        inputs["enc_embeds"] = torch.as_tensor(ref[f"{arch}/enc_embeds"])
+    torch.save(inputs, tmp / "inputs.pt")
     shapes = list(dref.MESHES.values())
     res = world.spawn(ranks.train_rank, 4, backend="gloo", root=tmp,
                       deadline_s=DEADLINE_S, threads=1,

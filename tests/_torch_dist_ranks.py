@@ -155,6 +155,8 @@ def train_rank(rank: int, inputs: str, arch: str, shapes) -> dict:
     params = data["params"]
     toks = data["tokens"]
     batch = {"tokens": toks, "labels": toks}
+    if "enc_embeds" in data:
+        batch["enc_embeds"] = data["enc_embeds"]
     ts = make_train_step(cfg)
     out = {}
     if rank == 0:

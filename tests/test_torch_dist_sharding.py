@@ -204,30 +204,49 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_launcher_coordinator_over_two_processes(tmp_path):
-    """``launch.train --coordinator`` in two processes joins one gloo
-    world of two (each prints its rank), then each trains as the
-    reference's hosts do: the same losses."""
-    port = _free_port()
+def _launch_two(tmp_path, port):
+    """Both hosts of ``launch.train --coordinator 127.0.0.1:<port>``:
+    their (return codes, outputs, errors)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "internlm2_1_8b", "--local-smoke", "--device", "cpu", "--steps",
-         "1", "--ckpt-dir", str(tmp_path / f"host{i}"), "--coordinator",
-         f"127.0.0.1:{port}", "--num-hosts", "2", "--host-id", str(i)],
+         "1", "--ckpt-dir", str(tmp_path / f"p{port}_host{i}"),
+         "--coordinator", f"127.0.0.1:{port}", "--num-hosts", "2",
+         "--host-id", str(i)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for i in range(2)]
-    outs = []
+    res = []
     try:
         for p in procs:
+            if res and res[0][0]:    # host 0 failed: host 1 waits in vain
+                p.kill()
             out, err = p.communicate(timeout=DEADLINE_S)
-            assert p.returncode == 0, err[-3000:]
-            outs.append(out)
+            res.append((p.returncode, out, err))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait(10)
+    return res
+
+
+def test_launcher_coordinator_over_two_processes(tmp_path):
+    """``launch.train --coordinator`` in two processes joins one gloo
+    world of two (each prints its rank), then each trains as the
+    reference's hosts do: the same losses. The coordinator is a
+    ``host:port`` (the reference's ``jax.distributed.initialize``
+    address), so the world meets over TCP: a port found free can be
+    taken by another process before host 0 binds it, and then the launch
+    is made once more on another port."""
+    res = _launch_two(tmp_path, _free_port())
+    if any(rc and "address already in use" in err.lower()
+           for rc, _, err in res):
+        res = _launch_two(tmp_path, _free_port())
+    outs = []
+    for rc, out, err in res:
+        assert rc == 0, err[-3000:]
+        outs.append(out)
     for i, out in enumerate(outs):
         assert f"[train] process {i} of 2 (gloo" in out
     losses = [[ln.split("loss=")[1].split()[0] for ln in out.splitlines()

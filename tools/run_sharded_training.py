@@ -5,14 +5,14 @@ one host: one process a card (``repro_torch.dist.world.spawn``, NCCL, a
 
     python3 tools/run_sharded_training.py            # on the cards
     python3 tools/run_sharded_training.py --reckon   # the bytes, no card
-    python3 tools/run_sharded_training.py --smoke    # a CPU rehearsal
 
 1. ``chip_smoke.py``'s phase 35 over meshes (2, 2) and (4, 1) of four
    cards ((n, 1) on n cards): the full-width config cut to
    ``chip_smoke.SHARD_LAYERS`` layers, two sharded steps of the
    launcher's 8 x 64 batch, the first held against rank 0's unsharded
-   step (loss within 0.05, new params within a bf16 rounding plus 2.5 x
-   the learning rate).
+   step (``chip_smoke.check_step``: the loss, grad_norm, each leaf's new
+   first moment and the new params), and one step without dropped tokens
+   held so against its own unsharded step (``chip_smoke.SHARD_TOL``).
 2. The deep run: before it, each layout's bytes a card are reckoned from
    the port's meta-device shapes and ``param_shardings`` (`reckon`: the
    params and the f32 master, m and v, the gradients, the new state that
@@ -35,8 +35,8 @@ one host: one process a card (``repro_torch.dist.world.spawn``, NCCL, a
 Prints the cards' names and power limits, a line per result, and as the
 last line a JSON object of the numbers, also written to
 ``chiprun_out/sharded_training.json``. ``--reckon`` prints the
-reckoning of every layout and depth; ``--smoke`` runs parts 1-3 in a
-world of four gloo ranks on the CPU with the smoke config.
+reckoning of every layout and depth. The same sharded step on the CPU, in
+gloo ranks, is held against the reference by ``tests/test_torch_dist_*``.
 """
 import argparse
 import contextlib
@@ -63,13 +63,13 @@ CARD_SHARE = 0.85
 DEADLINE_S = 1500
 
 
-def reckon(n_layers: int, shape, smoke: bool = False) -> dict:
+def reckon(n_layers: int, shape) -> dict:
     """Bytes a card of `shape` = (data, model) holds for one sharded step
     of SHARD_ARCH cut to `n_layers` (see the module docstring)."""
     from repro_torch.dist import sharding as shd
     from repro_torch.models import model as M
     from repro_torch.train import optimizer as opt_lib
-    cfg = cs.shard_cfg(n_layers, smoke)
+    cfg = cs.shard_cfg(n_layers)
     full = M.init(0, cfg, device="meta")
     shd.set_mesh(shd.Mesh(["cpu"] * (shape[0] * shape[1]),
                           ("data", "model"), shape))
@@ -99,8 +99,7 @@ def layouts(n: int) -> list[tuple[int, int]]:
     return [(d, n // d) for d in range(n, 0, -1) if n % d == 0]
 
 
-def deep_rank(rank: int, shape, n_layers: int, steps: int,
-              smoke: bool = False) -> dict:
+def deep_rank(rank: int, shape, n_layers: int, steps: int) -> dict:
     """Part 2 on one rank: `steps` sharded steps of the launcher's batch,
     the last under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
@@ -110,8 +109,8 @@ def deep_rank(rank: int, shape, n_layers: int, steps: int,
     from repro_torch.models import model as M
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.train_step import make_train_step
-    dev = cs.rank_device(smoke)
-    cfg = cs.shard_cfg(n_layers, smoke)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = cs.shard_cfg(n_layers)
     mesh = launch_mesh.make_debug_mesh(*shape, device=dev.type)
     cs.warm_groups(mesh, dev)
     shd.set_mesh(mesh)
@@ -120,7 +119,7 @@ def deep_rank(rank: int, shape, n_layers: int, steps: int,
     cs.same_init(full)
     local = shd.device_put(full, sh)
     del full
-    cs.empty_cache(dev)
+    torch.cuda.empty_cache()
     opt = opt_lib.init(local)
     batch = cs.launcher_batch(cfg, dev)
     lb = shd.device_put(batch, shd.batch_shardings(batch))
@@ -128,43 +127,39 @@ def deep_rank(rank: int, shape, n_layers: int, steps: int,
     walls, peaks, losses, share, busy = [], [], [], None, None
     for step in range(steps):
         last = step == steps - 1
-        cs.sync(dev)
-        cs.reset_peak(dev)
-        acts = [ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-        with profile(activities=acts) if last else \
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) if last else \
                 contextlib.nullcontext() as prof:
             t0 = time.perf_counter()
             local, opt, m = ts(local, opt, lb)
-            cs.sync(dev)
+            torch.cuda.synchronize(dev)
             walls.append(time.perf_counter() - t0)
-        peaks.append(cs.peak_bytes(dev))
+        peaks.append(torch.cuda.max_memory_allocated(dev))
         losses.append(float(m["loss"]))
-    if dev.type == "cuda":
-        spans = {"nccl": [], "other": []}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                spans["nccl" if "nccl" in e.name.lower() else "other"].append(
-                    (e.time_range.start, e.time_range.end))
-        busy_ms = cs._union_ms(spans["nccl"] + spans["other"])
-        if busy_ms > 0:        # else the profiler saw no device time
-            wall_ms = walls[-1] * 1e3
-            nccl_ms = cs._union_ms(spans["nccl"])
-            share = nccl_ms / wall_ms
-            busy = dict(busy_ms=busy_ms, nccl_ms=nccl_ms, wall_ms=wall_ms,
-                        exposed_nccl_ms=busy_ms - cs._union_ms(
-                            spans["other"]))
+    spans = {"nccl": [], "other": []}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans["nccl" if "nccl" in e.name.lower() else "other"].append(
+                (e.time_range.start, e.time_range.end))
+    busy_ms = cs._union_ms(spans["nccl"] + spans["other"])
+    if busy_ms > 0:        # else the profiler saw no device time
+        wall_ms = walls[-1] * 1e3
+        nccl_ms = cs._union_ms(spans["nccl"])
+        share = nccl_ms / wall_ms
+        busy = dict(busy_ms=busy_ms, nccl_ms=nccl_ms, wall_ms=wall_ms,
+                    exposed_nccl_ms=busy_ms - cs._union_ms(spans["other"]))
     if not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"deep run: losses {losses}")
     shd.set_mesh(None)
-    return dict(rank=rank, card=None if smoke else torch.cuda
-                .get_device_name(dev), walls_s=walls, peak_bytes=peaks,
+    return dict(rank=rank, card=torch.cuda.get_device_name(dev),
+                walls_s=walls, peak_bytes=peaks,
                 losses=losses, collective_share=share, profiled=busy,
                 params_a_card=sum(t.numel() for t in opt_lib.leaves(local)))
 
 
-def resume_rank(rank: int, shape, n_layers: int, root: str,
-                smoke: bool = False) -> dict:
+def resume_rank(rank: int, shape, n_layers: int, root: str) -> dict:
     """Part 3 on one rank (see the module docstring)."""
     import torch.distributed as dist
 
@@ -175,8 +170,8 @@ def resume_rank(rank: int, shape, n_layers: int, root: str,
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.train_step import make_train_step
     torch.use_deterministic_algorithms(True)
-    dev = cs.rank_device(smoke)
-    cfg = cs.shard_cfg(n_layers, smoke)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = cs.shard_cfg(n_layers)
     mesh = launch_mesh.make_debug_mesh(*shape, device=dev.type)
     cs.warm_groups(mesh, dev)
     shd.set_mesh(mesh)
@@ -197,7 +192,7 @@ def resume_rank(rank: int, shape, n_layers: int, root: str,
     batches = [shd.device_put(b, bsh) for b in rng_batches]
     for b in batches[:2]:
         local, opt, _ = ts(local, opt, b)
-    cs.sync(dev)
+    torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     ckpt.save(f"{root}/ckpt", 2, {"params": local, "opt": opt},
               shardings=state_sh)
@@ -209,7 +204,7 @@ def resume_rank(rank: int, shape, n_layers: int, root: str,
     t0 = time.perf_counter()
     state, step = ckpt.restore(f"{root}/ckpt", state_full,
                                shardings=state_sh)
-    cs.sync(dev)
+    torch.cuda.synchronize(dev)
     restore_s = time.perf_counter() - t0
     p2, o2 = state["params"], state["opt"]
     again = []
@@ -235,58 +230,58 @@ def resume_rank(rank: int, shape, n_layers: int, root: str,
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reckon", action="store_true")
-    ap.add_argument("--smoke", action="store_true")
     args = ap.parse_args()
     if args.reckon:
         for shape in layouts(4):
             for n_layers in (27, 20, 17, 16, 15, cs.SHARD_LAYERS):
                 print(json.dumps(reckon(n_layers, shape)))
         return 0
-    smoke = args.smoke
-    if not smoke and not torch.cuda.is_available():
+    if not torch.cuda.is_available():
         print("run_sharded_training: CUDA is not available",
               file=sys.stderr)
         return 1
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.dist import world
-    n = 4 if smoke else torch.cuda.device_count()
-    backend = "gloo" if smoke else "nccl"
-    smi = "cpu" if smoke else subprocess.run(
+    n = torch.cuda.device_count()
+    smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     cs.log(f"cards ({n}):\n{smi}")
     root = cs.scratch_dir() / "sharded_training"
-    kw = dict(backend=backend, root=root, deadline_s=DEADLINE_S,
-              threads=1 if smoke else None)
+    kw = dict(backend="nccl", root=root, deadline_s=DEADLINE_S)
     out = {"cards": smi.splitlines(), "n": n}
 
     shapes = [(2, 2), (4, 1)] if n == 4 else [(n, 1)]
     t0 = time.perf_counter()
     part1 = world.spawn(cs.sharded_step_rank, n, args=(
-        shapes, cs.SHARD_LAYERS, 2, smoke), **kw)
+        shapes, cs.SHARD_LAYERS, 2), **kw)
     out["cut_depth"] = dict(wall_s=time.perf_counter() - t0, ranks=part1)
-    un = part1[0]["unsharded"]
-    cs.log(f"[cut depth] {cs.SHARD_LAYERS} layers at full width "
-           f"({un['n_params']} parameters): unsharded on card 0 loss "
-           f"{un['loss']} grad_norm {un['grad_norm']} wall "
-           f"{un['wall_s']:.3f} s peak {un['peak_bytes']} bytes")
-    for r in part1:
-        for shape, m in r["meshes"].items():
-            cs.log(f"[cut depth] mesh {shape} rank {r['rank']} "
-                   f"({r['card']}): losses {m['losses']} grad_norm "
-                   f"{m['first']['grad_norm']}, walls {m['walls_s']} s, "
-                   f"peaks {m['peak_bytes']} bytes, NCCL set-up "
-                   f"{m['nccl_s']:.3f} s, {m['local_params']} parameters "
-                   f"here; params max |diff| {m['params_max_abs_err']}")
+    for variant in cs.SHARD_TOL:
+        un = part1[0]["variants"][variant]["unsharded"]
+        cs.log(f"[cut depth] {variant}: {cs.SHARD_LAYERS} layers at full "
+               f"width ({un['n_params']} parameters): unsharded on card 0 "
+               f"loss {un['loss']} grad_norm {un['grad_norm']} wall "
+               f"{un['wall_s']:.3f} s peak {un['peak_bytes']} bytes")
+        for r in part1:
+            for shape, m in r["variants"][variant]["meshes"].items():
+                e = m["errors"]
+                cs.log(f"[cut depth] {variant}: mesh {shape} rank "
+                       f"{r['rank']} ({r['card']}): losses {m['losses']} "
+                       f"grad_norm {m['first']['grad_norm']}, walls "
+                       f"{m['walls_s']} s, peaks {m['peak_bytes']} bytes, "
+                       f"NCCL set-up {m['nccl_s']:.3f} s, "
+                       f"{m['local_params']} parameters here"
+                       + ("" if e is None else
+                          f"; against the unsharded step: "
+                          f"{cs.shard_readings(e)}"))
 
-    budget = CARD_SHARE * (torch.cuda.get_device_properties(0).total_memory
-                           if not smoke else 80e9)
-    plans = {shape: reckon(27, shape, smoke) for shape in layouts(n)}
+    budget = CARD_SHARE * torch.cuda.get_device_properties(0).total_memory
+    plans = {shape: reckon(27, shape) for shape in layouts(n)}
     best = min(plans, key=lambda s: plans[s]["peak_bytes"])
     depth = max(d for d in range(2, 28)
-                if reckon(d, best, smoke)["peak_bytes"] <= budget)
-    plan = reckon(depth, best, smoke)
+                if reckon(d, best)["peak_bytes"] <= budget)
+    plan = reckon(depth, best)
     out["reckoning"] = dict(budget_bytes=budget, full={str(k): v for k, v in
                                                        plans.items()},
                             run=plan)
@@ -295,8 +290,7 @@ def main() -> int:
            f"against {budget:.4g}; running {depth} layers on {best} "
            f"(reckoned {plan['peak_bytes']} bytes a card)")
     t0 = time.perf_counter()
-    part2 = world.spawn(deep_rank, n, args=(best, depth, DEEP_STEPS, smoke),
-                        **kw)
+    part2 = world.spawn(deep_rank, n, args=(best, depth, DEEP_STEPS), **kw)
     out["deep"] = dict(wall_s=time.perf_counter() - t0, layers=depth,
                        shape=list(best), ranks=part2)
     for r in part2:
@@ -308,7 +302,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     part3 = world.spawn(resume_rank, n, args=(
-        (n, 1), RESUME_LAYERS, str(root), smoke), **kw)
+        (n, 1), RESUME_LAYERS, str(root)), **kw)
     out["resume"] = dict(wall_s=time.perf_counter() - t0, ranks=part3)
     r = part3[0]
     cs.log(f"[resume] {RESUME_LAYERS} layers on ({n}, 1): steps 3-4 losses "
@@ -317,8 +311,7 @@ def main() -> int:
            f"{r['restore_s']:.2f} s on rank 0)")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / ("sharded_training_smoke.json" if smoke
-                else "sharded_training.json")).write_text(
+    (out_dir / "sharded_training.json").write_text(
         json.dumps(out, indent=1, default=str))
     print(smi)
     print(json.dumps(out, default=str))
