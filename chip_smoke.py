@@ -306,8 +306,11 @@ and prints no result line):
     layers, so one card also holds the unsharded step): one sharded train
     step of the launcher's 8 x 64 batch against the unsharded step on
     the first card (loss within 0.05; new params within a bf16 rounding
-    plus 2.5 x the step's learning rate). Prints each rank's step wall,
-    peak memory and NCCL set-up time.
+    plus 2.5 x the step's learning rate). Then a sharded prefill of that
+    batch and SHARD_DECODE_STEPS decode steps of the no-drop config in
+    f32 against the same on the first card (the logits within
+    SHARD_DECODE_TOL). Prints each rank's step wall, peak memory, NCCL
+    set-up time and decode ms a step.
 
 Phases 4, 5, 8, 10, 12, 14, 19, 21, 22, each run of 23, 24 and 34, 25, 26
 and 28 reset the kernels' launch counts just before they run and read them just
@@ -2558,15 +2561,16 @@ def _fit_run(arch: str, shape_name: str, rec: dict, dev) -> dict:
                 estimate_err=(est - peak) / peak, wall_s=wall, init_s=init_s)
 
 
-def launch_tools_phase(dev, smi: str) -> dict:
-    """33. ``launch.dryrun.run_cell`` for every cell on the meta device,
-    ``launch.roofline.probe_cell`` for the ``train_4k`` cells, a real run
-    of every cell the dry run says fits (it must not run out of memory),
-    and ``launch.train --dry-run``."""
+def dry_run_cells() -> tuple:
+    """Phase 33's traces on the meta device: ``launch.dryrun.run_cell``
+    for every cell, then ``launch.roofline.probe_cell`` (whose counts are
+    the dry run's); returns (records, roofline records, the seconds of
+    each). Host work only: `main` runs it in a worker process while the
+    kernels build."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
     from repro_torch.configs import cells
     from repro_torch.launch import dryrun, roofline
-    from repro_torch.launch import train as launcher
-
     t0 = time.perf_counter()
     recs = {}
     for arch, shape in cells():
@@ -2574,9 +2578,20 @@ def launch_tools_phase(dev, smi: str) -> dict:
         if not rec.get("ok"):
             raise RuntimeError(f"dry run {arch} {shape}: {rec}")
     dry_s = time.perf_counter() - t0
-    t1 = time.perf_counter()      # the probes' counts are the dry run's
+    t1 = time.perf_counter()
     roof = {(a, s): roofline.probe_cell(a, s) for a, s in cells()}
-    roof_s = time.perf_counter() - t1
+    return recs, roof, dry_s, time.perf_counter() - t1
+
+
+def launch_tools_phase(dev, smi: str, traced=None) -> dict:
+    """33. `dry_run_cells` (`traced`: its future, from a worker process;
+    None: run here), a real run of every cell the dry run says fits (it
+    must not run out of memory), and ``launch.train --dry-run``."""
+    from repro_torch.launch import train as launcher
+
+    t0 = time.perf_counter()
+    recs, roof, dry_s, roof_s = (dry_run_cells() if traced is None
+                                 else traced.result(timeout=JOB_TIMEOUT_S))
     for (arch, shape), rec in recs.items():
         r = roof[(arch, shape)]
         log(f"[dryrun] {arch} {shape}: arguments "
@@ -2608,7 +2623,8 @@ def launch_tools_phase(dev, smi: str) -> dict:
         raise RuntimeError(f"launch.train --dry-run exited {code}")
     wall = time.perf_counter() - t0
     log(f"[launch tools] {len(recs)} cells dry-run in {dry_s:.1f} s, "
-        f"{len(roof)} roofline records in {roof_s:.1f} s, "
+        f"{len(roof)} roofline records in {roof_s:.1f} s"
+        f"{'' if traced is None else ' (in a worker during the build)'}, "
         f"{len(fits)} cells fit one card and ran: "
         f"{', '.join(f'{a} {s}' for a, s in fits)}; launch.train --dry-run "
         f"exit 0; phase 33 {wall:.1f} s")
@@ -2740,7 +2756,104 @@ def check_step(where: str, tol: dict, first, errs, unsharded) -> None:
                            + "; ".join(faults))
 
 
-def sharded_step_rank(rank: int, shapes, n_layers: int, steps: int) -> dict:
+# Phase 35's sharded decode: a prefill of the launcher's batch and these
+# decode steps of the "no drops" config in f32 on (cards, 1) against the
+# same on one card; the logits within SHARD_DECODE_TOL (Frobenius,
+# relative), the CPU tests' rtol. In bf16 a rounding difference flips a
+# token's expert choice now and then, so bf16 reads up to ~0.05 on four
+# cards and fails this gate (PERF.md, PR 27, has both readings). Greedy
+# tokens of a random-init model sit on near ties: printed, not gated.
+SHARD_DECODE_STEPS = 4
+SHARD_DECODE_TOL = 1e-4
+
+
+def sharded_decode(rank: int, shape, n_layers: int, dev,
+                   dtype: str = "float32") -> dict:
+    """Phase 35's decode on one rank (see SHARD_DECODE_TOL), its weights
+    and cache in `dtype`: rank 0 runs the prefill and decode steps
+    unsharded on its card first; then every rank places the same seeded
+    params by ``param_shardings`` and runs them on its rows of the batch
+    on the world mesh `shape`, timing each decode step and reading its
+    peak memory. Rank 0 gathers every rank's logits rows and measures them
+    against the unsharded ones; in f32 it fails past SHARD_DECODE_TOL
+    (other dtypes are read, not gated)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(shard_cfg(n_layers, "no drops"),
+                              dtype=dtype, cache_dtype=dtype)
+    toks = launcher_batch(cfg, dev)["tokens"].long()
+    B, S = toks.shape
+    steps = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (SHARD_DECODE_STEPS, B, 1)), device=dev)
+
+    def run(params, rows, sh):
+        logits, cache = M.prefill(params, {"tokens": toks[rows]}, cfg,
+                                  S + SHARD_DECODE_STEPS, shardings=sh)
+        seq, ms = [logits], []
+        for i in range(SHARD_DECODE_STEPS):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            logits, cache = M.decode_step(params, cache, steps[i][rows],
+                                          S + i, cfg, shardings=sh)
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            seq.append(logits)
+        return seq, ms
+
+    out = {}
+    want = None
+    with torch.no_grad():
+        if rank == 0:
+            params = M.init(0, cfg, device=dev)
+            want, out["single_ms"] = run(params, slice(0, B), None)
+            want = [w.float() for w in want]
+            del params
+            torch.cuda.empty_cache()
+        dist.barrier()
+        mesh = launch_mesh.make_debug_mesh(*shape, device=dev.type)
+        warm_groups(mesh, dev)
+        rules = shd.set_mesh(mesh)
+        sh = M.param_shardings(cfg)
+        full = M.init(0, cfg, device=dev)
+        same_init(full)
+        local = shd.device_put(full, sh)
+        del full
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        got, out["ms"] = run(local, shd.batch_rows(B), sh)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        errs = []
+        for i, g in enumerate(got):
+            g = coll.all_gather(g.contiguous(), 0, mesh.group(rules.dp))
+            if rank == 0:
+                d = g.float() - want[i]
+                errs.append(dict(
+                    rel=float(torch.linalg.vector_norm(d)
+                              / torch.linalg.vector_norm(want[i])),
+                    max_abs=float(d.abs().max()),
+                    greedy=g[:, -1].argmax(-1).tolist(),
+                    greedy_single=want[i][:, -1].argmax(-1).tolist()))
+        shd.set_mesh(None)
+        del local
+        torch.cuda.empty_cache()
+    if rank == 0:
+        out["errors"] = errs
+        bad = [i for i, e in enumerate(errs) if e["rel"] > SHARD_DECODE_TOL
+               and dtype == "float32"]
+        if bad:
+            raise RuntimeError(f"sharded decode on {shape}: logits of steps "
+                               f"{bad} off the unsharded ones: {errs}")
+    return out
+
+
+def sharded_step_rank(rank: int, shapes, n_layers: int, steps: int,
+                      decode: bool = False) -> dict:
     """One rank of phase 35 (and of tools/run_sharded_training.py's first
     part), for each variant of SHARD_TOL: rank 0 runs the unsharded step
     of SHARD_ARCH cut to `n_layers` at full width on its card; then for
@@ -2750,7 +2863,8 @@ def sharded_step_rank(rank: int, shapes, n_layers: int, steps: int) -> dict:
     grad_norm, first moments and new params are held against the
     unsharded step's on rank 0 (`step_errors`, `check_step`); every rank
     reports its walls, peak memory and the mesh's NCCL set-up time (its
-    groups made and a first all-reduce on each, `warm_groups`)."""
+    groups made and a first all-reduce on each, `warm_groups`). With
+    `decode`, then `sharded_decode` on the last of `shapes`."""
     import torch.distributed as dist
 
     from repro_torch.dist import sharding as shd
@@ -2829,6 +2943,8 @@ def sharded_step_rank(rank: int, shapes, n_layers: int, steps: int) -> dict:
             del local, opt, lb
             shd.set_mesh(None)
             torch.cuda.empty_cache()
+    if decode:
+        out["decode"] = sharded_decode(rank, shapes[-1], n_layers, dev)
     return out
 
 
@@ -2846,8 +2962,10 @@ def sharded_training_phase(smi: str) -> dict:
     SHARD_ARCH at full width cut to SHARD_LAYERS layers, a sharded step
     on the mesh (cards, 1) of the launcher's 8 x 64 batch in each variant
     of SHARD_TOL, against the unsharded step on the first card
-    (`sharded_step_rank`). Prints each rank's step wall, peak memory and
-    NCCL set-up time."""
+    (`sharded_step_rank`); then the sharded prefill and decode steps of
+    the "no drops" config on that mesh against one card's
+    (`sharded_decode`). Prints each rank's step wall, peak memory and
+    NCCL set-up time, and its decode ms a step and peak."""
     from repro_torch.dist import world
     n = torch.cuda.device_count()
     torch.cuda.synchronize()
@@ -2857,7 +2975,7 @@ def sharded_training_phase(smi: str) -> dict:
     ranks = world.spawn(sharded_step_rank, n, backend="nccl",
                         root=scratch_dir() / "world",
                         deadline_s=SHARD_DEADLINE_S,
-                        args=([(n, 1)], SHARD_LAYERS, 1))
+                        args=([(n, 1)], SHARD_LAYERS, 1, True))
     wall = time.perf_counter() - t0
     for variant in SHARD_TOL:
         un = ranks[0]["variants"][variant]["unsharded"]
@@ -2879,18 +2997,34 @@ def sharded_training_phase(smi: str) -> dict:
             f"within SHARD_TOL: loss |diff| "
             f"{abs(m0['first']['loss'] - un['loss'])}, "
             f"{shard_readings(m0['errors'])}")
+    dec0 = ranks[0]["decode"]
+    log(f"[sharded decode] unsharded on one card: {SHARD_ARCH} cut to "
+        f"{SHARD_LAYERS} layers, no drops, f32, prefill of {TRAIN_BATCH} and "
+        f"{SHARD_DECODE_STEPS} decode steps at "
+        f"{[round(x, 3) for x in dec0['single_ms']]} ms")
+    for r in ranks:
+        d = r["decode"]
+        log(f"[sharded decode] rank {r['rank']} ({r['card']}) mesh "
+            f"{(n, 1)}: decode {[round(x, 3) for x in d['ms']]} ms a step, "
+            f"peak device memory {d['peak_bytes']} bytes [{smi}]")
+    for i, e in enumerate(dec0["errors"]):
+        log(f"[sharded decode] {'prefill' if i == 0 else f'step {i}'}: "
+            f"logits rel. err {e['rel']:.3g} (gate {SHARD_DECODE_TOL}), max "
+            f"|diff| {e['max_abs']:.4g}; greedy {e['greedy']} against "
+            f"{e['greedy_single']} on one card (not gated)")
     log(f"[sharded train] phase 35 took {wall:.1f} s with {n} process(es), "
         f"the main process holding {held} bytes [{smi}]")
     return dict(wall_s=wall, ranks=ranks)
 
 
-def training_phases(dev, smi: str) -> dict:
-    """30-33, each timed."""
+def training_phases(dev, smi: str, traced=None) -> dict:
+    """30-33, each timed (`traced`: `launch_tools_phase`'s)."""
     out = {}
     for name, fn in (("train", lambda: lm_training_phase(dev, smi)),
                      ("ckpt", lambda: checkpoint_phase(dev, smi)),
                      ("card_vs_cpu", lambda: card_vs_cpu_phase(dev)),
-                     ("launch", lambda: launch_tools_phase(dev, smi))):
+                     ("launch", lambda: launch_tools_phase(dev, smi,
+                                                           traced))):
         t0 = time.perf_counter()
         out[name] = fn()
         log(f"[phases] {name} {time.perf_counter() - t0:.1f} s")
@@ -2899,6 +3033,11 @@ def training_phases(dev, smi: str) -> dict:
 
 def main() -> int:
     t_start = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        """Log the seconds since the start as phase `phase` begins."""
+        log(f"[elapsed] {time.perf_counter() - t_start:.1f} s at phase "
+            f"{phase}")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -2923,12 +3062,23 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
+    # phase 33's traces on the meta device need no card: a worker process
+    # runs them while the kernels build
+    import atexit
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    tracer = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    atexit.register(tracer.shutdown, cancel_futures=True)
+    traced = tracer.submit(dry_run_cells)
+
     # ---- 1. build
     t0 = time.perf_counter()
     _build.extension()
     log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(s.name for s in _build.SOURCES)})")
 
+    mark("2")
     # ---- 2. plant_block kernel vs plain
     rng = np.random.default_rng(0)
     B, S = 100_003, 30
@@ -2942,6 +3092,7 @@ def main() -> int:
         f"equal to the plain version and to the per-thread kernel bit for "
         f"bit, max_abs_err={plant_err}")
 
+    mark("3")
     # ---- 3. episode_block kernel vs plain
     sc = scenarios.burst_storm(n_workloads=4099, minutes=30)
     rates = torch.as_tensor(sc.rates, device=dev)
@@ -2957,6 +3108,7 @@ def main() -> int:
     log(f"[episode_block] burst_storm 4099x30 ci=15/7 matches the plain "
         f"version, max_abs_err={episode_err}")
 
+    mark("4")
     # ---- 4. unfused path (plant_block per control period) vs fused
     cfg = cluster.SimConfig()
     ctrl = registry.make("hpa", cfg)
@@ -2979,6 +3131,7 @@ def main() -> int:
         f"{plant_block.plant_tick_block_cuda.last_variant}) agrees with the "
         f"fused kernel, max_abs_err={paths_err}")
 
+    mark("5")
     # ---- 5. main path at fleet scale
     W, M, w_chunk = 100_000, 1440, 25_000
     t0 = time.perf_counter()
@@ -2990,6 +3143,7 @@ def main() -> int:
     main_counts, main_path, downs = fleet_row(ctrl, cfg, fleet_rates,
                                               w_chunk, "fleet")
 
+    mark("6")
     # ---- 6. kernels vs plain at their paths' shapes, and their times
     chunk = fleet_rates[:w_chunk]
     ep_ms, got = cuda_ms(lambda: ops.episode_block(chunk, ctrl, cfg),
@@ -3063,9 +3217,11 @@ def main() -> int:
         f"empty body {big_times['floor_ms']} ms, plain "
         f"{big_times['plain_ms']} ms, bound {big_bound} ms ({big_by})")
 
+    mark("7")
     # ---- 7. where the fleet run's device time goes
     profile_row(main_path, "HPA fleet episode + metrics + REI")
 
+    mark("8")
     # ---- 8. classification path at AAPAset scale
     from repro_torch.core import features
     from repro_torch.data import azure_synth, windows
@@ -3256,6 +3412,7 @@ def main() -> int:
         f"bound {gb_bound} ms ({gb_by})")
     del feats, centred, arch, conf
 
+    mark("9")
     # ---- 9. the AAPA episode kernel against its plain version
     from repro_torch.kernels import episode_block
     aapa_err = 0.0
@@ -3363,17 +3520,20 @@ def main() -> int:
             f"ms ({hby}); the AAPA episode there {hep_ms} ms (at 60: "
             f"{aapa_ms} ms)")
 
+    mark("21-22")
     # ---- 21-22. AAPAset built and the classifier trained on the card;
     # the AAPA and hybrid fleet rows of phases 10 and 14 classify with it
     built, data_loader, aapaset_counts = aapaset_phase(dev)
     tcls, train_info, train_counts = training_phase(data_loader, dev)
 
+    mark("10")
     # ---- 10. the AAPA fleet: Table IV row
     tctrl = registry.make("aapa", cfg, classify=tcls)
     aapa_counts, aapa_path, _ = fleet_row(tctrl, cfg, fleet_rates, w_chunk,
                                           "aapa fleet")
     profile_row(aapa_path, "AAPA fleet episode + metrics + REI")
 
+    mark("11")
     # ---- 11. holt_winters kernel vs plain
     from repro_torch.forecast import conformal
     from repro_torch.forecast import registry as forecast_registry
@@ -3402,6 +3562,7 @@ def main() -> int:
         del y, got, want
     torch.cuda.synchronize()
 
+    mark("12")
     # ---- 12. split-conformal calibration on the card, then coverage
     t0 = time.perf_counter()
     split = torch.as_tensor(scenarios.burst_storm(
@@ -3472,6 +3633,7 @@ def main() -> int:
                          torch.cuda.synchronize()), "conformal calibrate")
     del split
 
+    mark("13")
     # ---- 13. the other policies' episode kernels vs their plain episodes
     pols = {
         "predictive": ("predictive", {}),
@@ -3512,6 +3674,7 @@ def main() -> int:
                episode_block.ARCHETYPE_POLICIES else "")
             + f", max_abs_err={err}")
 
+    mark("14")
     # ---- 14. a Table IV row for each of them, and the kernel's time
     pol_rows = {}
     for label, (name, kw) in pols.items():
@@ -3548,6 +3711,7 @@ def main() -> int:
             f"{w_chunk}x240 {pol_plain_s[label] * 1e3} ms (one run, host "
             f"clock), bound {bnd} ms ({by})")
 
+    mark("15")
     # ---- 15. the pre-pass kernels vs their plain version on the chunk
     from repro_torch.kernels import policy_signals
     sig_err = 0.0
@@ -3599,6 +3763,7 @@ def main() -> int:
         f"version bit for bit (plain {rc_plain_ms} ms, one run, host "
         f"clock), bound {rc_bound} ms ({rc_by})")
 
+    mark("16")
     # ---- 16. one launch over the fleet, and each kernel's resources
     hctrl = registry.make("hpa", cfg)
     wide_hpa = cuda_ms(lambda: ops.episode_block(fleet_rates, hctrl, cfg),
@@ -3665,6 +3830,7 @@ def main() -> int:
         raise RuntimeError(f"the AAPA or hybrid plant pass holds more stack "
                            f"than HPA's: {plant_entries}")
 
+    mark("17")
     # ---- 17. every registry forecaster in the episode, bit for bit
     from repro_torch.evals import matrix
     from repro_torch.forecast import registry as forecast_registry
@@ -3704,6 +3870,7 @@ def main() -> int:
         f"archetypes "
         f"included ({time.perf_counter() - t0:.1f} s)")
 
+    mark("18")
     # ---- 18. the new pre-pass walks vs plain on the chunk, and their times
     walk_rows = {}
     for fname in new_fcs:
@@ -3739,6 +3906,7 @@ def main() -> int:
                 f" plain {plain_s * 1e3} ms (one run, host clock), bound "
                 f"{bnd} ms ({by})")
 
+    mark("19")
     # ---- 19. the Table IV matrix on the card at three sizes
     spec_pool, spec_per_w, _, _ = run_matrix(matrix, bench_spec(matrix), cls,
                                              "SPEC")
@@ -3751,6 +3919,7 @@ def main() -> int:
             raise RuntimeError(f"the fleet matrix launched no {walk} walk: "
                                f"{fleet_walks}")
 
+    mark("20")
     # ---- 20. a small matrix on the card against the plain matrix on the CPU
     small = accept_spec(matrix)
     small_rates = matrix.build_rates(small)
@@ -3777,9 +3946,11 @@ def main() -> int:
         f"{small.minutes} on the card matches the plain matrix on the CPU "
         f"(rtol 2e-6, counts exact), max_abs_err={small_err}")
 
+    mark("23")
     # ---- 23. fleet runs through evals.fleet
     fleet_runs = fleet_phase(tcls, data_loader)
 
+    mark("34")
     # ---- 34. the fleet plane over a device mesh
     mesh_runs = mesh_phase(
         tcls, fleet_runs["one-dispatch 1e5"]["result"],
@@ -3788,6 +3959,7 @@ def main() -> int:
         (bench_spec(matrix), spec_pool, spec_per_w), cls, built)
     del built
 
+    mark("24-26")
     # ---- 24-26. telemetry, an obs card and tuning on the card
     telemetry = telemetry_phases(
         tcls, fleet_runs["one-dispatch 1e5"].pop("result"),
@@ -3795,13 +3967,17 @@ def main() -> int:
     obs_card = telemetry["obs"]
     tuning_runs = tuning_phase()
 
+    mark("27-29")
     # ---- 27-29. the model substrate and the autoscaled serving endpoint
     model_phase(dev)
     serving = serving_phase(dev)
 
+    mark("30-33")
     # ---- 30-33. training and the launch tools
-    training_phases(dev, smi)
+    training_phases(dev, smi, traced)
+    tracer.shutdown()
 
+    mark("35")
     # ---- 35. model sharding over a world of one process per card
     sharded_training_phase(smi)
 

@@ -25,6 +25,12 @@ the same cotangent on each of them. That fixes each backward pass:
 
 A group of one member is the identity everywhere. No function here falls
 back to another backend or device: a collective that fails raises.
+
+A `ShapeGroup` stands for a group in a shape-only trace on the meta device
+(``launch.dryrun``'s records under a mesh): each collective over it
+returns a result of the right shape and adds its traffic to the group's
+`Tally` by the reference's ring factors (``launch.dryrun
+.parse_collectives``).
 """
 from __future__ import annotations
 
@@ -40,58 +46,151 @@ _SCATTER = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
 
 
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute")
+
+
+def ring_bytes(kind: str, result_bytes: float, g: int) -> float:
+    """The bytes a member moves for one collective of `kind` over `g`
+    members whose result is `result_bytes` on it (the reference's ring
+    factors, ``parse_collectives``' docstring)."""
+    if kind == "all-reduce":
+        return 2.0 * result_bytes * (g - 1.0) / g
+    if kind == "reduce-scatter":
+        return result_bytes * (g - 1.0)
+    if kind in ("all-gather", "all-to-all"):
+        return result_bytes * (g - 1.0) / g
+    return float(result_bytes)
+
+
+class Tally:
+    """Bytes and counts of collectives by kind (``parse_collectives``'
+    record)."""
+
+    def __init__(self):
+        self.bytes = {k: 0.0 for k in KINDS}
+        self.counts = {k: 0 for k in KINDS}
+
+    def add(self, kind: str, result: torch.Tensor, g: int) -> None:
+        self.bytes[kind] += ring_bytes(
+            kind, result.numel() * result.element_size(), g)
+        self.counts[kind] += 1
+
+
+class _Process:
+    """A ``torch.distributed`` process group: its collectives run."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def size(self) -> int:
+        return dist.get_world_size(self.group)
+
+    def rank(self) -> int:
+        return dist.get_rank(self.group)
+
+    def all_gather(self, out, x) -> None:
+        _GATHER(out, x, group=self.group)
+
+    def reduce_scatter(self, out, x) -> None:
+        _SCATTER(out, x, op=dist.ReduceOp.SUM, group=self.group)
+
+    def all_reduce(self, out) -> None:
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
+
+    def all_to_all(self, out, x) -> None:
+        dist.all_to_all_single(out, x, group=self.group)
+
+
+class ShapeGroup:
+    """A group of `n` members seen from member `rank` in a trace on the
+    meta device: its collectives (`_Process`'s methods) move nothing and
+    add to `tally`."""
+
+    def __init__(self, n: int, tally: Tally, rank: int = 0):
+        self.n, self.tally, self._rank = int(n), tally, int(rank)
+
+    def size(self) -> int:
+        return self.n
+
+    def rank(self) -> int:
+        return self._rank
+
+    def all_gather(self, out, x) -> None:
+        self.tally.add("all-gather", out, self.n)
+
+    def reduce_scatter(self, out, x) -> None:
+        self.tally.add("reduce-scatter", out, self.n)
+
+    def all_reduce(self, out) -> None:
+        self.tally.add("all-reduce", out, self.n)
+
+    def all_to_all(self, out, x) -> None:
+        self.tally.add("all-to-all", out, self.n)
+
+
+def _on(group):
+    """`group`'s collectives: a `ShapeGroup`'s own, or a process
+    group's."""
+    return group if isinstance(group, ShapeGroup) else _Process(group)
+
+
 def size(group) -> int:
-    return dist.get_world_size(group)
+    return _on(group).size()
 
 
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The members' blocks of `x` joined along `dim`, in group-rank
     order."""
-    n = size(group)
+    on = _on(group)
+    n = on.size()
     if n == 1:
         return x
     xt = x.movedim(dim, 0).contiguous()
     out = torch.empty((n * xt.shape[0],) + tuple(xt.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    _GATHER(out, xt, group=group)
+    on.all_gather(out, xt)
     return out.movedim(0, dim).contiguous()
 
 
 def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The members' `x` summed, and this member's block of the sum along
     `dim`."""
-    n = size(group)
+    on = _on(group)
+    n = on.size()
     if n == 1:
         return x
     xt = x.movedim(dim, 0).contiguous()
     out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    _SCATTER(out, xt, op=dist.ReduceOp.SUM, group=group)
+    on.reduce_scatter(out, xt)
     return out.movedim(0, dim).contiguous()
 
 
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """The members' `x` summed (a new tensor)."""
+    on = _on(group)
     out = x.clone()
-    if size(group) > 1:
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    if on.size() > 1:
+        on.all_reduce(out)
     return out
 
 
 def block(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """This member's block of `x` along `dim`."""
-    n = size(group)
-    k = x.shape[dim] // n
-    return x.narrow(dim, dist.get_rank(group) * k, k)
+    on = _on(group)
+    k = x.shape[dim] // on.size()
+    return x.narrow(dim, on.rank() * k, k)
 
 
 def exchange(x: torch.Tensor, group) -> torch.Tensor:
     """Block i of `x` along dim 0 to member i; block i of the result came
     from member i."""
-    if size(group) == 1:
+    on = _on(group)
+    if on.size() == 1:
         return x
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    dist.all_to_all_single(out, x.contiguous(), group=group)
+    on.all_to_all(out, x.contiguous())
     return out
 
 

@@ -160,6 +160,23 @@ class Mesh:
                     list(by_rest.values()), timeout=DEFAULT_TIMEOUT)
         return mesh
 
+    @classmethod
+    def over_shapes(cls, axis_names: Sequence[str], axis_sizes:
+                    Sequence[int], tally: coll.Tally) -> "Mesh":
+        """A world mesh of `axis_sizes` seen from its rank 0 in one
+        process, every entry the meta device and every set of axes a
+        ``collectives.ShapeGroup`` adding to `tally`: the model's sharded
+        code traced on shapes alone, with no world (``launch.dryrun``)."""
+        mesh = cls(["meta"] * math.prod(axis_sizes), axis_names,
+                   axis_sizes)
+        mesh.rank = 0
+        mesh.coords = {a: 0 for a in mesh.axis_names}
+        for k in range(1, len(mesh.axis_names) + 1):
+            for axes in itertools.combinations(mesh.axis_names, k):
+                mesh._groups[axes] = coll.ShapeGroup(mesh.axis_size(axes),
+                                                     tally)
+        return mesh
+
     @property
     def size(self) -> int:
         return len(self.devices)
@@ -652,6 +669,18 @@ def gather_tree(tree, shardings):
     from repro_torch.train.optimizer import unflatten
     xs, shs = _pairs(tree, shardings)
     return unflatten(tree, [gather_leaf(x, sh) for x, sh in zip(xs, shs)])
+
+
+def batch_rows(n: int) -> slice:
+    """This rank's rows of a batch of `n` under the active world mesh
+    (the block `batch_shardings` gives it: all `n` where the data axes do
+    not divide it); all of them without one."""
+    rules = model_rules()
+    if rules is None:
+        return slice(0, n)
+    rows = range(n)[NamedSharding(rules.mesh, rules.spec(
+        ("dp",), (n,))).index((n,))[0]]
+    return slice(rows.start, rows.stop)
 
 
 def check_placed(tree, shardings, full) -> None:

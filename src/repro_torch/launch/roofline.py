@@ -38,6 +38,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs.registry import SHAPES, cells, get_config
+from repro_torch.dist import collectives as coll
+from repro_torch.dist import sharding as shd
 from repro_torch.launch import specs as sp
 from repro_torch.models import layers as Lyr
 
@@ -149,18 +151,44 @@ def _probe_cfg(cfg, n_scan, n_enc=None):
     return dataclasses.replace(cfg, **kw)
 
 
-def _lower_probe(cfg, shape) -> dict:
-    """Trace one probe's step on the meta device; its (flops, flops_f32,
-    bytes)."""
+def mesh_axes(layout: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
+    """A layout's mesh axes and sizes: "DxM" is ("data", "model") of D x M
+    (the reference's 16x16, a host of four cards' 4x1), "PxDxM" ("pod",
+    "data", "model") (the reference's multi-pod 2x16x16)."""
+    sizes = tuple(int(x) for x in layout.split("x"))
+    return {2: ("data", "model"),
+            3: ("pod", "data", "model")}[len(sizes)], sizes
+
+
+def _lower_probe(cfg, shape, layout=None, microbatches=1) -> dict:
+    """Trace one probe's step on the meta device; its flops, flops_f32 and
+    bytes, and under `layout` (`mesh_axes`) one rank's: its blocks
+    and rows in a ``dist.sharding.Mesh.over_shapes`` world, with the
+    collectives' bytes and counts by kind (``coll_bytes/<kind>``,
+    ``coll_count/<kind>``)."""
+    tally = coll.Tally()
+    prev = shd.active()
     Lyr.set_unroll(True)
     try:
-        fn, args = sp.step_fn(cfg, shape, dp_size=1, microbatches=1)
+        dp = 1
+        if layout is not None:
+            rules = shd.set_mesh(shd.Mesh.over_shapes(*mesh_axes(layout),
+                                                      tally))
+            dp = rules.axis_size("dp")
+        fn, args = sp.step_fn(cfg, shape, dp_size=dp,
+                              microbatches=microbatches)
         with _Counter() as cnt:
             fn(*args)
-        return {"flops": float(cnt.flops), "flops_f32": float(cnt.flops_f32),
-                "bytes": float(cnt.bytes)}
     finally:
         Lyr.set_unroll(False)
+        shd.set_mesh(None if prev is None else prev.mesh)
+    out = {"flops": float(cnt.flops), "flops_f32": float(cnt.flops_f32),
+           "bytes": float(cnt.bytes)}
+    if layout is not None:
+        for k in coll.KINDS:
+            out[f"coll_bytes/{k}"] = tally.bytes[k]
+            out[f"coll_count/{k}"] = float(tally.counts[k])
+    return out
 
 
 def _extrapolate(lo, hi, l_lo, l_hi, l_full):
@@ -174,15 +202,25 @@ def _extrapolate(lo, hi, l_lo, l_hi, l_full):
     return out
 
 
+def probe_counts(cfg, shape, layout=None, microbatches=1) -> dict:
+    """FLOPs, f32 FLOPs and bytes of `cfg`'s step at `shape` (one rank's
+    under `layout`, with its collectives), extrapolated from the probes to
+    the full depth (one microbatch by default: the products of an
+    accumulated step are the same, its collectives are not). Memoized on
+    the four values, however they are passed: the dry run and the
+    roofline of a cell share one trace."""
+    return _probe_counts(cfg, shape, layout, microbatches)
+
+
 @functools.lru_cache(maxsize=None)
-def probe_counts(cfg, shape) -> dict:
-    """FLOPs, f32 FLOPs and bytes of `cfg`'s step at `shape`, extrapolated
-    from the probes to the full depth (one microbatch: the products of an
-    accumulated step are the same)."""
+def _probe_counts(cfg, shape, layout, microbatches) -> dict:
+    def probe(c):
+        return _lower_probe(c, shape, layout, microbatches)
+
     if cfg.family == "encdec":
-        rb = _lower_probe(_probe_cfg(cfg, 2, n_enc=2), shape)
-        re = _lower_probe(_probe_cfg(cfg, 2, n_enc=4), shape)
-        rd = _lower_probe(_probe_cfg(cfg, 4, n_enc=2), shape)
+        rb = probe(_probe_cfg(cfg, 2, n_enc=2))
+        re = probe(_probe_cfg(cfg, 2, n_enc=4))
+        rd = probe(_probe_cfg(cfg, 4, n_enc=2))
         full = {}
         for k in rb:
             enc_per = (re[k] - rb[k]) / 2.0
@@ -195,8 +233,8 @@ def probe_counts(cfg, shape) -> dict:
         return full
     l_lo = cfg.attn_every if cfg.family == "hybrid" else 2
     l_hi = 2 * l_lo
-    lo = _lower_probe(_probe_cfg(cfg, l_lo), shape)
-    hi = _lower_probe(_probe_cfg(cfg, l_hi), shape)
+    lo = probe(_probe_cfg(cfg, l_lo))
+    hi = probe(_probe_cfg(cfg, l_hi))
     return _extrapolate(lo, hi, l_lo, l_hi, cfg.n_layers - cfg.first_k_dense)
 
 

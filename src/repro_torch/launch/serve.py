@@ -14,8 +14,13 @@ runs on the card unless ``--device cpu`` is given.
 
 ``--dry-run`` runs ``launch.dryrun.run_cell`` for ``--shape`` (default
 ``decode_32k``) and exits 0 or 1 on its ``ok``, as the reference's
-launcher does; ``--multi-pod`` (the reference's 2x16x16 mesh) has no
-single-device counterpart and exits with an error.
+launcher does; ``--multi-pod`` (the reference's 2x16x16 mesh across
+hosts) exits with an error.
+
+`serve` runs unchanged inside a ``torch.distributed`` world of one process
+a card (``dist.world.spawn``) whose world mesh is active: the engine
+shards the model over it, every rank runs the same schedule and
+decisions, and only rank 0 logs.
 """
 from __future__ import annotations
 
@@ -25,6 +30,20 @@ import numpy as np
 
 STEPS_PER_MIN = 20     # one simulated trace-minute = 1 s of engine time
 MINUTE_S = 1.0
+
+
+def _quiet(*_args, **_kw) -> None:
+    return None
+
+
+def _logger(log):
+    """`log` on rank 0 of a ``torch.distributed`` world (or outside one),
+    else a logger that prints nothing."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_rank() != 0:
+        return _quiet
+    return log
 
 
 def bursty_rates(minutes: int) -> np.ndarray:
@@ -44,6 +63,7 @@ def serve(minutes: int, policy: str, trained, params, cfg, rates, rng, *,
     from repro_torch.scaling import adapter, registry
     from repro_torch.serve.engine import Request, ServingEngine
 
+    log = _logger(log)
     eng = ServingEngine(cfg, params, lanes_per_replica=4, max_replicas=8,
                         step_time_s=MINUTE_S / STEPS_PER_MIN,
                         startup_s=2.0, slo_s=1.5, device=device)
@@ -82,7 +102,7 @@ def run(minutes: int, policy: str, trained, params, cfg, rates, rng, *,
     engine's summary."""
     eng, auto = serve(minutes, policy, trained, params, cfg, rates, rng,
                       device=device)
-    print_why_scaled(auto.decision_trace())
+    print_why_scaled(auto.decision_trace(), log=_logger(print))
     return eng.summary()
 
 

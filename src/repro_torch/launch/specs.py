@@ -3,12 +3,19 @@ and cache (port of ``repro.launch.specs``: ``ShapeDtypeStruct`` becomes a
 tensor on the ``meta`` device, which has a shape and a dtype and holds no
 memory), plus the functions the dry run traces: train_step / prefill /
 decode.
+
+Under an active world mesh (``launch.dryrun`` traces under
+``dist.sharding.Mesh.over_shapes``) `step_fn`'s arguments are one rank's:
+its blocks of the parameters and optimizer state, its rows of the batch
+(``batch_shardings``) and its cache at the local batch (``init_cache`` of
+its rows: its blocks under ``cache_shardings``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.registry import ShapeSpec
+from repro_torch.dist import sharding as shd
 from repro_torch.models import model as M
 from repro_torch.models.common import ModelConfig
 from repro_torch.train import optimizer as opt_lib
@@ -70,19 +77,36 @@ def train_microbatches(cfg: ModelConfig, shape: ShapeSpec,
 
 def step_fn(cfg: ModelConfig, shape: ShapeSpec, *, dp_size: int = 16,
             microbatches: int | None = None):
-    """The function a dry-run cell traces, plus its meta args."""
+    """The function a dry-run cell traces, plus its meta args (one
+    rank's under a world mesh: see the module docstring)."""
+    rules = shd.model_rules()
+    params = param_specs(cfg)
+    sh = None
+    if rules is not None:
+        sh = shd.param_shardings(params)
+        params = shd.device_put(params, sh)
+
+    def rows(tree):
+        return tree if rules is None else \
+            shd.device_put(tree, shd.batch_shardings(tree))
+
     if shape.kind == "train":
         mb = (microbatches if microbatches is not None
               else train_microbatches(cfg, shape, dp_size))
         ts = make_train_step(cfg, microbatches=mb)
-        params = param_specs(cfg)
-        return ts, (params, opt_lib.init(params), input_specs(cfg, shape))
+        return ts, (params, opt_lib.init(params),
+                    rows(input_specs(cfg, shape)))
     if shape.kind == "prefill":
         def prefill_fn(params, batch):
-            return M.prefill(params, batch, cfg, max_len=shape.seq_len)
-        return prefill_fn, (param_specs(cfg), input_specs(cfg, shape))
+            return M.prefill(params, batch, cfg, max_len=shape.seq_len,
+                             shardings=sh)
+        return prefill_fn, (params, rows(input_specs(cfg, shape)))
 
     def decode_fn(params, cache, tokens):
-        return M.decode_step(params, cache, tokens, shape.seq_len - 1, cfg)
-    return decode_fn, (param_specs(cfg), cache_specs(cfg, shape),
-                       input_specs(cfg, shape)["tokens"])
+        return M.decode_step(params, cache, tokens, shape.seq_len - 1, cfg,
+                             shardings=sh)
+    mine = shd.batch_rows(shape.global_batch)
+    cache = M.init_cache(cfg, mine.stop - mine.start, shape.seq_len,
+                         device=META)
+    return decode_fn, (params, cache,
+                       rows(input_specs(cfg, shape))["tokens"])

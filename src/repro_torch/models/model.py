@@ -1,8 +1,9 @@
 """Family dispatch: one API over decoder-only and encoder-decoder models
 (port of ``repro.models.model``). `loss_fn` is differentiated by
-``torch.autograd`` in ``train.train_step``; under a world mesh
-(``dist.sharding``) it takes this rank's blocks of the parameters and its
-rows of the batch, and its loss is the global token mean."""
+``torch.autograd`` in ``train.train_step``. Under a world mesh
+(``dist.sharding``) every entry point takes this rank's blocks of the
+parameters and its rows of the batch (and of the cache); the loss is the
+global token mean."""
 from __future__ import annotations
 
 import torch
@@ -38,25 +39,28 @@ def param_shardings(cfg: ModelConfig):
     return shd.param_shardings(init(0, cfg, device="meta"))
 
 
-def _no_sharded_decode(what: str) -> None:
-    if shd.model_rules() is not None:
-        raise NotImplementedError(
-            f"{what} under a world mesh: the port has no sharded decode "
-            f"yet (dist.sharding.cache_shardings gives its layout)")
+def prefill(params, batch, cfg: ModelConfig, max_len: int, *,
+            shardings=None):
+    """(last-token logits, cache) of a prompt. Under a world mesh `params`
+    is this rank's blocks (of `shardings`: `param_shardings` when None)
+    and `batch` its rows; the cache holds its blocks under
+    ``dist.sharding.cache_shardings`` and the logits are its rows."""
+    return _mod(cfg).prefill(params, batch, cfg, max_len,
+                             shardings=shardings)
 
 
-def prefill(params, batch, cfg: ModelConfig, max_len: int):
-    _no_sharded_decode("prefill")
-    return _mod(cfg).prefill(params, batch, cfg, max_len)
-
-
-def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
-    _no_sharded_decode("decode_step")
-    return _mod(cfg).decode_step(params, cache, tokens, pos, cfg)
+def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
+                shardings=None):
+    """(logits [B,1,V], cache) of one decode step; under a world mesh as
+    `prefill`."""
+    return _mod(cfg).decode_step(params, cache, tokens, pos, cfg,
+                                 shardings=shardings)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda"):
+    """An empty cache of `batch` rows (under a world mesh: this rank's
+    rows, its blocks under ``dist.sharding.cache_shardings``)."""
     return _mod(cfg).init_cache(cfg, batch, max_len, device=device)
 
 

@@ -13,7 +13,10 @@ API:
     decode_step(params, cache, tok, pos, cfg) -> (logits, cache)
 
 `decode_step` and `prefill` write the attention caches in place (see
-``layers``); the returned cache dict holds the same tensors.
+``layers``); the returned cache dict holds the same tensors. Under a world
+mesh (``dist.sharding``) every entry point takes this rank's blocks of the
+parameters and its rows of the batch and the cache, and gathers each
+layer's leaves where the layer runs.
 """
 from __future__ import annotations
 
@@ -235,14 +238,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _run_layers(params, layer_cache: list, h, cfg, *, start: int,
-                count: int, pos):
+                count: int, pos, use):
     for li in range(start, start + count):
         h, _, layer_cache[li] = block_forward(
-            params["layers"][li], h, cfg, cache=layer_cache[li], pos=pos)
+            use(params["layers"][li], "layers", li), h, cfg,
+            cache=layer_cache[li], pos=pos)
     return h
 
 
-def _run_stack_with_cache(params, cache, h, cfg: ModelConfig, pos):
+def _run_stack_with_cache(params, cache, h, cfg: ModelConfig, pos, use):
     """Layer stack + (for hybrid) block-structured shared attention with
     per-application caches. Returns (h, new_cache)."""
     shared = params.get("shared_attn")
@@ -257,53 +261,70 @@ def _run_stack_with_cache(params, cache, h, cfg: ModelConfig, pos):
         shared_cache = list(cache["shared"])
         for app in range(n_apps):
             h = _run_layers(params, layer_cache, h, cfg, start=app * ae,
-                            count=ae, pos=pos)
+                            count=ae, pos=pos, use=use)
             h, shared_cache[app] = _shared_attn_block(
-                shared, h, cfg, cache=shared_cache[app], pos=pos)
+                use(shared, "shared_attn"), h, cfg, cache=shared_cache[app],
+                pos=pos)
         tail = n_scan - n_apps * ae
         if tail:
             h = _run_layers(params, layer_cache, h, cfg, start=n_apps * ae,
-                            count=tail, pos=pos)
+                            count=tail, pos=pos, use=use)
         new_cache["shared"] = shared_cache
         return h, new_cache
 
     h = _run_layers(params, layer_cache, h, cfg, start=0, count=n_scan,
-                    pos=pos)
+                    pos=pos, use=use)
     return h, new_cache
 
 
-def _dense_with_cache(params, cache, h, cfg, pos):
+def _dense_with_cache(params, cache, h, cfg, pos, use):
     new_dense = []
-    for dp, dc in zip(params.get("dense_layers", []),
-                      cache.get("dense_layers", [])):
-        h, _, nc = block_forward(dp, h, cfg, cache=dc, pos=pos,
-                                 dense_ff=True)
+    for i, (dp, dc) in enumerate(zip(params.get("dense_layers", []),
+                                     cache.get("dense_layers", []))):
+        h, _, nc = block_forward(use(dp, "dense_layers", i), h, cfg,
+                                 cache=dc, pos=pos, dense_ff=True)
         new_dense.append(nc)
     return h, new_dense
 
 
-def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
+def _head(params, h, cfg, use):
+    h = Lyr.rms_norm(h, use(params["final_norm"], "final_norm")["scale"],
+                     cfg.norm_eps)
+    return torch.einsum("bsd,dv->bsv", h, use(params["lm_head"], "lm_head"))
+
+
+def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
+                shardings=None):
     """One decode step. tokens [B,1] int, pos int.
-    Returns (logits [B,1,V], new_cache)."""
-    h = params["embed"][tokens]
-    h, new_dense = _dense_with_cache(params, cache, h, cfg, pos)
-    h, new_cache = _run_stack_with_cache(params, cache, h, cfg, pos)
+    Returns (logits [B,1,V], new_cache).
+
+    Under a world mesh `params` is this rank's blocks (of `shardings`, or
+    of ``dist.sharding.param_shardings`` of `init`'s tree), `tokens` and
+    the cache its rows (``dist.sharding.cache_shardings``): each layer's
+    leaves are gathered where the layer runs, as in `forward`, and the
+    logits are this rank's rows."""
+    use = _using(_shardings(cfg, shardings))
+    h = use(params["embed"], "embed")[tokens]
+    h, new_dense = _dense_with_cache(params, cache, h, cfg, pos, use)
+    h, new_cache = _run_stack_with_cache(params, cache, h, cfg, pos, use)
     if new_dense:
         new_cache["dense_layers"] = new_dense
-    h = Lyr.rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
-    logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])
-    return logits, new_cache
+    return _head(params, h, cfg, use), new_cache
 
 
-def prefill(params, batch, cfg: ModelConfig, max_len: int):
-    """Populate a cache from a prompt. Returns (last-token logits, cache)."""
-    h = shd.constrain(_embed_inputs(params, batch, cfg), ("dp", None, None))
+def prefill(params, batch, cfg: ModelConfig, max_len: int, *,
+            shardings=None):
+    """Populate a cache from a prompt. Returns (last-token logits, cache).
+    Under a world mesh as `decode_step`: `batch` is this rank's rows, and
+    the cache holds them (`init_cache` at the local batch)."""
+    use = _using(_shardings(cfg, shardings))
+    h = shd.constrain(_embed_inputs({"embed": use(params["embed"],
+                                                  "embed")}, batch, cfg),
+                      ("dp", None, None))
     cache = init_cache(cfg, batch["tokens"].shape[0], max_len,
                        device=h.device)
-    h, new_dense = _dense_with_cache(params, cache, h, cfg, 0)
-    h, new_cache = _run_stack_with_cache(params, cache, h, cfg, pos=0)
+    h, new_dense = _dense_with_cache(params, cache, h, cfg, 0, use)
+    h, new_cache = _run_stack_with_cache(params, cache, h, cfg, 0, use)
     if new_dense:
         new_cache["dense_layers"] = new_dense
-    h = Lyr.rms_norm(h[:, -1:], params["final_norm"]["scale"], cfg.norm_eps)
-    logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"])
-    return logits, new_cache
+    return _head(params, h[:, -1:], cfg, use), new_cache

@@ -20,6 +20,14 @@ t + startup). The decode step runs eagerly on `device` (``"cuda"`` by
 default; it raises when CUDA is absent rather than running on the CPU).
 The scheduler never reads the logits: a slot's next token is
 ``1 + tokens_done % 7``, so the schedule is the same on every device.
+
+Under a world mesh (``dist.sharding``, one process a card) every rank
+runs the whole host schedule (the queue, admissions, retirements and
+billing), so `summary()` is the same on each. `params` is then this
+rank's blocks (``dist.sharding.device_put`` under
+``models.model.param_shardings``); the rank holds the cache of its block
+of the slots (``dist.sharding.batch_rows``), decodes their tokens in the
+sharded decode step, and `last_logits` holds their rows.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import _device
+from repro_torch.dist import sharding as shd
 from repro_torch.models import model as M
 
 
@@ -97,21 +106,30 @@ class ServingEngine:
         self.queue: deque[Request] = deque()
         self.arrivals_total = 0             # monotonic arrival counter
         self._arrival_times: deque[float] = deque()  # for observed_rate
-        n_slots = max_replicas * lanes_per_replica
-        self.cache = M.init_cache(cfg, n_slots, max_len, device=self.device)
+        self.shardings = None
+        if shd.model_rules() is not None:
+            self.shardings = M.param_shardings(cfg)
+            shd.check_placed(params, self.shardings,
+                             M.init(0, cfg, device="meta"))
+        # this rank's slots under a world mesh, else every slot
+        self.rows = shd.batch_rows(max_replicas * lanes_per_replica)
+        self.cache = M.init_cache(cfg, self.rows.stop - self.rows.start,
+                                  max_len, device=self.device)
         self.active: dict[int, Request] = {}   # slot -> request
         self.stats = EngineStats()
         self.decode_steps = 0                  # batched decode steps run
         self.last_logits = None
 
     def _decode(self, toks: np.ndarray, pos: int) -> torch.Tensor:
-        """One eager decode step of every slot; `toks` [slots, 1] goes to
-        the card through pinned memory without waiting on it."""
-        t = torch.from_numpy(toks)
+        """One eager decode step of every slot (this rank's under a world
+        mesh); `toks` [slots, 1] goes to the card through pinned memory
+        without waiting on it."""
+        t = torch.from_numpy(np.ascontiguousarray(toks[self.rows]))
         if self.device.type == "cuda":
             t = t.pin_memory().to(self.device, non_blocking=True)
         logits, self.cache = M.decode_step(self.params, self.cache,
-                                           t, pos, self.cfg)
+                                           t, pos, self.cfg,
+                                           shardings=self.shardings)
         self.decode_steps += 1
         return logits
 

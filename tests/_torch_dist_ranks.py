@@ -65,13 +65,13 @@ def sharding_rank(rank: int, root: str) -> dict:
             shd.lane_sharding((4, 8), w_axis=1)
         except NotImplementedError as e:
             out[("lanes", shape)] = str(e)
-        try:
-            cfg = smoke_config(get_config("internlm2_1_8b"))
-            M.prefill(M.init(0, cfg, device="cpu"),
-                      {"tokens": torch.zeros((2, 4), dtype=torch.int32)},
-                      cfg, 8)
-        except NotImplementedError as e:
-            out[("decode", shape)] = str(e)
+        cfg = smoke_config(get_config("internlm2_1_8b"))
+        logits, _ = M.prefill(
+            shd.device_put(M.init(0, cfg, device="cpu"),
+                           M.param_shardings(cfg)),
+            {"tokens": torch.zeros((4, 4), dtype=torch.long)[
+                shd.batch_rows(4)]}, cfg, 8)
+        out[("decode", shape)] = tuple(logits.shape)
     # the elastic restore
     tree = {"w": torch.arange(64, dtype=torch.float32).reshape(8, 8)}
     mesh1 = shd.Mesh.over_world(("data",))
@@ -182,4 +182,81 @@ def train_rank(rank: int, inputs: str, arch: str, shapes) -> dict:
             mine["step"] = int(o2.step)
         out[shape] = mine
         shd.set_mesh(None)
+    return out
+
+
+def decode_rank(rank: int, inputs: str, shapes) -> dict:
+    """Prefill and decode steps of each given f32 smoke config (and
+    capacity factor) on a world mesh of each of `shapes`, from the given
+    params and this rank's rows of the prompt and the step tokens; on
+    rank 0 the same unsharded. Returns each step's logits (this rank's
+    rows), the last cache's blocks, the rows and the mesh coordinates."""
+    data = torch.load(inputs, weights_only=False)
+    meshes = {shape: launch_mesh.make_debug_mesh(*shape) for shape in shapes}
+    out = {}
+    for (arch, var), run in data["runs"].items():
+        cfg = dataclasses.replace(f32_smoke(arch),
+                                  capacity_factor=run["capacity_factor"])
+        params, batch, steps = run["params"], run["batch"], run["steps"]
+        prompt = batch["tokens"].shape[1]
+        if rank == 0:
+            logits, cache = M.prefill(params, batch, cfg, run["max_len"])
+            seq = [logits]
+            for i, tok in enumerate(steps):
+                logits, cache = M.decode_step(params, cache, tok,
+                                              prompt + i, cfg)
+                seq.append(logits)
+            out[(arch, var, "single")] = dict(logits=seq, cache=cache)
+        for shape, mesh in meshes.items():
+            shd.set_mesh(mesh)
+            sh = M.param_shardings(cfg)
+            local = shd.device_put(params, sh)
+            rows = shd.batch_rows(batch["tokens"].shape[0])
+            logits, cache = M.prefill(
+                local, shd.device_put(batch, shd.batch_shardings(batch)),
+                cfg, run["max_len"], shardings=sh)
+            seq = [logits]
+            for i, tok in enumerate(steps):
+                logits, cache = M.decode_step(local, cache, tok[rows],
+                                              prompt + i, cfg,
+                                              shardings=sh)
+                seq.append(logits)
+            out[(arch, var, shape)] = dict(logits=seq, cache=cache,
+                                           rows=rows, coords=mesh.coords)
+            shd.set_mesh(None)
+    return out
+
+
+def serve_rank(rank: int, inputs: str, shape) -> dict:
+    """The launcher's bursty script under AAPA (``launch.serve.serve``) at
+    smoke width in f32 with the given classifier: on rank 0 first without
+    a mesh, then on every rank under a world mesh of `shape`. Returns each
+    run's summary, decision log, last logits (this rank's rows) and the
+    lines it logged."""
+    import numpy as np
+
+    from repro_torch.launch import serve as launcher
+    data = torch.load(inputs, weights_only=False)
+    cfg = f32_smoke(data["arch"])
+    params = M.init(0, cfg, device="cpu")
+    rates = launcher.bursty_rates(data["minutes"])
+
+    def run():
+        logged = []
+        eng, auto = launcher.serve(
+            data["minutes"], "aapa", data["trained"], local, cfg, rates,
+            np.random.default_rng(0), device="cpu", log=logged.append)
+        return dict(summary=eng.summary(), trace=auto.decision_trace(),
+                    last_logits=eng.last_logits, logged=logged,
+                    rows=eng.rows, decode_steps=eng.decode_steps)
+
+    out = {}
+    if rank == 0:
+        local = params
+        out["single"] = run()
+    mesh = launch_mesh.make_debug_mesh(*shape)
+    shd.set_mesh(mesh)
+    local = shd.device_put(params, M.param_shardings(cfg))
+    out["sharded"] = run()
+    shd.set_mesh(None)
     return out

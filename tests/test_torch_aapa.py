@@ -8,6 +8,7 @@ fields are held at the episode tolerance (rtol 3e-6 / atol 1e-4,
 tests/test_kernel_smoke.py), and the archetype every lane carries after
 every minute is held exactly.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import functools
 
 import jax

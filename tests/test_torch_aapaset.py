@@ -12,6 +12,7 @@ that tolerance of the LF's threshold; the test finds those windows and
 requires every disagreement to be one of them. Hashes, the manifest
 format and the loaders' batches and fleet chunks are equal exactly.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 
 import numpy as np

@@ -16,6 +16,7 @@ each with its own package's controller. Held:
 * the port's own simulator and adapter records agree at the reference
   test's rtol/atol 1e-5.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -15,6 +15,7 @@ by what it is for, on seeded probabilities:
 ECE is NumPy in both packages and must be equal exactly on equal
 probabilities.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,7 @@ with the JAX reference (``repro.sim.cluster``) for HPA, on the CPU.
 The same numpy-seeded rates go through both packages; MinuteOut fields
 are held at the reference's episode tolerance (rtol 3e-6 / atol 1e-4,
 tests/test_kernel_smoke.py)."""
+import _torch_threads  # noqa: F401  (one torch thread)
 import functools
 
 import jax

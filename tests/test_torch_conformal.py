@@ -11,6 +11,7 @@ quantile at the same tolerance (an order statistic moves by at most the
 largest residual difference); the calibration split's mean |y| at rtol
 1e-5 (the port sums it in f64); coverage within 2/n.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,7 @@ sum the columns' and the data ranks' parts in another order). At factor
 8 the output also matches the single-program scatter path within the
 reference's own 1e-3 (tests/test_distributed.py).
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import jax
 import numpy as np
 import pytest

@@ -11,6 +11,7 @@ by path name), the batch specs, and the cache specs on the reference's
 stacked cache, whose per-layer specs are the port's with the stacked
 layer axis added. Everything else is exact.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import os
 import socket
 import subprocess
@@ -115,7 +116,8 @@ def test_placement_round_trip(run, shape):
     distinct, tile the array, and gather_tree brings it back on every
     rank; one rank owns each block; constrain returns a rank-local
     tensor as it is and refuses one on another device; the lane helpers
-    and a decode (prefill) refuse a world mesh."""
+    refuse a world mesh, and a prefill of this rank's rows of the batch
+    runs on it."""
     _, got = run
     x = np.arange(64 * 6, dtype=np.float32).reshape(8, 8, 6)
     seen = np.zeros(x.shape, bool)
@@ -134,7 +136,7 @@ def test_placement_round_trip(run, shape):
         owners += p["owned"]
         assert "rank" in r[("constrain_meta", shape)]
         assert "world mesh" in r[("lanes", shape)]
-        assert "sharded decode" in r[("decode", shape)]
+        assert r[("decode", shape)] == (4 // n_data, 1, 256)
     assert seen.all() and owners == 4
 
 

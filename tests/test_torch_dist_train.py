@@ -9,6 +9,7 @@ optimizer leaf at the train-step tolerances of
 layer runs; the dense math is the single-device step's, so the loss also
 holds the port's unsharded step at rtol 1e-5.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import math
 
 import pytest

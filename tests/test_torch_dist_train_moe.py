@@ -10,6 +10,7 @@ unsharded step the loss holds the reference's own 0.05
 (tests/test_distributed.py): the expert-parallel path routes each
 column's tokens at a local capacity and averages per-column aux losses.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import pytest
 
 import _dist_train as dt

@@ -17,6 +17,7 @@ widths with a large prime factor (211, 223, ...), ducc0 runs Bluestein's
 algorithm, which the port's radix passes do not repeat; there the
 spectrum is bounded, not bitwise.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

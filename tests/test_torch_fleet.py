@@ -10,6 +10,7 @@ streaming at rtol 2e-6; quantiles at the histogram's half-bin bound
 (they snap to bin representatives), atol 1e-3 throughout. REI likewise.
 Chunk rates and seeds are NumPy and equal bit for bit.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 
 import numpy as np

@@ -10,6 +10,7 @@ recurrences' products into their adds, so the two are not bitwise equal
 everywhere (ROADMAP §C), and the band's lower edge `point - half`
 cancels.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,7 @@ the conformal band is the reference's, carried across through
 ``interop``. The card's walks are held against the same plain version in
 ``tests/test_torch_cuda.py``.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import functools
 
 import jax

@@ -10,6 +10,7 @@ the per-class leaves in an order that depends on the compile, ROADMAP
 §C); calibrated probabilities and confidences to rtol
 4e-6, since the port's exp/log are correctly rounded and XLA's are not.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,7 @@ Tolerances:
 * Logits within 4 ulp of the largest logit, argmax equal (the rule the
   port's inference is held to; C3a in ROADMAP).
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

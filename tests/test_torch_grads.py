@@ -13,6 +13,7 @@ rtol 1e-4. ``remat=True`` (each layer and each flash query chunk
 recomputed in the backward pass) and ``remat=False`` give bitwise-equal
 gradients on the port.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 
 import jax

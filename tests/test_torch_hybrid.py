@@ -10,6 +10,7 @@ conformal band is the reference's, calibrated on a ``burst_storm`` split
 and carried across through ``interop``; the GBDT classifier is trained by
 the reference and crosses over through its npz.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import functools
 
 import jax

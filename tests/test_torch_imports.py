@@ -4,6 +4,7 @@ JAX package, and none imports the
 CUDA extension builder or Triton at module level (importing the port on
 a machine without nvcc must not build anything). ``chip_smoke.py``
 refuses to run without a card."""
+import _torch_threads  # noqa: F401  (one torch thread)
 import ast
 import subprocess
 import sys

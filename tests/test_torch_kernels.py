@@ -2,6 +2,7 @@
 versions against the JAX reference's oracles and its Pallas kernels in
 interpret mode, device dispatch, and wrapper validation. The CUDA
 kernels themselves are checked in tests/test_torch_cuda.py."""
+import _torch_threads  # noqa: F401  (one torch thread)
 from pathlib import Path
 
 import jax.numpy as jnp

@@ -8,6 +8,7 @@ comparisons, integer counts and one IEEE division), ties included: one
 crafted vote row for every tie pattern between two, three and four
 classes, and the all-abstain row.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import itertools
 
 import jax.numpy as jnp

@@ -17,9 +17,11 @@ mesh}``) against the JAX reference's on the CPU, on the meta device.
   ``torch.utils.checkpoint`` stops recomputing there). The counter equals
   ``FlopCounterMode``'s count, and the probes' extrapolation equals a
   trace at the full depth.
-* The multi-pod mesh raises; the production mesh needs a card,
+* The dry run records the multi-pod mesh; the mesh itself and
+  ``launch.train --multi-pod`` raise; the production mesh needs a card,
   the debug mesh builds on the CPU.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import os
 
@@ -154,13 +156,20 @@ def test_run_cell_all_cells():
 
 
 def test_multi_pod_and_mesh_raise(monkeypatch):
-    """The multi-pod mesh spans hosts and raises, naming model sharding;
-    the production mesh needs a card (here there is none); the debug mesh
-    builds on the CPU."""
-    with pytest.raises(NotImplementedError, match="model sharding"):
-        dryrun.run_cell("stablelm_1_6b", "train_4k", multi_pod=True)
+    """The dry run records the multi-pod mesh (2x16x16) as one rank of
+    it; the mesh itself spans hosts, so it and the launchers'
+    ``--multi-pod`` raise, naming model sharding; the production mesh
+    needs a card (here there is none); the debug mesh builds on the
+    CPU."""
+    from repro_torch.launch import train as launch_train
+    rec = dryrun.run_cell("stablelm_1_6b", "decode_32k", multi_pod=True)
+    assert rec["ok"] and rec["mesh"] == "2x16x16" and rec["n_devices"] == 512
+    assert rec["local_batch"] == 128 // 32
     with pytest.raises(NotImplementedError, match="model sharding"):
         mesh.make_production_mesh(multi_pod=True)
+    with pytest.raises(NotImplementedError, match="model sharding"):
+        launch_train.main(["--arch", "stablelm_1_6b", "--multi-pod",
+                           "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device"):
         mesh.make_production_mesh()
@@ -225,3 +234,16 @@ def test_probe_cell_terms():
     assert rec["memory_s"] == pytest.approx(
         rec["bytes_per_device"] / roofline.HBM_BW)
     assert 0.3 < rec["useful_flop_ratio"] < 1.0
+
+
+def test_roofline_reuses_the_dry_run_trace():
+    """A cell's roofline record takes its counts from the dry run's trace
+    of the same cell (one memo entry, however the call is written): it
+    traces nothing again."""
+    dryrun.run_cell("internlm2_1_8b", "decode_32k")
+    misses = roofline._probe_counts.cache_info().misses
+    roofline.probe_cell("internlm2_1_8b", "decode_32k")
+    assert roofline._probe_counts.cache_info().misses == misses
+    cfg, shape = get_config("internlm2_1_8b"), SHAPES["decode_32k"]
+    assert roofline.probe_counts(cfg, shape) is roofline.probe_counts(
+        cfg, shape, None, 1)

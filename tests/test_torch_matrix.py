@@ -13,6 +13,7 @@ is held against the per-workload mode at the reference's reordered-
 pooling tolerance (rtol 2e-6, tests/test_fleet.py) with the counts exact.
 Result cards are addressed by the reference's hashes.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import functools
 
 import jax

@@ -15,6 +15,7 @@ reference's pin, tests/test_fleet.py). Against the reference the fleet
 and the matrix hold rtol 2e-6, quantiles at the histogram's half-bin
 bound for the fleet and equal bins for the matrix.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import itertools
 import logging

@@ -4,6 +4,7 @@ generators with the JAX reference, on the CPU.
 Metric tolerances are the reference's own (tests/test_evals.py): rtol
 2e-4 with abs 1e-3, quantiles at 2.5x the histogram's half-bin bound.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

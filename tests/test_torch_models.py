@@ -12,6 +12,7 @@ are held on the port: shapes and finite values of forward, loss, prefill
 and decode; decode token by token against the full forward; parameter
 counts of the full configs.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 
 import jax

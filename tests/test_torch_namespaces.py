@@ -9,6 +9,7 @@ module it comes from): code written against the reference's namespace
 then runs on the port. The reference's ``__init__`` files are read as
 source, so this holds whatever else a test session has imported.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import ast
 import importlib
 import importlib.util

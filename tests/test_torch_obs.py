@@ -18,6 +18,7 @@ blocked scan with telemetry, the port's blocked loop with
   packages exactly; on each package's own trace the blame counts are
   equal for every policy on these inputs.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import json
 
 import jax.numpy as jnp

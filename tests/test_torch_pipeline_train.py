@@ -11,6 +11,7 @@ of the reference's (measured: at most 0.00075 apart), the weak-label
 distribution and window count exactly. Each package's npz loads in the
 other with equal arrays.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 
 import numpy as np

@@ -10,6 +10,7 @@ tolerance (rtol 3e-6 / atol 1e-4, tests/test_kernel_smoke.py). The
 conformal band is the reference's, calibrated on a ``burst_storm`` split
 and carried across through ``interop``.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import functools
 
 import jax

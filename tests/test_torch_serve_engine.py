@@ -13,6 +13,7 @@ the reference's exactly, with its decision log against the reference's
 scheduler never reads the logits, so the model's numbers do not enter
 the comparison; the schedule, the adapter and the controller do.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import importlib.util
 import io
 import contextlib

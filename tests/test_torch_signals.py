@@ -14,6 +14,7 @@ tolerance (rtol 3e-6 / atol 1e-4, tests/test_kernel_smoke.py). The GBDT is
 trained by the reference and crosses over through its npz; the conformal
 band is the reference's, carried across through ``interop``.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import functools
 
 import jax

@@ -1,6 +1,7 @@
 """The port's whole slice at a small size against the JAX reference:
 burst_storm -> HPA -> make_simulator(w_chunk) -> pooled metrics -> REI,
 the path ``chip_smoke.py`` runs at fleet scale on the card."""
+import _torch_threads  # noqa: F401  (one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

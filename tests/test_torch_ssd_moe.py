@@ -6,6 +6,7 @@ dense reference, capacity drops and the capacity formula. Inputs are
 NumPy-seeded; parameters are the reference's, carried across. Tolerance
 rtol 1e-4 / atol 1e-4 (the reference's SSD tolerance; its MoE claim holds
 at 2e-4)."""
+import _torch_threads  # noqa: F401  (one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,7 @@ the reference's miniature dataset (``tests/test_system.py``) with its
 inputs and its assertions: the classifier's accuracy on the weak labels,
 and the paper's central claims directionally (AAPA has no more SLO
 violations and cold starts than HPA, at more replica-minutes)."""
+import _torch_threads  # noqa: F401  (one torch thread)
 import pytest
 import torch
 

@@ -28,6 +28,7 @@ reciprocal, which the port repeats). Tolerances:
 * Checkpoints of a tree of plain dicts (f32, bf16, an int32 scalar)
   interchange bit for bit in both directions.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import dataclasses
 import os
 

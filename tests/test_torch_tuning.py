@@ -10,6 +10,7 @@ tests/test_fleet.py). The winner is the reference's where the runner-up
 trails by more than that tolerance; on a near-tie the port's winner
 scores within it of the reference's best.
 """
+import _torch_threads  # noqa: F401  (one torch thread)
 import sys
 
 import jax.numpy as jnp

@@ -13,11 +13,12 @@ one host: one process a card (``repro_torch.dist.world.spawn``, NCCL, a
    step (``chip_smoke.check_step``: the loss, grad_norm, each leaf's new
    first moment and the new params), and one step without dropped tokens
    held so against its own unsharded step (``chip_smoke.SHARD_TOL``).
-2. The deep run: before it, each layout's bytes a card are reckoned from
-   the port's meta-device shapes and ``param_shardings`` (`reckon`: the
-   params and the f32 master, m and v, the gradients, the new state that
-   AdamW returns beside the old, and the larger of the gathered layer
-   and AdamW's f64 temporaries of the largest block); the layout with the
+2. The deep run: before it, each layout's bytes a card are reckoned by
+   ``launch.dryrun.device_memory``, the memory of the dry run's per-device
+   record of the step (`reckon`: the params and the f32 master, m and v,
+   the batch, and the larger of the backward's working set (with a
+   gathered layer and its gradient) and AdamW's: the gradients, the new
+   state beside the old and its f64 temporaries); the layout with the
    fewest runs the deepest cut whose reckoning fits CARD_SHARE of a
    card's memory (all 27 layers when they fit), DEEP_STEPS steps at one
    microbatch. Gate: finite losses. Per card: each step's wall and peak
@@ -65,34 +66,27 @@ DEADLINE_S = 1500
 
 def reckon(n_layers: int, shape) -> dict:
     """Bytes a card of `shape` = (data, model) holds for one sharded step
-    of SHARD_ARCH cut to `n_layers` (see the module docstring)."""
-    from repro_torch.dist import sharding as shd
+    of SHARD_ARCH cut to `n_layers` on the launcher's batch: the memory of
+    ``launch.dryrun``'s per-device record (see the module docstring)."""
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch import dryrun
     from repro_torch.models import model as M
     from repro_torch.train import optimizer as opt_lib
     cfg = cs.shard_cfg(n_layers)
-    full = M.init(0, cfg, device="meta")
-    shd.set_mesh(shd.Mesh(["cpu"] * (shape[0] * shape[1]),
-                          ("data", "model"), shape))
-    try:
-        sh = shd.param_shardings(full)
-    finally:
-        shd.set_mesh(None)
-    leaves, specs = opt_lib.leaves(full), opt_lib.leaves(sh)
-    blocks = [math.prod(s.shard_shape(tuple(t.shape)))
-              for t, s in zip(leaves, specs)]
-    n = sum(blocks)
-    layer = 0          # the largest layer as its gathers leave it (bf16)
-    for t, s in zip(opt_lib.leaves(full["layers"][0]),
-                    opt_lib.leaves(sh["layers"][0])):
-        layer += t.numel() // (shape[1] if "model" in s.spec else 1) * 2
-    state = n * (2 + 3 * 4)
-    grads = n * 2
-    temps = max(blocks) * 8 * 4
+    rows, seq = cs.TRAIN_BATCH
+    mem = dryrun.device_memory(cfg,
+                             ShapeSpec("launcher", seq, rows, "train"),
+                             f"{shape[0]}x{shape[1]}")
+    parts = mem["parts"]
     return dict(layers=n_layers, shape=list(shape),
-                params=sum(t.numel() for t in leaves), params_a_card=n,
-                state_bytes=state, grad_bytes=grads, layer_bytes=layer,
-                f64_bytes=temps,
-                peak_bytes=2 * state + grads + max(temps, 2 * layer))
+                params=sum(t.numel() for t in opt_lib.leaves(
+                    M.init(0, cfg, device="meta"))),
+                params_a_card=mem["params_per_device"],
+                state_bytes=parts["params"] + parts["opt"],
+                grad_bytes=parts["params"],
+                layer_bytes=parts["gathered_layer"],
+                f64_bytes=parts["f64_temps"],
+                peak_bytes=mem["argument_bytes"] + mem["activation_bytes"])
 
 
 def layouts(n: int) -> list[tuple[int, int]]:
